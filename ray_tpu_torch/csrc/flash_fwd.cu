@@ -50,40 +50,6 @@ constexpr size_t smem_bytes() {
          (kBQ * (D + 1) + kBK * (D + 1) + kBK * D + kBQ * (kBK + 1));
 }
 
-// Copy rows [row0, row0 + R) of a (rows, stride) array of T, D columns
-// each, into a float tile in shared memory with row stride DST; rows at
-// or past `nrows` read as 0. Every load is a 16-byte vector, and all of
-// a thread's loads are issued before the first store.
-template <typename T, int D, int R, int DST>
-__device__ __forceinline__ void load_tile(const T* __restrict__ src,
-                                          long stride, int row0, int nrows,
-                                          float* dst, int tid) {
-  constexpr int kVec = 16 / sizeof(T);
-  constexpr int kVecPerRow = D / kVec;
-  constexpr int kTotal = R * kVecPerRow;
-  constexpr int kPer = (kTotal + kThreads - 1) / kThreads;
-  uint4 reg[kPer];
-#pragma unroll
-  for (int i = 0; i < kPer; ++i) {
-    const int vi = tid + kThreads * i;
-    const int r = vi / kVecPerRow;
-    reg[i] = make_uint4(0, 0, 0, 0);
-    if (vi < kTotal && row0 + r < nrows)
-      reg[i] = *reinterpret_cast<const uint4*>(
-          src + (row0 + r) * stride + (vi % kVecPerRow) * kVec);
-  }
-#pragma unroll
-  for (int i = 0; i < kPer; ++i) {
-    const int vi = tid + kThreads * i;
-    if (vi >= kTotal) continue;
-    const int r = vi / kVecPerRow;
-    const int d0 = (vi % kVecPerRow) * kVec;
-    const T* x = reinterpret_cast<const T*>(&reg[i]);
-#pragma unroll
-    for (int e = 0; e < kVec; ++e) dst[r * DST + d0 + e] = rtt::to_f32(x[e]);
-  }
-}
-
 // Thread (tr, tc) = (tid / 8, tid % 8) owns query rows tr*4 .. tr*4+3 of
 // the tile, score columns tc + 8*j (j < 8) and output columns tc + 8*j
 // (j < D/8). The 8 lanes of a row group are consecutive lanes of one
@@ -121,7 +87,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* kb = k + (long)b * Sk * kv_stride + (long)kvh * D;
   const T* vb = v + (long)b * Sk * kv_stride + (long)kvh * D;
 
-  load_tile<T, D, kBQ, DP>(qb, q_stride, q0, Sq, sQ, tid);
+  rtt::load_tile<T, D, kBQ, DP, kThreads>(qb, q_stride, q0, Sq, sQ, tid);
 
   float m[RPT], l[RPT], acc[RPT][OPT];
 #pragma unroll
@@ -136,8 +102,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int k_end = causal ? min(Sk, q0 + kBQ) : Sk;
   for (int k0 = 0; k0 < k_end; k0 += kBK) {
     __syncthreads();  // sQ written / previous tile's sK, sV consumed
-    load_tile<T, D, kBK, DP>(kb, kv_stride, k0, Sk, sK, tid);
-    load_tile<T, D, kBK, D>(vb, kv_stride, k0, Sk, sV, tid);
+    rtt::load_tile<T, D, kBK, DP, kThreads>(kb, kv_stride, k0, Sk, sK, tid);
+    rtt::load_tile<T, D, kBK, D, kThreads>(vb, kv_stride, k0, Sk, sV, tid);
     __syncthreads();
 
     float s[RPT][CPT];
@@ -257,66 +223,10 @@ cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v,
 // share g. Tiles sit in shared memory as bf16 with rows padded by 8
 // elements, which keeps every fragment load free of bank conflicts.
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0,
-                                         uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo,
-                                              __nv_bfloat16 hi) {
-  __nv_bfloat162 v;
-  v.x = lo;
-  v.y = hi;
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
 template <int D>
 constexpr size_t mma_smem_bytes() {
   // sQ [BQ][D+8], sK [BK][D+8], sV [BK][D+8], bf16
   return sizeof(__nv_bfloat16) * (kBQ + 2 * kBK) * (D + 8);
-}
-
-// Rows [row0, row0 + R) of a (rows, stride) bf16 array, D columns each,
-// into shared memory with row stride DS; rows at or past `nrows` are 0.
-template <int D, int R, int DS>
-__device__ __forceinline__ void copy_tile_bf16(
-    const __nv_bfloat16* __restrict__ src, long stride, int row0, int nrows,
-    __nv_bfloat16* dst, int tid) {
-  constexpr int kVecPerRow = D / 8;
-  constexpr int kTotal = R * kVecPerRow;
-  constexpr int kPer = (kTotal + kThreads - 1) / kThreads;
-  uint4 reg[kPer];
-#pragma unroll
-  for (int i = 0; i < kPer; ++i) {
-    const int vi = tid + kThreads * i;
-    const int r = vi / kVecPerRow;
-    reg[i] = make_uint4(0, 0, 0, 0);
-    if (vi < kTotal && row0 + r < nrows)
-      reg[i] = *reinterpret_cast<const uint4*>(
-          src + (row0 + r) * stride + (vi % kVecPerRow) * 8);
-  }
-#pragma unroll
-  for (int i = 0; i < kPer; ++i) {
-    const int vi = tid + kThreads * i;
-    if (vi >= kTotal) continue;
-    const int r = vi / kVecPerRow;
-    *reinterpret_cast<uint4*>(dst + r * DS + (vi % kVecPerRow) * 8) = reg[i];
-  }
 }
 
 template <int D>
@@ -351,7 +261,7 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
   const __nv_bfloat16* kb = k + (long)b * Sk * kv_stride + (long)kvh * D;
   const __nv_bfloat16* vb = v + (long)b * Sk * kv_stride + (long)kvh * D;
 
-  copy_tile_bf16<D, kBQ, DS>(qb, q_stride, q0, Sq, sQ, tid);
+  rtt::copy_tile_bf16<D, kBQ, DS, kThreads>(qb, q_stride, q0, Sq, sQ, tid);
 
   const int qpos[2] = {q0 + wrow + g, q0 + wrow + g + 8};
   float m[2] = {rtt::kNegInf, rtt::kNegInf};
@@ -365,8 +275,10 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
   const int k_end = causal ? min(Sk, q0 + kBQ) : Sk;
   for (int k0 = 0; k0 < k_end; k0 += kBK) {
     __syncthreads();  // sQ written / previous tile's sK, sV consumed
-    copy_tile_bf16<D, kBK, DS>(kb, kv_stride, k0, Sk, sK, tid);
-    copy_tile_bf16<D, kBK, DS>(vb, kv_stride, k0, Sk, sV, tid);
+    rtt::copy_tile_bf16<D, kBK, DS, kThreads>(kb, kv_stride, k0, Sk, sK,
+                                              tid);
+    rtt::copy_tile_bf16<D, kBK, DS, kThreads>(vb, kv_stride, k0, Sk, sV,
+                                              tid);
     __syncthreads();
 
     // S = Q K^T for this warp's 16 rows and the tile's 64 keys
@@ -378,12 +290,14 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
       const __nv_bfloat16* qa = sQ + (wrow + g) * DS + kk * 16 + 2 * t;
-      const uint32_t a0 = ld32(qa), a1 = ld32(qa + 8 * DS);
-      const uint32_t a2 = ld32(qa + 8), a3 = ld32(qa + 8 * DS + 8);
+      const uint32_t a0 = rtt::ld32(qa), a1 = rtt::ld32(qa + 8 * DS);
+      const uint32_t a2 = rtt::ld32(qa + 8);
+      const uint32_t a3 = rtt::ld32(qa + 8 * DS + 8);
 #pragma unroll
       for (int j = 0; j < NT; ++j) {
         const __nv_bfloat16* kp = sK + (j * 8 + g) * DS + kk * 16 + 2 * t;
-        mma_bf16(s[j], a0, a1, a2, a3, ld32(kp), ld32(kp + 8));
+        rtt::mma_bf16(s[j], a0, a1, a2, a3, rtt::ld32(kp),
+                      rtt::ld32(kp + 8));
       }
     }
 
@@ -428,16 +342,16 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
     // O += P V: S's accumulator layout is the A-fragment layout of P
 #pragma unroll
     for (int kk = 0; kk < kBK / 16; ++kk) {
-      const uint32_t a0 = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      const uint32_t a1 = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      const uint32_t a2 = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      const uint32_t a3 = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+      const uint32_t a0 = rtt::pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+      const uint32_t a1 = rtt::pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+      const uint32_t a2 = rtt::pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+      const uint32_t a3 = rtt::pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
       const __nv_bfloat16* vp = sV + (kk * 16 + 2 * t) * DS + g;
 #pragma unroll
       for (int n = 0; n < NO; ++n) {
         const __nv_bfloat16* c = vp + n * 8;
-        mma_bf16(acc[n], a0, a1, a2, a3, pack_bf16(c[0], c[DS]),
-                 pack_bf16(c[8 * DS], c[9 * DS]));
+        rtt::mma_bf16(acc[n], a0, a1, a2, a3, rtt::pack_bf16(c[0], c[DS]),
+                      rtt::pack_bf16(c[8 * DS], c[9 * DS]));
       }
     }
   }
@@ -452,7 +366,7 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int n = 0; n < NO; ++n)
       *reinterpret_cast<uint32_t*>(orow + n * 8) =
-          pack_bf16(acc[n][2 * r] * inv, acc[n][2 * r + 1] * inv);
+          rtt::pack_bf16(acc[n][2 * r] * inv, acc[n][2 * r + 1] * inv);
     if (t == 0) lse[(long)bh * Sq + qpos[r]] = m[r] + logf(safe_l);
   }
 }

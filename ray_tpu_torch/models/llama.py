@@ -21,6 +21,8 @@ from typing import List, Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..ops import (apply_rotary, cached_attention, multi_head_attention,
                    rms_norm, rope_frequencies, swiglu)
@@ -39,9 +41,12 @@ class LlamaConfig:
     rope_theta: float = 500000.0
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
-    # Activation checkpointing applies to the training forward only; it
-    # comes with the training slice, and a grad-enabled forward of a
-    # remat config raises until then.
+    # Activation checkpointing of each block, on the cache-less forward
+    # with grad enabled (the training forward). "full": recompute the
+    # whole block in the backward (most memory saved, ~1.33x the
+    # forward's operations). "dots": save the projections' matrix
+    # products and recompute only the cheap elementwise ops and
+    # attention, the counterpart of jax's dots_with_no_batch_dims_saveable.
     remat: bool = False
     remat_policy: str = "full"
     dtype: torch.dtype = torch.bfloat16
@@ -114,6 +119,27 @@ def _apply_dense(layer: nn.Linear, x: torch.Tensor,
     return F.linear(x.to(dtype), layer.weight.to(dtype))
 
 
+class _MatmulFp32Out(torch.autograd.Function):
+    """x (N, d) @ w (V, d)^T on CUDA with low-precision operands and an
+    fp32 result (`torch.mm(out_dtype=float32)`, which has no derivative
+    of its own). The backward rounds the fp32 output gradient to the
+    operands' type and runs the two products on the tensor cores, as
+    autocast does for a bf16 matmul; dx and dw come back in that type."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return torch.mm(x, w.t(), out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.to(x.dtype)
+        dx = torch.mm(g, w) if ctx.needs_input_grad[0] else None
+        dw = torch.mm(g.t(), x) if ctx.needs_input_grad[1] else None
+        return dx, dw
+
+
 def logits_fp32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x (..., d) @ w (V, d)^T with w cast to x's type and fp32
     accumulation, returned in fp32 (never rounded to x's type)."""
@@ -121,8 +147,7 @@ def logits_fp32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if x.dtype == torch.float32:
         return x @ w.t()
     if x.is_cuda:
-        out = torch.mm(x.reshape(-1, x.shape[-1]), w.t(),
-                       out_dtype=torch.float32)
+        out = _MatmulFp32Out.apply(x.reshape(-1, x.shape[-1]), w)
         return out.reshape(*x.shape[:-1], w.shape[0])
     # a bf16 value is exact in fp32, so this is the same product
     return x.float() @ w.float().t()
@@ -206,6 +231,25 @@ class _LMHead(nn.Module):
         return logits_fp32(x, self.weight)
 
 
+def _save_dots(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy of remat_policy="dots": keep the
+    outputs of matrix products with no batch dims (the projections'
+    `mm`), recompute everything else; attention's batched products are
+    recomputed, as under jax's dots_with_no_batch_dims_saveable."""
+    if op == torch.ops.aten.mm.default:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_block(block: "LlamaBlock", policy: str, x, cos, sin):
+    """block(x, cos, sin) under activation checkpointing."""
+    kw = {}
+    if policy == "dots":
+        kw["context_fn"] = lambda: create_selective_checkpoint_contexts(
+            _save_dots)
+    return checkpoint(block, x, cos, sin, use_reentrant=False, **kw)
+
+
 def _lecun_normal_(w: torch.Tensor, gen: torch.Generator) -> None:
     """flax lecun_normal: truncated normal (+-2 std) with variance
     1/fan_in; fan_in is the input width, dim 1 of a (out, in) weight.
@@ -267,16 +311,18 @@ class Llama(nn.Module):
     def forward(self, tokens: torch.Tensor, cache=None,
                 positions: Optional[torch.Tensor] = None):
         cfg = self.cfg
-        if cfg.remat and cache is None and torch.is_grad_enabled():
-            raise NotImplementedError(
-                "remat (activation checkpointing) comes with the training "
-                "slice; run the forward under torch.no_grad() or build the "
-                "config with remat=False")
+        # remat trades recompute for memory on the train path only; the
+        # cached (serving) path never checkpoints
+        remat = cfg.remat and cache is None and torch.is_grad_enabled()
         x = F.embedding(tokens.long(), self.token_embed.weight).to(cfg.dtype)
         new_cache = []
         for i, block in enumerate(self.blocks):
-            x, c = block(x, self.rope_cos, self.rope_sin,
-                         None if cache is None else cache[i], positions)
+            if remat:
+                x, c = _remat_block(block, cfg.remat_policy, x,
+                                    self.rope_cos, self.rope_sin)
+            else:
+                x, c = block(x, self.rope_cos, self.rope_sin,
+                             None if cache is None else cache[i], positions)
             new_cache.append(c)
         x = rms_norm(x, self.final_norm, cfg.norm_eps)
         if cfg.tie_embeddings:

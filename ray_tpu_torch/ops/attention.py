@@ -1,8 +1,15 @@
 """Attention (counterpart of ray_tpu/ops/attention.py).
 
-`multi_head_attention` is the plain einsum path (fp32 scores, causal,
-GQA, segment masks). The cached paths share one tail, `_attend_cached`,
-so the paged and contiguous caches cannot drift apart numerically.
+`multi_head_attention` routes by device and shape, as `_resolve_impl`
+does in the reference but with no crossover length and no knob: on a
+CUDA tensor it takes `kernels.flash_attention` (K1 forward, K2a/K2b
+backward) when there are no segment ids, the mask needs no offset
+(`not causal or Sq == Sk`: the kernels compare absolute indices), the
+head dim is one the kernels are built for and the type is fp32 or bf16;
+every other call, and every CPU tensor, takes the plain einsum path
+(`einsum_attention`: fp32 scores, causal, GQA, segment masks). The
+cached paths share one tail, `_attend_cached`, so the paged and
+contiguous caches cannot drift apart numerically.
 
 `paged_cached_attention` has three routes, chosen by the call's shape:
   * fresh prefill (every sequence starts empty) -> K1,
@@ -24,7 +31,7 @@ from typing import Optional
 
 import torch
 
-from .kernels.flash_attention import flash_attention
+from .kernels.flash_attention import HEAD_DIMS, flash_attention
 from .kernels.paged_attention import paged_decode_attention
 
 _F32_MIN = torch.finfo(torch.float32).min
@@ -35,6 +42,14 @@ def _repeat_kv(x: torch.Tensor, rep: int) -> torch.Tensor:
     return x.repeat_interleave(rep, dim=2) if rep > 1 else x
 
 
+def _takes_flash(q, k, v, causal, segment_ids) -> bool:
+    return (q.is_cuda and segment_ids is None
+            and (not causal or q.shape[1] == k.shape[1])
+            and q.shape[-1] in HEAD_DIMS
+            and q.dtype in (torch.float32, torch.bfloat16)
+            and k.dtype == q.dtype and v.dtype == q.dtype)
+
+
 def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True,
                          segment_ids: Optional[torch.Tensor] = None,
@@ -42,6 +57,19 @@ def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q: (B, Sq, Hq, D); k/v: (B, Sk, Hkv, D) with Hq % Hkv == 0.
     Returns (B, Sq, Hq, D). Scores in fp32; with Sk != Sq under causal
     the mask is offset so the last query sees every key."""
+    if _takes_flash(q, k, v, causal, segment_ids):
+        return flash_attention(q.contiguous(), k.contiguous(),
+                               v.contiguous(), causal=causal, scale=scale)
+    return einsum_attention(q, k, v, causal=causal, segment_ids=segment_ids,
+                            scale=scale)
+
+
+def einsum_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     *, causal: bool = True,
+                     segment_ids: Optional[torch.Tensor] = None,
+                     scale: Optional[float] = None) -> torch.Tensor:
+    """The plain path of `multi_head_attention` on any device: fp32
+    scores, offset causal mask, GQA repeat, segment masks."""
     b, sq, hq, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     if scale is None:

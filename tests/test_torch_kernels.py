@@ -1,7 +1,9 @@
 """The port's kernel modules on the CPU: each kernel's plain PyTorch
 version against the Pallas TPU kernel it replaces, run in interpret mode
-as tests/test_paged_attention_kernel.py runs it; the device routing of
-the wrappers; and the import hygiene of the whole package.
+as tests/test_paged_attention_kernel.py and tests/test_flash_attention.py
+run it (the backward through jax.vjp of the Pallas custom_vjp); the
+device routing of the wrappers; and the import hygiene of the whole
+package.
 
 The CUDA kernels themselves run only on a GPU; chip_smoke.py holds them
 against these plain versions there.
@@ -71,6 +73,103 @@ def test_flash_plain_matches_pallas(causal, hq, hkv, s):
                                rtol=0)
     np.testing.assert_allclose(lse.numpy(), np.asarray(want_lse), atol=ATOL,
                                rtol=0)
+
+
+@pytest.mark.parametrize("causal,hq,hkv,s", [
+    (True, 4, 4, 32),
+    (False, 4, 4, 32),
+    (True, 8, 2, 40),       # GQA; S not a multiple of the 16-row block
+    (False, 8, 2, 23),      # GQA; ragged
+])
+def test_flash_bwd_plain_matches_pallas(causal, hq, hkv, s):
+    """flash_attention_bwd_plain (K2a/K2b's plain version) against the
+    Pallas backward kernels (`_bwd_dq_kernel`, `_bwd_dkv_kernel`) on the
+    same fp32 inputs; dK/dV per kv head, as the reference's repeat of K/V
+    sums them back under autodiff."""
+    rng = np.random.RandomState(1)
+    b, d = 2, 16
+    q = rng.randn(b, s, hq, d).astype(np.float32)
+    k = rng.randn(b, s, hkv, d).astype(np.float32)
+    v = rng.randn(b, s, hkv, d).astype(np.float32)
+    do = rng.randn(b, s, hq, d).astype(np.float32)
+    _, vjp = jax.vjp(lambda q, k, v: j_flash.flash_attention(
+        q, k, v, causal=causal, block_q=16, block_k=16, interpret=True),
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    want = vjp(jnp.asarray(do))
+    tq, tk, tv = _t(q), _t(k), _t(v)
+    out, lse = t_flash.flash_attention_plain(tq, tk, tv, causal=causal)
+    got = t_flash.flash_attention_bwd_plain(tq, tk, tv, out, lse, _t(do),
+                                            causal=causal)
+    for g, w, shape in zip(got, want, (q.shape, k.shape, v.shape)):
+        assert g.shape == shape and g.dtype == torch.float32
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=ATOL,
+                                   rtol=0)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_function_grads_match_plain_autograd(causal):
+    """On CPU tensors the autograd Function (forward: K1's plain
+    version, backward: flash_attention_bwd -> K2a/K2b's plain version)
+    gives autograd's gradients of flash_attention_plain."""
+    gen = torch.Generator().manual_seed(2)
+    b, s, hq, hkv, d = 2, 19, 6, 2, 16
+    q = torch.randn(b, s, hq, d, generator=gen, requires_grad=True)
+    k = torch.randn(b, s, hkv, d, generator=gen, requires_grad=True)
+    v = torch.randn(b, s, hkv, d, generator=gen, requires_grad=True)
+    g = torch.randn(b, s, hq, d, generator=gen)
+    n = (t_flash.flash_bwd_dq.launches, t_flash.flash_bwd_dkv.launches)
+    got = torch.autograd.grad(
+        (t_flash.flash_attention(q, k, v, causal=causal) * g).sum(),
+        (q, k, v))
+    ref, _ = t_flash.flash_attention_plain(q, k, v, causal=causal)
+    want = torch.autograd.grad((ref * g).sum(), (q, k, v))
+    for a, w in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), w.numpy(), atol=ATOL, rtol=0)
+    assert (t_flash.flash_bwd_dq.launches,
+            t_flash.flash_bwd_dkv.launches) == n
+
+
+@pytest.mark.parametrize("case", ["lse_shape", "delta_dtype", "do_dtype",
+                                  "contiguous", "cpu"])
+def test_flash_bwd_input_checks(case):
+    """What K2a/K2b refuse before a pointer reaches them; valid inputs on
+    the CPU are refused last, for not being on a CUDA device."""
+    q, k = torch.randn(1, 8, 4, 16), torch.randn(1, 8, 2, 16)
+    v, do = k.clone(), q.clone()
+    lse, delta = torch.zeros(4, 8), torch.zeros(4, 8)
+    match = "flash_attention_bwd: " + case.split("_")[0]
+    if case == "lse_shape":
+        lse = torch.zeros(4, 1, 8)
+    elif case == "delta_dtype":
+        delta = delta.double()
+    elif case == "do_dtype":
+        do = do.bfloat16()
+    elif case == "contiguous":
+        do = torch.randn(1, 4, 8, 16).transpose(1, 2)
+        match = "do is not contiguous"
+    else:
+        match = "CUDA tensors"
+    with pytest.raises(ValueError, match=match):
+        t_flash._check_bwd_inputs(q, k, v, do, lse, delta)
+    with pytest.raises(ValueError, match=match):
+        t_flash.flash_bwd_dq(q, k, v, do, lse, delta)
+
+
+def test_flash_bwd_wrapper_routes_by_device():
+    """flash_attention_bwd takes the plain version for CPU tensors, with
+    no launch counted, and refuses any device other than CPU and CUDA."""
+    q, k = torch.randn(1, 9, 4, 16), torch.randn(1, 9, 2, 16)
+    out, lse = t_flash.flash_attention_plain(q, k, k)
+    do = torch.randn_like(q)
+    n = (t_flash.flash_bwd_dq.launches, t_flash.flash_bwd_dkv.launches)
+    got = t_flash.flash_attention_bwd(q, k, k, out, lse, do)
+    want = t_flash.flash_attention_bwd_plain(q, k, k, out, lse, do)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert (t_flash.flash_bwd_dq.launches,
+            t_flash.flash_bwd_dkv.launches) == n
+    m = torch.empty(1, 4, 2, 16, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        t_flash.flash_attention_bwd(m, m, m, m, m, m)
 
 
 def _build_pool(rng, S, P, ps, hkv, d, lengths):
@@ -210,7 +309,7 @@ def test_paged_input_checks(case):
 
 
 def test_build_lists_sources_and_defers_compiling():
-    assert build.sources() == ["flash_fwd", "paged_decode"]
+    assert build.sources() == ["flash_bwd", "flash_fwd", "paged_decode"]
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     for name in build.sources():
         assert os.path.isfile(os.path.join(build.CSRC_DIR, name + ".cu"))
@@ -242,16 +341,19 @@ def test_kernel_modules_import_without_nvcc_or_triton():
     assert res.stdout.strip() == "ok"
 
 
+_FOREIGN = ("jax", "ray_tpu", "optax", "flax", "orbax")
+
+
 def _leaks(module_list):
     return sorted(m for m in module_list
-                  if m in ("jax", "ray_tpu") or m.startswith("jax.")
-                  or m.startswith("ray_tpu."))
+                  if m in _FOREIGN or m.startswith(tuple(
+                      f + "." for f in _FOREIGN)))
 
 
 def test_port_imports_no_jax_and_no_ray_tpu():
     """Importing every module of ray_tpu_torch, and chip_smoke.py, leaves
-    jax and ray_tpu / ray_tpu.* out of sys.modules (ray_tpu_torch itself
-    shares the prefix, hence the exact match)."""
+    jax, ray_tpu / ray_tpu.*, optax, flax and orbax out of sys.modules
+    (ray_tpu_torch itself shares the prefix, hence the exact match)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import ray_tpu_torch\n"
@@ -267,7 +369,10 @@ def test_port_imports_no_jax_and_no_ray_tpu():
     n_modules, mods = res.stdout.strip().splitlines()
     assert int(n_modules) >= 15
     assert _leaks(mods.split()) == []
-    assert "ray_tpu_torch.serve.llm.engine" in mods.split()
+    for name in ("ray_tpu_torch.serve.llm.engine", "ray_tpu_torch.train.spmd",
+                 "ray_tpu_torch.train.optim", "ray_tpu_torch.train.checkpoint",
+                 "ray_tpu_torch.parallel.precision"):
+        assert name in mods.split()
 
 
 def test_chip_smoke_refuses_without_a_gpu():
