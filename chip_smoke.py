@@ -10,18 +10,31 @@ phases and fails (non-zero exit, no result line) if any of them fails:
 
 1. kernels: each kernel against its plain PyTorch version at
    Llama-3-8B attention shapes (Hq 32, Hkv 8, D 128, bf16; K2a/K2b also
-   fp32 at D 64), with the tolerance printed; kernel, plain and library
-   times on the card and the least time the card could take (the bound).
-2. serve: `LLMServer` over the paged engine on Llama-3-8B widths at full
-   depth (32 layers, bf16, random weights from a seed), 8 requests of 32
-   new tokens (greedy, one temperature/top_p, one streamed). Every
-   request must finish with in-vocab tokens, and the launch counters of
-   K1 and K3, zeroed just before, must have grown.
+   fp32 at D 64) and, for K4 (RMSNorm), at the shapes its callers use
+   (up to 2 x 2048 rows of 4096, bf16 with an fp32 weight), with the
+   tolerance printed; K4's backward against plain autograd; kernel,
+   plain and library times on the card and the least time the card
+   could take (the bound).
+2. serve: `LLMServer` on Llama-3-8B widths at full depth (32 layers,
+   bf16, random weights from a seed), one model under four engine
+   configurations, a burst of 8 requests of 32 new tokens each (greedy,
+   one temperature/top_p, one streamed): the paged cache (profiled a
+   second time); (i) the contiguous cache; (ii) paged with chunked
+   prefill (512) and decode_block 4, beside the same with decode_block
+   1 and with decode_block 4 under a pipeline of 3 dispatches (the
+   TPOT of each printed together); (iii) paged with one 1000-token
+   prefix registered and 8 requests of prefix + suffix. Every request
+   must finish with in-vocab tokens; the launch counters of K1 and K3,
+   zeroed just before each burst, must have grown where the path runs
+   them (and stayed at 0 on the contiguous cache); the prefix saved 8 x
+   1000 prefill tokens, and its registration launched K1.
 3. parity: at the same widths with 4 layers in fp32 (TF32 off), the
-   engine's greedy tokens for 3 prompts (K1 prefill, K3 decode) must
-   equal a full-recompute greedy loop through the same model with no
-   cache and its attention held to the einsum path (`einsum_attention`;
-   no kernel launches there, checked).
+   engine's greedy tokens in nine configurations (paged; contiguous
+   with prefill batches of 1 and 4; chunked prefill, decode_block 4 and
+   a prefix request on each cache) must equal a full-recompute greedy
+   loop through the same model with no cache and its attention held to
+   the einsum path (`einsum_attention`; no kernel launches there,
+   checked).
 4. train: `make_train_step` with adamw and warmup_cosine on Llama-3-8B
    widths cut to 8 layers (bf16 compute, fp32 master weights, remat),
    5 steps on one fixed batch of 2 x 2048 tokens: finite losses and
@@ -37,8 +50,10 @@ phases and fails (non-zero exit, no result line) if any of them fails:
    weights through LLMServer: the greedy continuation must match the
    corpus at least once in 6 tokens.
 
-The second-to-last line is a JSON object listing each kernel; the last
-is {"ok": true, "device": {...}}. Imports nothing of JAX or ray_tpu.
+The last three lines are a JSON object listing each kernel (with its
+launches on each path), the card's name and power limit as nvidia-smi
+gives them, and {"ok": true, "device": {...}}. Imports nothing of JAX
+or ray_tpu.
 """
 from __future__ import annotations
 
@@ -55,9 +70,12 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
-# H100 SXM published peaks (dense): bf16 tensor cores and HBM3
+# H100 SXM published peaks (dense): bf16 tensor cores, fp32 outside the
+# tensor cores, and HBM3
 PEAK_BF16_FLOPS = 989e12
+PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
+HOLD_CYCLES = 2_000_000     # ~1 ms of device spin at the H100's clocks
 
 # tolerances of kernel vs plain version on the same inputs, bf16. Both
 # round O to bf16 (one ulp is 2**-7 of the value at worst), and K1 also
@@ -88,6 +106,25 @@ K2_RECORD = (2, 2048, True)
 K2_FP32_SHAPES = [(2, 256, True), (1, 300, False)]
 K3_LENGTHS = [1, 37, 250, 512, 900, 1333, 1700, 2000]
 K3_EARLY_QPOS = (3, 100)                      # (row, qpos < lengths - 1)
+# K4 vs rms_norm_plain: (x shape, x type, weight type). fp32 sums in
+# another order: atol = rtol = 1e-5. bf16 and fp16: both round y once
+# from fp32 values a few fp32 ulps apart, so they may land one ulp apart:
+# |err| <= atol + rtol * |plain|. Rows of up to 512 16-byte vectors stay
+# in registers; fp32 at d = 4096 (1024 vectors) takes the two-pass
+# vector loop; a row of d = 1001 is no whole number of 16-byte vectors in
+# either type and takes the scalar loads.
+K4_SHAPES = [((4, 33, 256), "float32", "float32"),
+             ((4, 1024, 512), "bfloat16", "bfloat16"),
+             ((2, 2048, 4096), "bfloat16", "float32"),
+             ((3, 7, 1000), "float32", "float32"),
+             ((2, 64, 4096), "float32", "float32"),
+             ((4, 16, 512), "float16", "float32"),
+             ((3, 7, 1001), "float32", "float32"),
+             ((3, 7, 1001), "bfloat16", "float32")]
+K4_RECORD = ((2, 2048, 4096), "bfloat16", "float32")
+K4_TOL_FP32 = 1e-5
+K4_ATOL_BF16, K4_RTOL_BF16 = 1e-2, 8e-3
+K4_GRAD_TOL = 1e-4
 
 
 def fail(msg: str) -> None:
@@ -103,7 +140,10 @@ def check(cond: bool, msg: str) -> None:
 def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     """Median device time of one call, each launch timed alone by CUDA
     events after the 50 MB L2 cache was overwritten (the main path
-    finds a layer's inputs cold)."""
+    finds a layer's inputs cold). A device-side spin holds the stream
+    before the start event, so the host has issued the whole call before
+    the device reaches it: the events time the device work, not the
+    host's Python between them."""
     import torch
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     for _ in range(warmup):
@@ -111,6 +151,7 @@ def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     times = []
     for _ in range(iters):
         flush.zero_()
+        torch.cuda._sleep(HOLD_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -121,8 +162,8 @@ def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def bound_ms(flops: float, nbytes: float):
-    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+def bound_ms(flops: float, nbytes: float, peak_flops: float = PEAK_BF16_FLOPS):
+    t_ops = flops / peak_flops * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return (max(t_ops, t_bytes),
             "operations" if t_ops >= t_bytes else "bytes")
@@ -225,11 +266,14 @@ def phase_kernels(torch):
                      shape=f"S={n} Hq={hq} Hkv={hkv} D={d} page_size={ps} "
                      f"bf16 keys={keys}"))
     rows += k2_rows(torch, gen)
+    rows.append(k4_rows(torch, gen))
+    from ray_tpu_torch.ops.kernels import rmsnorm as rn
     print("kernels: launches in this phase " + json.dumps(
         {"flash_fwd (K1)": fa.flash_attention_fwd.launches,
          "paged_decode (K3)": pa.paged_decode_attention.launches,
          "flash_bwd_dq (K2a)": fa.flash_bwd_dq.launches,
-         "flash_bwd_dkv (K2b)": fa.flash_bwd_dkv.launches}), flush=True)
+         "flash_bwd_dkv (K2b)": fa.flash_bwd_dkv.launches,
+         "rmsnorm (K4)": rn.rmsnorm_fwd.launches}), flush=True)
     return rows
 
 
@@ -340,6 +384,74 @@ def k2_rows(torch, gen):
                  max_abs_err=err_dkv, **rec["dkv"])]
 
 
+def k4_rows(torch, gen):
+    """K4 against rms_norm_plain at K4_SHAPES, its backward against
+    plain autograd, and its times at K4_RECORD."""
+    import torch.nn.functional as F
+    from ray_tpu_torch.ops.kernels import rmsnorm as rn
+    err_max, rec = 0.0, None
+    for shape, xt, wt in K4_SHAPES:
+        x = torch.randn(shape, device="cuda", generator=gen).to(
+            getattr(torch, xt))
+        w = torch.randn(shape[-1], device="cuda", generator=gen).to(
+            getattr(torch, wt))
+        y = rn.fused_rms_norm(x, w)
+        torch.cuda.synchronize()
+        ref = rn.rms_norm_plain(x, w)
+        diff = (y.float() - ref.float()).abs()
+        if x.dtype == torch.float32:
+            tol = f"atol {K4_TOL_FP32} + rtol {K4_TOL_FP32}"
+            ok = bool((diff <= K4_TOL_FP32
+                       + K4_TOL_FP32 * ref.float().abs()).all())
+        else:
+            tol = f"atol {K4_ATOL_BF16} + rtol {K4_RTOL_BF16}"
+            ok = bool((diff <= K4_ATOL_BF16
+                       + K4_RTOL_BF16 * ref.float().abs()).all())
+        err = diff.max().item()
+        print(f"kernels: K4 rmsnorm x{shape} {xt} weight {wt} max_abs_err "
+              f"{err:.3g} ({tol}: {ok})", flush=True)
+        check(ok and y.dtype == x.dtype and y.shape == x.shape,
+              f"K4 disagrees with its plain version at {shape} {xt}")
+        err_max = max(err_max, err)
+        if (shape, xt, wt) != K4_RECORD:
+            continue
+        ms = time_ms(lambda: rn.fused_rms_norm(x, w))
+        plain = time_ms(lambda: rn.rms_norm_plain(x, w))
+        # F.rms_norm wants the weight in x's type (bf16 here)
+        wx = w.to(x.dtype)
+        lib = time_ms(lambda: F.rms_norm(x, (shape[-1],), wx, 1e-6))
+        n = x.numel()
+        # x read once, y written once, the weight read once; per element
+        # a square-add, a product by the row's scale and one by w
+        bms, by = bound_ms(4.0 * n, n * 2 * x.element_size()
+                           + w.numel() * w.element_size(), PEAK_FP32_FLOPS)
+        print(f"kernels: K4 x{shape} {xt} weight {wt} kernel {ms:.4f} ms, "
+              f"plain {plain:.4f} ms, library (F.rms_norm, bf16 weight) "
+              f"{lib:.4f} ms, bound {bms:.4f} ms ({by})", flush=True)
+        rec = dict(ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
+                   library_ms=lib,
+                   library="F.rms_norm with the weight cast to bf16 (it "
+                           "takes no fp32 weight with a bf16 x)",
+                   shape=f"x {shape} {xt}, weight {wt}")
+        del x, w, y, ref, wx
+    # the backward: autograd through the plain math, as the reference
+    x = torch.randn(8, 64, device="cuda", generator=gen, requires_grad=True)
+    w = torch.randn(64, device="cuda", generator=gen, requires_grad=True)
+    got = torch.autograd.grad((rn.fused_rms_norm(x, w) ** 2).sum(), (x, w))
+    want = torch.autograd.grad((rn.rms_norm_plain(x, w) ** 2).sum(), (x, w))
+    ok = all(torch.allclose(a, b, atol=K4_GRAD_TOL, rtol=K4_GRAD_TOL)
+             for a, b in zip(got, want))
+    gerr = max((a - b).abs().max().item() for a, b in zip(got, want))
+    print(f"kernels: K4 backward (8, 64) fp32 against plain autograd: max "
+          f"abs err {gerr:.3g} (atol {K4_GRAD_TOL} + rtol {K4_GRAD_TOL}: "
+          f"{ok})", flush=True)
+    check(ok, "fused_rms_norm's gradient differs from plain autograd")
+    return dict(name="rmsnorm (K4)", route="cuda",
+                source="ray_tpu_torch/csrc/rmsnorm.cu",
+                replaces="ray_tpu/ops/pallas/rmsnorm.py:25",
+                max_abs_err=err_max, **rec)
+
+
 def burst(server, bodies):
     """Send every body at once (one thread each); return the token lists
     in order. Fails if any request fails or does not finish."""
@@ -420,81 +532,204 @@ def gpu_profile(torch, fn, label, gpu_line, top=8):
               f"of busy  {name[:90]}", flush=True)
 
 
+SERVE_BUCKETS = (32, 64, 128, 256, 512, 1024, 2048)
+SERVE_PLENS = [20, 30, 100, 200, 400, 700, 1000, 1500]
+SERVE_NEW = 32                      # new tokens per request
+PREFIX_LEN = 1000                   # burst (iii): shared prefix ...
+SUFFIX_LENS = [20, 40, 60, 80, 100, 130, 160, 200]   # ... and suffixes
+# burst (ii): chunked prefill of 512 under three decode configurations
+CHUNKED_VARIANTS = [
+    ("serve-chunked-block1", dict(decode_block=1)),
+    ("serve-chunked", dict(decode_block=4)),
+    ("serve-chunked-block4-depth3", dict(decode_block=4, pipeline_depth=3)),
+]
+
+
+def serve_burst(torch, server, bodies, label, gpu_line, vocab):
+    """One short sampled request first (the burst's TTFT then leaves out
+    first-use costs: cuBLAS handles, pinned memory, sampling kernels),
+    then every body at once. The K1/K3 counters are zeroed just before
+    and read just after. Each request must return SERVE_NEW in-vocab
+    tokens. Returns (stats, launches)."""
+    from ray_tpu_torch.ops.kernels import flash_attention as fa
+    from ray_tpu_torch.ops.kernels import paged_attention as pa
+    fa.flash_attention_fwd.launches = 0
+    pa.paged_decode_attention.launches = 0
+    warm = server({"prompt": bodies[0]["prompt"][:8], "max_tokens": 2,
+                   "temperature": 0.8, "top_p": 0.9})["tokens"]
+    check(len(warm) == 2, f"{label}: warm-up request failed")
+    server.engine._ttft_samples.clear()
+    server.engine._tpot_samples.clear()
+    steps0 = server.stats()["decode_steps"]
+    t_start = time.time()
+    results = burst(server, bodies)
+    t_end = time.time()
+    launches = {"flash_fwd (K1)": fa.flash_attention_fwd.launches,
+                "paged_decode (K3)": pa.paged_decode_attention.launches}
+    stats = server.stats()
+    for i, toks in enumerate(results):
+        check(toks is not None and len(toks) == SERVE_NEW,
+              f"{label}: request {i} returned "
+              f"{None if toks is None else len(toks)} tokens, want "
+              f"{SERVE_NEW}")
+        check(all(0 <= t < vocab for t in toks),
+              f"{label}: request {i} has out-of-vocab tokens")
+    ttft = stats["ttft_breakdown_p50_ms"]["total_ms"]
+    n_tok = sum(len(t) for t in results)
+    decode_tok_s = (n_tok - len(results)) / (t_end - t_start)
+    print(f"{label}: {len(results)} requests x {SERVE_NEW} tokens, prompts "
+          f"{[len(b['prompt']) for b in bodies]}, wall "
+          f"{t_end - t_start:.3f} s, TTFT p50 {ttft} ms (engine), decode "
+          f"tokens/s {decode_tok_s:.1f} (tokens after each first token / "
+          f"wall), TPOT p50 {stats.get('tpot_p50_ms')} ms, decode steps "
+          f"{stats['decode_steps'] - steps0} (the burst's), launches "
+          f"{json.dumps(launches)} [{gpu_line}]", flush=True)
+    return stats, launches
+
+
+def close_server(torch, server):
+    server.shutdown()
+    del server
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def phase_serve(torch, gpu_line):
+    """LLMServer at Llama-3-8B widths and full depth, bf16 random weights
+    from seed 0, one model shared by four engine configurations: the
+    paged burst (profiled a second time), then (i) the contiguous cache,
+    (ii) paged with chunked prefill and decode_block=4, (iii) paged with
+    a registered 1000-token prefix. Returns each path's launches."""
     import numpy as np
     from ray_tpu_torch.models import Llama, LlamaConfig
     from ray_tpu_torch.ops.kernels import flash_attention as fa
-    from ray_tpu_torch.ops.kernels import paged_attention as pa
     from ray_tpu_torch.serve.llm import LLMServer
 
     cfg = LlamaConfig.llama3_8b(dtype=torch.bfloat16,
                                 param_dtype=torch.bfloat16)
     t0 = time.time()
-    server = LLMServer(
-        lambda: (Llama(cfg, device="cuda", seed=0), None),
-        engine_config=dict(max_slots=8, max_seq_len=2048, kv_page_size=16,
-                           prefill_buckets=(32, 64, 128, 256, 512, 1024,
-                                            2048),
-                           max_prefill_batch=4),
-        device="cuda")
+    model = Llama(cfg, device="cuda", seed=0)
     torch.cuda.synchronize()
-    n_params = sum(p.numel() for p in server.engine.model.parameters())
+    n_params = sum(p.numel() for p in model.parameters())
     print(f"serve: Llama-3-8B widths, {cfg.n_layers} layers, "
           f"{n_params / 1e9:.3f}B params bf16, built in "
           f"{time.time() - t0:.1f} s", flush=True)
+    base = dict(max_slots=8, max_seq_len=2048, prefill_buckets=SERVE_BUCKETS,
+                max_prefill_batch=4)
+
+    def server_for(**engine_config):
+        return LLMServer(lambda: (model, None),
+                         engine_config={**base, **engine_config},
+                         device="cuda")
 
     rng = np.random.RandomState(0)
-    plens = [20, 30, 100, 200, 400, 700, 1000, 1500]
-    prompts = [rng.randint(0, cfg.vocab_size, n).tolist() for n in plens]
-    bodies = [{"prompt": p, "max_tokens": 32} for p in prompts]
+    prompts = [rng.randint(0, cfg.vocab_size, n).tolist()
+               for n in SERVE_PLENS]
+    bodies = [{"prompt": p, "max_tokens": SERVE_NEW} for p in prompts]
     bodies[2].update(temperature=0.8, top_p=0.9)
     bodies[5]["stream"] = True
+    launches = {}
 
-    fa.flash_attention_fwd.launches = 0
-    pa.paged_decode_attention.launches = 0
-    # one short sampled request first: the burst's TTFT then leaves out
-    # first-use costs (cuBLAS handles, pinned memory, sampling kernels)
-    warm = server({"prompt": prompts[0][:8], "max_tokens": 2,
-                   "temperature": 0.8, "top_p": 0.9})["tokens"]
-    check(len(warm) == 2, "warm-up request failed")
-    server.engine._ttft_samples.clear()
-    t_start = time.time()
-    results = burst(server, bodies)
-    t_end = time.time()
-    k1 = fa.flash_attention_fwd.launches
-    k3 = pa.paged_decode_attention.launches
-    stats = server.stats()
-    for i, toks in enumerate(results):
-        check(toks is not None and len(toks) == 32,
-              f"request {i} returned {None if toks is None else len(toks)} "
-              f"tokens, want 32")
-        check(all(0 <= t < cfg.vocab_size for t in toks),
-              f"request {i} has out-of-vocab tokens")
+    server = server_for(kv_page_size=16)
+    stats, launches["serve"] = serve_burst(torch, server, bodies, "serve",
+                                           gpu_line, cfg.vocab_size)
+    k1, k3 = launches["serve"].values()
     check(k1 > 0 and k3 > 0,
           f"kernels not launched on the main path: K1 {k1}, K3 {k3}")
-    ttft = stats["ttft_breakdown_p50_ms"]["total_ms"]
-    n_tok = sum(len(t) for t in results)
-    decode_tok_s = (n_tok - len(results)) / (t_end - t_start)
-    print(f"serve: {len(results)} requests x 32 tokens, prompts {plens}, "
-          f"wall {t_end - t_start:.3f} s, TTFT p50 {ttft} ms (engine, "
-          f"burst of 8), decode tokens/s {decode_tok_s:.1f} (tokens after "
-          f"each first token / wall), tpot p50 "
-          f"{stats.get('tpot_p50_ms')} ms, decode steps "
-          f"{stats['decode_steps']}, prefill groups first dispatch ms "
-          f"{stats['prefill_first_dispatch_ms']} [{gpu_line}]", flush=True)
-    print(f"serve: main-path launches K1 {k1}, K3 {k3} "
-          f"(K1: one per layer per prefill group; K3: one per layer per "
-          f"decode step)", flush=True)
+    tpot_block1 = stats.get("tpot_p50_ms")
+    print(f"serve: main-path launches K1 {k1}, K3 {k3} (K1: one per layer "
+          f"per prefill group; K3: one per layer per decode step); prefill "
+          f"groups first dispatch ms {stats['prefill_first_dispatch_ms']}",
+          flush=True)
     gpu_profile(torch, lambda: burst(server, bodies), "serve-profile",
                 gpu_line)
-    server.shutdown()
-    del server
+    close_server(torch, server)
+
+    # (i) the contiguous slot cache: attention is the einsum over each
+    # slot's whole row (no kernel, as in the reference); 9 slots x 2048
+    # positions repeated to 32 heads in fp32 is ~300 MB per tensor per
+    # layer, transient
+    server = server_for(kv_page_size=0)
+    _, launches["serve-contiguous"] = serve_burst(
+        torch, server, bodies, "serve-contiguous", gpu_line, cfg.vocab_size)
+    check(sum(launches["serve-contiguous"].values()) == 0,
+          f"the contiguous cache launched paged kernels: "
+          f"{launches['serve-contiguous']}")
+    close_server(torch, server)
+
+    # (ii) paged, prompts past 512 tokens chunked, 4 decode steps a
+    # dispatch; beside it the same with 1 step a dispatch, and with 4 and
+    # a pipeline of 3 dispatches (12 steps of termination lag, near the
+    # 10 of one-step dispatches; 10 dispatches of 4 are 40)
+    tpots = {}
+    for label, kw in CHUNKED_VARIANTS:
+        server = server_for(kv_page_size=16, prefill_chunk=512, **kw)
+        stats, launches[label] = serve_burst(
+            torch, server, bodies, label, gpu_line, cfg.vocab_size)
+        k1, k3 = launches[label].values()
+        check(k1 > 0 and k3 > 0, f"{label}: K1 {k1}, K3 {k3}")
+        tpots[label] = stats.get("tpot_p50_ms")
+        close_server(torch, server)
+    print(f"serve-chunked: TPOT p50 ms by configuration {json.dumps(tpots)}"
+          f"; the unchunked serve burst (decode_block=1) {tpot_block1} ms "
+          f"[{gpu_line}]", flush=True)
+
+    # (iii) paged, one 1000-token prefix registered through LLMServer's
+    # cached_prefixes (a fresh prefill: K1), 8 requests of prefix + suffix
+    prefix = rng.randint(0, cfg.vocab_size, PREFIX_LEN).tolist()
+    fa.flash_attention_fwd.launches = 0
+    server = LLMServer(lambda: (model, None),
+                       engine_config={**base, "kv_page_size": 16,
+                                      "max_prefixes": 2},
+                       cached_prefixes=[prefix], device="cuda")
+    k1_reg = fa.flash_attention_fwd.launches
+    check(k1_reg == cfg.n_layers,
+          f"prefix registration launched K1 {k1_reg} times, want one "
+          f"fresh prefill ({cfg.n_layers} layers)")
+    launches["serve-prefix-register"] = {"flash_fwd (K1)": k1_reg}
+    pbodies = [{"prompt": prefix + rng.randint(0, cfg.vocab_size,
+                                               n).tolist(),
+                "max_tokens": SERVE_NEW} for n in SUFFIX_LENS]
+    stats, launches["serve-prefix"] = serve_burst(
+        torch, server, pbodies, "serve-prefix", gpu_line, cfg.vocab_size)
+    check(launches["serve-prefix"]["paged_decode (K3)"] > 0,
+          f"serve-prefix: K3 {launches['serve-prefix']}")
+    saved = stats["prefix_tokens_saved"]
+    print(f"serve-prefix: prefix_tokens_saved {saved} (want "
+          f"{len(pbodies)} x {PREFIX_LEN}), registration K1 launches "
+          f"{k1_reg}", flush=True)
+    check(saved == len(pbodies) * PREFIX_LEN,
+          f"prefix_tokens_saved {saved}, want {len(pbodies) * PREFIX_LEN}")
+    close_server(torch, server)
+    del model
     gc.collect()
     torch.cuda.empty_cache()
-    return {"flash_fwd (K1)": k1, "paged_decode (K3)": k3}
+    return launches
+
+
+PARITY_PLENS = (17, 60, 200, 300)
+PARITY_NEW = 16
+PARITY_PREFIX = 100     # of the 300-token prompt: 6 pages of 16 and a part
+# engine configurations held to the reference loop: (label, config)
+PARITY_CASES = [
+    ("paged", dict(kv_page_size=16)),
+    ("contiguous batch 1", dict(kv_page_size=0, max_prefill_batch=1)),
+    ("contiguous batch 4", dict(kv_page_size=0, max_prefill_batch=4)),
+    ("paged chunk 64", dict(kv_page_size=16, prefill_chunk=64)),
+    ("contiguous chunk 64", dict(kv_page_size=0, prefill_chunk=64)),
+    ("paged decode_block 4", dict(kv_page_size=16, decode_block=4)),
+    ("contiguous decode_block 4", dict(kv_page_size=0, decode_block=4)),
+    ("paged prefix", dict(kv_page_size=16, max_prefixes=2)),
+    ("contiguous prefix", dict(kv_page_size=0, max_prefixes=2)),
+]
 
 
 def phase_parity(torch):
+    """fp32 greedy tokens of the engine in every PARITY_CASES
+    configuration against a full-recompute loop through the same model
+    with no cache and its attention held to the einsum path. A prefix
+    case registers the 300-token prompt's first PARITY_PREFIX tokens and
+    submits the rest with its prefix_id, beside the full prompt."""
     from unittest import mock
 
     import numpy as np
@@ -510,23 +745,9 @@ def phase_parity(torch):
     cfg = LlamaConfig.llama3_8b(n_layers=4, dtype=torch.float32,
                                 param_dtype=torch.float32, remat=False)
     model = Llama(cfg, device="cuda", seed=1)
-    engine = LLMEngine(model, None, LLMEngineConfig(
-        max_slots=4, max_seq_len=2048, kv_page_size=16,
-        prefill_buckets=(32, 64, 128, 256)), device="cuda")
     rng = np.random.RandomState(1)
     prompts = [rng.randint(0, cfg.vocab_size, n).tolist()
-               for n in (17, 60, 200)]
-    n_new = 16
-    zero_counters(fa)
-    pa.paged_decode_attention.launches = 0
-    try:
-        rids = [engine.submit(p, max_new_tokens=n_new) for p in prompts]
-        got = [list(engine.stream(r)) for r in rids]
-    finally:
-        engine.shutdown()
-    k1 = fa.flash_attention_fwd.launches
-    k3 = pa.paged_decode_attention.launches
-    check(k1 > 0 and k3 > 0, f"the engine did not run K1/K3: {k1}, {k3}")
+               for n in PARITY_PLENS]
     # the reference shares no kernel with the engine: the cache-less
     # forward's attention is held to the einsum path
     want = []
@@ -535,20 +756,60 @@ def phase_parity(torch):
             llama_module, "multi_head_attention", einsum_attention):
         for p in prompts:
             seq = list(p)
-            for _ in range(n_new):
+            for _ in range(PARITY_NEW):
                 logits, _ = model(torch.tensor([seq], device="cuda"))
                 seq.append(int(torch.argmax(logits[0, -1])))
             want.append(seq[len(p):])
     check(fa.flash_attention_fwd.launches == 0,
           "the plain reference launched K1")
-    for i, (g, w) in enumerate(zip(got, want)):
-        print(f"parity: prompt {i} ({len(prompts[i])} tokens) engine {g} "
-              f"plain {w}", flush=True)
-    check(got == want, "engine greedy tokens differ from the plain "
-                       "full-recompute loop")
-    print(f"parity: ok (fp32, TF32 off, 4 layers of Llama-3-8B widths; "
-          f"engine K1 {k1}, K3 {k3} launches; reference einsum attention, "
-          f"0 kernel launches)", flush=True)
+    for i, w in enumerate(want):
+        print(f"parity: prompt {i} ({len(prompts[i])} tokens) plain {w}",
+              flush=True)
+
+    base = dict(max_slots=4, max_seq_len=2048,
+                prefill_buckets=(32, 64, 128, 256, 512))
+    for label, kw in PARITY_CASES:
+        engine = LLMEngine(model, None, LLMEngineConfig(**base, **kw),
+                           device="cuda")
+        zero_counters(fa)
+        pa.paged_decode_attention.launches = 0
+        try:
+            if "max_prefixes" in kw:
+                full = prompts[-1]
+                pid = engine.register_prefix(full[:PARITY_PREFIX])
+                rids = [engine.submit(full[PARITY_PREFIX:],
+                                      max_new_tokens=PARITY_NEW,
+                                      prefix_id=pid),
+                        engine.submit(full, max_new_tokens=PARITY_NEW)]
+                expect = [want[-1], want[-1]]
+            else:
+                rids = [engine.submit(p, max_new_tokens=PARITY_NEW)
+                        for p in prompts]
+                expect = want
+            got = [list(engine.stream(r)) for r in rids]
+            saved = engine.get_stats()["prefix_tokens_saved"]
+        finally:
+            engine.shutdown()
+        k1 = fa.flash_attention_fwd.launches
+        k3 = pa.paged_decode_attention.launches
+        for i, (g, w) in enumerate(zip(got, expect)):
+            if g != w:
+                print(f"parity: {label}: request {i} engine {g} plain {w}",
+                      flush=True)
+        check(got == expect, f"parity: {label}: engine greedy tokens differ "
+                             f"from the plain full-recompute loop")
+        if kw["kv_page_size"]:
+            check(k1 > 0 and k3 > 0,
+                  f"parity: {label}: the engine did not run K1/K3: {k1}, "
+                  f"{k3}")
+        if "max_prefixes" in kw:
+            check(saved == PARITY_PREFIX,
+                  f"parity: {label}: prefix_tokens_saved {saved}")
+        print(f"parity: {label}: ok ({len(got)} requests equal to the plain "
+              f"loop; K1 {k1}, K3 {k3} launches)", flush=True)
+    print(f"parity: ok (fp32, TF32 off, 4 layers of Llama-3-8B widths, "
+          f"{len(PARITY_CASES)} engine configurations; reference einsum "
+          f"attention, 0 kernel launches)", flush=True)
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -795,13 +1056,14 @@ def main() -> None:
           f"(nvcc {' '.join(build.NVCC_FLAGS)})", flush=True)
 
     rows = phase_kernels(torch)
-    launches = {"serve": phase_serve(torch, gpu_line)}
+    launches = phase_serve(torch, gpu_line)
     phase_parity(torch)
     launches["train"] = phase_train(torch, gpu_line)
     phase_train_parity(torch)
     phase_north_star(torch)
 
-    # each kernel's launches on the main paths that run it (serve, train)
+    # each kernel's launches on the main paths (the serve bursts, train);
+    # K4 is on none: no model calls it, as in the reference
     for r in rows:
         by_path = {p: n[r["name"]] for p, n in launches.items()
                    if r["name"] in n}

@@ -1,33 +1,57 @@
-"""Paged continuous-batching LLM engine (counterpart of
-ray_tpu/serve/llm/engine.py, paged configuration only).
+"""Continuous-batching LLM engine (counterpart of
+ray_tpu/serve/llm/engine.py).
 
-* KV lives in a shared page pool per layer, (n_pages + trash) *
-  page_size token rows, with one page-table row per slot. A request
-  reserves the pages for prompt + budget at admission; when the pool
-  runs short the head request is held (FIFO) until releases refill it.
+* Two KV caches, as in the reference. `kv_page_size=0` (the default) is
+  the contiguous slot cache: per layer (n_slots, max_seq_len, Hkv, D)
+  k/v buffers. Attention over it is the plain einsum over a slot's whole
+  row (`ops.attention._attend_cached`); the reference has no Pallas
+  kernel on this cache either. `kv_page_size > 0` is a shared page pool
+  per layer, (n_pages + trash) * page_size token rows, with one
+  page-table row per slot. A request reserves the pages for prompt +
+  budget at admission; when the pool runs short the head request is
+  held (FIFO) until releases refill it.
 * Prefill: waiting prompts that share a length bucket run together, up
   to `max_prefill_batch` rows, the group padded to a power of two with
-  rows aimed at a scratch slot whose page row is all trash. Attention
-  runs over the prompt itself (kernel K1 on the GPU); KV scatters into
-  the pages. The first token is sampled on the device.
-* Decode: one step advances every slot (kernel K3 reads the pages in
-  place), with greedy, temperature, global top-k and per-row top-p
-  sampling on the device.
+  rows aimed at a scratch slot (paged: its page row is all trash). On
+  the paged cache attention runs over the prompt itself (kernel K1 on
+  the GPU) and KV scatters into the pages. On the contiguous cache a
+  single prompt (`max_prefill_batch=1`) runs against views of its
+  slot's rows, so the writes land in the cache in place; a group runs
+  on a small (G, bucket) cache that is scattered into the slots after.
+  The first token is sampled on the device.
+* Chunked prefill (`prefill_chunk > 0`): a prompt longer than the chunk
+  or than the largest bucket prefills one chunk per loop iteration,
+  between decode steps, against the slot's cached prefix. The last
+  chunk is not padded: eager PyTorch needs no static width, and padding
+  could run past max_seq_len. The suffix of a prefix request takes the
+  same path.
+* Decode: one step advances every slot (on the paged cache kernel K3
+  reads the pages in place), with greedy, temperature, global top-k and
+  per-row top-p sampling on the device. `decode_block > 1` runs that
+  many one-token steps back to back on the loop thread (the reference's
+  `lax.scan`) and fetches their (block, S) tokens with one copy.
+* Prefix caching (`max_prefixes > 0`): `register_prefix` prefills a
+  shared prefix once, on the engine loop thread. Paged: into pinned
+  pages through the scratch slot's row (a fresh prefill, K1); adopters
+  share its full pages by page-table reference and copy only its
+  partial last page. Contiguous: into a row of a (max_prefixes, L, Hkv,
+  D) buffer (the reference's extra row only serves `precompile`, which
+  is not ported); adopters copy its rows into their slot.
 * Pipelined host loop: decode steps are issued up to `pipeline_depth`
   ahead of the host reading their tokens. Each step's sampled tokens go
   to pinned host memory by a non-blocking copy, recorded with a CUDA
   event that the drain waits on. Termination decisions lag by at most
-  `pipeline_depth` steps; lagged tokens of finished requests are
+  `pipeline_depth` dispatches; lagged tokens of finished requests are
   discarded.
 
-JAX's buffer donation becomes in-place updates here: the pools are
-written with `index_copy_` inside attention, and the page table and
-lengths with indexed assignment, all on the engine loop thread.
+JAX's buffer donation becomes in-place updates here: the caches are
+written with `index_copy_` / indexed assignment inside attention, and
+the page table and lengths with indexed assignment, all on the engine
+loop thread.
 
-Not ported yet (their config fields must keep their defaults): the
-contiguous cache, chunked prefill, `decode_block`, prefix caching,
-n-gram speculation, guided decoding, penalties, logprobs, precompile,
-the watchdog, metrics and events.
+Not ported yet (their config fields must keep their defaults): n-gram
+speculation, guided decoding, penalties, logprobs, precompile, the
+watchdog, metrics and events.
 """
 from __future__ import annotations
 
@@ -37,8 +61,10 @@ import queue as queue_mod
 import threading
 import time
 import traceback
+from concurrent.futures import Future
+from concurrent.futures import TimeoutError as FutureTimeout
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -56,41 +82,43 @@ class LLMEngineConfig:
     max_new_tokens_default: int = 64
     top_k: int = 0                  # 0 = full softmax sampling
     # Decode steps issued ahead of the host reading their tokens: it
-    # trades termination lag (at most this many discarded tokens per
+    # trades termination lag (at most this many discarded dispatches per
     # finished request) against hiding the device->host fetch. The
     # default mirrors the JAX engine; the right depth for the GPU has
     # not been measured.
     pipeline_depth: int = 10
+    # One-token decode steps per dispatch, their tokens fetched together.
+    # 1 = the classic one-token step.
+    decode_block: int = 1
     # Waiting prompts sharing a length bucket prefill together, up to
     # this many rows (padded to a power of two on the scratch slot).
+    # 1 disables batching.
     max_prefill_batch: int = 4
-    # Page size of the KV pool. The port serves the paged configuration
-    # only: 0 (the contiguous per-slot cache) raises.
-    kv_page_size: int = 16
+    # Prompts longer than this (or than the largest bucket) prefill in
+    # chunks of this many tokens, one per loop iteration between decode
+    # steps. 0 disables chunking.
+    prefill_chunk: int = 0
+    # Registered shared prefixes (register_prefix); 0 disables.
+    max_prefixes: int = 0
+    # 0 = the contiguous per-slot cache (max_slots x max_seq_len rows per
+    # layer); > 0 = a shared page pool of pages of this many tokens.
+    kv_page_size: int = 0
     # Pool budget in KV tokens (rounded up to whole pages);
     # 0 = max_slots * max_seq_len.
     kv_pool_tokens: int = 0
     # Fields of the JAX engine that are not ported yet; any other value
     # than the default raises NotImplementedError.
-    decode_block: int = 1
-    prefill_chunk: int = 0
     logprobs: bool = False
     precompile: bool = False
-    max_prefixes: int = 0
     ngram_speculation: int = 0
     ngram_order: int = 2
     ngram_lookback: int = 256
     watchdog_s: Optional[float] = None
 
-    _NOT_PORTED = ("decode_block", "prefill_chunk", "logprobs", "precompile",
-                   "max_prefixes", "ngram_speculation", "ngram_order",
-                   "ngram_lookback", "watchdog_s")
+    _NOT_PORTED = ("logprobs", "precompile", "ngram_speculation",
+                   "ngram_order", "ngram_lookback", "watchdog_s")
 
     def __post_init__(self):
-        if self.kv_page_size <= 0:
-            raise NotImplementedError(
-                "kv_page_size must be > 0: the port serves the paged KV "
-                "configuration only")
         for name in self._NOT_PORTED:
             default = self.__dataclass_fields__[name].default
             if getattr(self, name) != default:
@@ -102,7 +130,7 @@ class LLMEngineConfig:
 @dataclass
 class _Request:
     request_id: str
-    prompt: np.ndarray              # (P,) int32
+    prompt: np.ndarray              # (P,) int32, a prefix's tokens included
     max_new_tokens: int
     temperature: float
     top_p: float = 1.0
@@ -112,6 +140,8 @@ class _Request:
     slot: int = -1
     generated: int = 0
     aborted: bool = False
+    prefix_id: int = -1             # registered prefix whose KV it adopts
+    prefill_pos: int = 0            # next prompt index (chunked prefill)
     submit_ts: float = field(default_factory=time.time)
     admit_ts: Optional[float] = None       # slot assigned
     prefill_dispatch_ms: float = 0.0       # host time issuing the prefill
@@ -172,11 +202,11 @@ class LLMEngine:
     """Continuous-batching engine over a ray_tpu_torch Llama-family model.
 
     `model` follows ray_tpu_torch/models/llama.py: model(tokens,
-    cache=[PagedKV per layer], positions=...) -> (logits, new_cache).
-    `state` is a state_dict loaded into it, or None when the model
-    already holds its weights. Runs on `device` (default CUDA; raises
-    where there is none unless device="cpu"). Sampling draws from a
-    torch.Generator on the device seeded `seed`.
+    cache=[per-layer (k, v, lengths) or PagedKV], positions=...) ->
+    (logits, new_cache). `state` is a state_dict loaded into it, or None
+    when the model already holds its weights. Runs on `device` (default
+    CUDA; raises where there is none unless device="cpu"). Sampling
+    draws from a torch.Generator on the device seeded `seed`.
     """
 
     def __init__(self, model, state, cfg: LLMEngineConfig, *,
@@ -193,39 +223,65 @@ class LLMEngine:
             raise ValueError(
                 f"engine max_seq_len {cfg.max_seq_len} exceeds the "
                 f"model's max_seq_len {mcfg.max_seq_len}")
-        S, L, ps = cfg.max_slots, cfg.max_seq_len, cfg.kv_page_size
-        # +1 scratch slot: padding rows of a batched prefill write there;
-        # it is never admitted and its page row is all trash
-        self._n_slots = S + 1
+        S, L = cfg.max_slots, cfg.max_seq_len
+        self._paged = cfg.kv_page_size > 0
+        # +1 scratch slot, never admitted: padding rows of a batched
+        # prefill write there, and on the paged cache prefix
+        # registration prefills through its page row (all trash
+        # otherwise). Without batching the contiguous cache has none.
+        self._n_slots = (S + 1 if (cfg.max_prefill_batch > 1 or self._paged)
+                         else S)
         self._scratch_slot = S
-        self._pages_per_slot = -(-L // ps)
-        pool_tokens = cfg.kv_pool_tokens or S * L
-        self._n_pages = max(1, -(-pool_tokens // ps))
-        self._trash_page = self._n_pages  # never read as valid
-        n_flat = (self._n_pages + 1) * ps
-        kv_shape = (n_flat, mcfg.n_kv_heads, mcfg.head_dim)
-        self._pools = [(torch.zeros(kv_shape, dtype=mcfg.dtype, device=dev),
-                        torch.zeros(kv_shape, dtype=mcfg.dtype, device=dev))
-                       for _ in range(mcfg.n_layers)]
-        self._page_table = torch.full((self._n_slots, self._pages_per_slot),
-                                      self._trash_page, dtype=torch.int32,
-                                      device=dev)
+        kv = (mcfg.n_kv_heads, mcfg.head_dim)
+
+        def zeros(*shape):
+            return torch.zeros(shape, dtype=mcfg.dtype, device=dev)
+
+        if self._paged:
+            ps = cfg.kv_page_size
+            self._pages_per_slot = -(-L // ps)
+            pool_tokens = cfg.kv_pool_tokens or S * L
+            self._n_pages = max(1, -(-pool_tokens // ps))
+            self._trash_page = self._n_pages  # never read as valid
+            n_flat = (self._n_pages + 1) * ps
+            self._pools = [(zeros(n_flat, *kv), zeros(n_flat, *kv))
+                           for _ in range(mcfg.n_layers)]
+            self._page_table = torch.full(
+                (self._n_slots, self._pages_per_slot), self._trash_page,
+                dtype=torch.int32, device=dev)
+            # host-side page allocator; slot -> (shared prefix pages at
+            # the front, every page in table order)
+            self._free_pages: List[int] = list(range(self._n_pages))
+            self._slot_pages: Dict[int, Tuple[int, List[int]]] = {}
+            self._prefix_pages: Dict[int, List[int]] = {}  # pinned
+            self._page_hwm = 0
+        else:
+            self._cache = [(zeros(self._n_slots, L, *kv),
+                            zeros(self._n_slots, L, *kv))
+                           for _ in range(mcfg.n_layers)]
         self._lengths = torch.zeros((self._n_slots,), dtype=torch.int32,
                                     device=dev)
         self._last_tokens = torch.zeros((self._n_slots,), dtype=torch.int32,
                                         device=dev)
-        # host-side page allocator
-        self._free_pages: List[int] = list(range(self._n_pages))
-        self._slot_pages: Dict[int, List[int]] = {}
         self._pending_head: Optional[_Request] = None
-        self._page_hwm = 0
-        # host mirror of each occupied slot's length: sizes the decode
-        # step's page window
+        # host mirror of each slot's length (prefilled and chunking
+        # slots too): sizes the paged decode step's page window
         self._disp_len: Dict[int, int] = {}
+        # prefix caching: pid -> tokens; contiguous KV rows
+        self._prefixes: Dict[int, np.ndarray] = {}
+        self._prefix_counter = itertools.count()
+        self._prefix_cache = None
+        if cfg.max_prefixes > 0 and not self._paged:
+            self._prefix_cache = [(zeros(cfg.max_prefixes, L, *kv),
+                                   zeros(cfg.max_prefixes, L, *kv))
+                                  for _ in range(mcfg.n_layers)]
 
         self._free_slots = list(range(S))
         self._active: Dict[int, _Request] = {}
+        self._prefilling: collections.deque = collections.deque()
         self._waiting: "queue_mod.Queue[_Request]" = queue_mod.Queue()
+        # commands that mutate the caches run on the loop thread
+        self._control_q: "queue_mod.Queue" = queue_mod.Queue()
         self._requests: Dict[str, _Request] = {}
         self._req_counter = itertools.count()
         self._lock = threading.Lock()
@@ -234,7 +290,7 @@ class LLMEngine:
         self._mask_dirty = True
         self._shutdown = threading.Event()
         self.stats = {"prefills": 0, "decode_steps": 0,
-                      "tokens_generated": 0}
+                      "tokens_generated": 0, "prefix_tokens_saved": 0}
         self._ttft_samples: collections.deque = collections.deque(maxlen=512)
         self._tpot_samples: collections.deque = collections.deque(maxlen=512)
         self._prefill_first_ms: Dict[int, float] = {}  # bucket -> ms
@@ -284,59 +340,224 @@ class LLMEngine:
         sampled = torch.argmax(probs / noise, dim=-1)
         return torch.where(temps > 0, sampled, greedy).to(torch.int32)
 
-    def _prefill_paged(self, tokens, slots, true_lens, temps, top_ps,
-                       pad_len: int, any_temp: bool, any_top_p: bool):
+    def _small_cache(self, g: int, width: int):
+        """A fresh per-layer (g, width) contiguous cache at length 0."""
+        mcfg = self.model.cfg
+        shape = (g, width, mcfg.n_kv_heads, mcfg.head_dim)
+        lens = torch.zeros((g,), dtype=torch.int32, device=self.device)
+        return [(torch.zeros(shape, dtype=mcfg.dtype, device=self.device),
+                 torch.zeros(shape, dtype=mcfg.dtype, device=self.device),
+                 lens) for _ in range(mcfg.n_layers)]
+
+    def _prefill(self, tokens, slots, true_lens, temps, top_ps,
+                 pad_len: int, any_temp: bool, any_top_p: bool,
+                 single_slot: Optional[int] = None):
         """Prefill G prompts: tokens (G, pad_len); slots / true_lens /
-        temps / top_ps (G,). KV streams straight into each slot's pages;
-        padding rows target the scratch slot (all-trash page row).
-        Returns the sampled first tokens (G,) int32."""
-        ps = self.cfg.kv_page_size
+        temps / top_ps (G,). Padding rows target the scratch slot.
+        Returns the sampled first tokens (G,) int32.
+
+        Paged: KV streams straight into each slot's pages (K1 for the
+        attention); the scratch slot's page row is all trash. Contiguous
+        with `single_slot` (no batching): the prompt runs against views
+        of that slot's rows, as `_prefill_impl` slices them. Contiguous
+        otherwise: a (G, pad_len) cache, scattered into the slots after
+        (`_prefill_batch_impl`)."""
         g = tokens.shape[0]
-        rows = self._page_table[slots.long()][:, :-(-pad_len // ps)]
-        rows = rows.contiguous()
-        zeros = torch.zeros((g,), dtype=torch.int32, device=self.device)
-        entries = [PagedKV(k, v, rows, zeros, ps, fresh=True)
-                   for (k, v) in self._pools]
         positions = torch.arange(pad_len, device=self.device)[None, :] \
             .expand(g, pad_len)
-        logits, _ = self.model(tokens, cache=entries, positions=positions)
-        self._lengths[slots.long()] = true_lens
+        idx = slots.long()
+        if self._paged:
+            ps = self.cfg.kv_page_size
+            rows = self._page_table[idx][:, :-(-pad_len // ps)].contiguous()
+            zeros = torch.zeros((g,), dtype=torch.int32, device=self.device)
+            entries = [PagedKV(k, v, rows, zeros, ps, fresh=True)
+                       for (k, v) in self._pools]
+            logits, _ = self.model(tokens, cache=entries, positions=positions)
+        elif single_slot is not None:
+            s = single_slot
+            zeros = torch.zeros((1,), dtype=torch.int32, device=self.device)
+            entries = [(ck[s:s + 1], cv[s:s + 1], zeros)
+                       for (ck, cv) in self._cache]
+            logits, _ = self.model(tokens, cache=entries, positions=positions)
+        else:
+            small = self._small_cache(g, pad_len)
+            logits, _ = self.model(tokens, cache=small, positions=positions)
+            # duplicate scratch indices of padding rows are harmless: the
+            # scratch slot is never admitted
+            for (ck, cv), (k1, v1, _l) in zip(self._cache, small):
+                ck[idx, :pad_len] = k1
+                cv[idx, :pad_len] = v1
+        self._lengths[idx] = true_lens
         last = logits[torch.arange(g, device=self.device),
                       true_lens.long() - 1]
         return self._sample_tokens(last, temps, top_ps, any_temp, any_top_p)
 
-    def _decode_paged(self, mask, temps, top_ps, window_pages: int,
-                      any_temp: bool, any_top_p: bool):
-        """One decode step for every slot. Released slots' page rows
-        point at the trash page, so their writes are inert; inactive
-        slots keep their lengths. window_pages > 0 narrows the page
-        table to its first columns (a power-of-2 bucket covering the
-        longest occupied slot). Returns (next tokens, new lengths)."""
-        ps = self.cfg.kv_page_size
-        pt = self._page_table
-        if window_pages and window_pages < pt.shape[1]:
-            pt = pt[:, :window_pages].contiguous()
-        entries = [PagedKV(k, v, pt, self._lengths, ps)
-                   for (k, v) in self._pools]
-        positions = self._lengths[:, None]
+    def _prefill_chunk(self, tokens, slot: int, start: int, temp: float,
+                       top_p: float, sample: bool):
+        """One chunk of a long prompt through the cached path: tokens
+        (1, n) written at positions [start, start + n); the slot's length
+        becomes start + n. The slot's current length IS `start`: a reused
+        slot's stored length would be stale from the previous occupant
+        (`_prefill_chunk_impl`). The paged cache gathers the slot's page
+        row (`_chunk_paged_impl`). sample=True (the final chunk) samples
+        the first token, (1,) int32; else returns None."""
+        n = tokens.shape[1]
+        l1 = torch.full((1,), start, dtype=torch.int32, device=self.device)
+        if self._paged:
+            row = self._page_table[slot:slot + 1]
+            entries = [PagedKV(k, v, row, l1, self.cfg.kv_page_size)
+                       for (k, v) in self._pools]
+        else:
+            entries = [(ck[slot:slot + 1], cv[slot:slot + 1], l1)
+                       for (ck, cv) in self._cache]
+        positions = torch.arange(start, start + n, device=self.device)[None]
+        logits, _ = self.model(tokens, cache=entries, positions=positions)
+        self._lengths[slot] = start + n
+        if not sample:
+            return None
+        return self._sample_tokens(
+            logits[0, -1:], self._to_dev(np.array([temp], np.float32)),
+            self._to_dev(np.array([top_p], np.float32)), temp > 0,
+            top_p < 1.0)
+
+    def _decode(self, mask, temps, top_ps, window_pages: int,
+                any_temp: bool, any_top_p: bool):
+        """One decode step for every slot. Inactive slots keep their
+        lengths; released paged slots' rows point at the trash page, so
+        their writes are inert. window_pages > 0 narrows the page table
+        to its first columns (a power-of-2 bucket covering the longest
+        slot). Returns (next tokens, new lengths)."""
+        # a lagged step of a request that filled max_seq_len writes at
+        # the last position instead of past it; its token is discarded
+        positions = self._lengths.clamp(max=self.cfg.max_seq_len - 1)[:, None]
+        if self._paged:
+            pt = self._page_table
+            if window_pages and window_pages < pt.shape[1]:
+                pt = pt[:, :window_pages].contiguous()
+            entries = [PagedKV(k, v, pt, self._lengths, self.cfg.kv_page_size)
+                       for (k, v) in self._pools]
+        else:
+            entries = [(ck, cv, self._lengths) for (ck, cv) in self._cache]
         logits, new_entries = self.model(self._last_tokens[:, None],
                                          cache=entries, positions=positions)
-        new_lengths = torch.where(mask, new_entries[0].lengths,
-                                  self._lengths)
+        new = new_entries[0]
+        new_len = new.lengths if self._paged else new[2]
+        new_lengths = torch.where(mask, new_len, self._lengths)
         nxt = self._sample_tokens(logits[:, 0], temps, top_ps, any_temp,
                                   any_top_p)
         return torch.where(mask, nxt, self._last_tokens), new_lengths
 
     # ---- public API -----------------------------------------------------
+    def register_prefix(self, prefix_ids) -> int:
+        """Prefill a shared prompt prefix (e.g. a system prompt) once;
+        returns a prefix_id for submit(prefix_id=...). Needs
+        cfg.max_prefixes > 0; registering more raises. The prefill runs
+        on the engine loop thread; this call blocks until it is done."""
+        if self.cfg.max_prefixes <= 0:
+            raise ValueError("engine built with max_prefixes=0")
+        prefix = np.asarray(prefix_ids, np.int32).reshape(-1)
+        if prefix.size == 0:
+            raise ValueError("empty prefix")
+        if prefix.size >= self.cfg.max_seq_len - 1:
+            raise ValueError(f"prefix length {prefix.size} leaves no room "
+                             f"in max_seq_len {self.cfg.max_seq_len}")
+        pid = next(self._prefix_counter)
+        if pid >= self.cfg.max_prefixes:
+            raise ValueError(
+                f"prefix slots exhausted ({self.cfg.max_prefixes})")
+        fill = (self._register_prefix_paged if self._paged
+                else self._fill_prefix_row)
+        self._run_on_loop(lambda: fill(pid, prefix))
+        return pid
+
+    def _run_on_loop(self, fn) -> None:
+        """Run `fn` on the engine loop thread (cache mutations must not
+        race its dispatches); block until done and re-raise its
+        exception. Raises if the engine shuts down first."""
+        if self._shutdown.is_set():
+            raise RuntimeError("engine is shut down")
+        fut: Future = Future()
+        self._control_q.put((fn, fut))
+        while True:
+            try:
+                fut.result(timeout=0.1)
+                return
+            except FutureTimeout:
+                if self._shutdown.is_set() and not fut.done():
+                    raise RuntimeError(
+                        "engine shut down before command ran") from None
+
+    def _register_prefix_paged(self, pid: int, prefix: np.ndarray) -> None:
+        """Prefill a prefix into freshly allocated pinned pages (loop
+        thread). Adopters share its full pages by reference."""
+        ps = self.cfg.kv_page_size
+        pages = self._alloc_pages(-(-prefix.size // ps))
+        if pages is None:
+            raise ValueError("page pool exhausted registering prefix")
+        scratch = self._scratch_slot
+        pad = min(_next_pow2(prefix.size), self.cfg.max_seq_len)
+        tokens = np.zeros((1, pad), np.int32)
+        tokens[0, :prefix.size] = prefix
+        self._set_page_row(scratch, pages)
+        try:
+            self._prefill(
+                self._to_dev(tokens), self._to_dev(np.array([scratch],
+                                                            np.int32)),
+                self._to_dev(np.array([prefix.size], np.int32)),
+                self._to_dev(np.zeros((1,), np.float32)),
+                self._to_dev(np.ones((1,), np.float32)), pad,
+                any_temp=False, any_top_p=False)
+        except BaseException:
+            self._free_pages.extend(pages)
+            raise
+        finally:
+            # scratch row back to all trash: batch-padding rows write
+            # through it and must never reach the pinned prefix pages
+            self._set_page_row(scratch, [])
+        self._prefix_pages[pid] = pages
+        self._prefixes[pid] = prefix
+
+    def _unregister_prefix_paged(self, pid: int) -> None:
+        """Free a prefix's pinned pages (loop thread; only safe once no
+        slot shares them)."""
+        pages = self._prefix_pages.pop(pid, None)
+        self._prefixes.pop(pid, None)
+        if pages:
+            self._free_pages.extend(pages)
+
+    def _fill_prefix_row(self, pid: int, prefix: np.ndarray) -> None:
+        """Prefill a prefix into row `pid` of the contiguous prefix
+        buffers (loop thread; `_prefix_fill_impl`)."""
+        pad = min(_next_pow2(prefix.size), self.cfg.max_seq_len)
+        tokens = np.zeros((1, pad), np.int32)
+        tokens[0, :prefix.size] = prefix
+        small = self._small_cache(1, pad)
+        self.model(self._to_dev(tokens), cache=small,
+                   positions=torch.arange(pad, device=self.device)[None])
+        for (pk, pv), (k1, v1, _l) in zip(self._prefix_cache, small):
+            pk[pid, :pad] = k1[0]
+            pv[pid, :pad] = v1[0]
+        self._prefixes[pid] = prefix
+
     def submit(self, prompt_ids, max_new_tokens: Optional[int] = None,
                temperature: float = 0.0, top_p: float = 1.0,
-               stop_token_ids=None) -> str:
+               stop_token_ids=None, prefix_id: Optional[int] = None) -> str:
+        """prefix_id: a registered prefix; `prompt_ids` is then the
+        suffix. The engine re-attaches the prefix's tokens but adopts its
+        KV instead of prefilling it."""
         prompt = np.asarray(prompt_ids, dtype=np.int32).reshape(-1)
         if prompt.size == 0:
             raise ValueError("empty prompt")
         if not 0.0 < top_p <= 1.0:
             raise ValueError(f"top_p must be in (0, 1], got {top_p}")
-        self._bucket(prompt.size)  # validate in the caller, not the loop
+        if prefix_id is not None:
+            prefix = self._prefixes.get(prefix_id)
+            if prefix is None:
+                raise ValueError(f"unknown prefix_id {prefix_id}")
+            prompt = np.concatenate([prefix, prompt])
+        elif not self._use_chunked(prompt.size):
+            # chunked prompts bypass the buckets; all others must fit one
+            self._bucket(prompt.size)  # validate in the caller, not loop
         budget = max_new_tokens or self.cfg.max_new_tokens_default
         if prompt.size + budget > self.cfg.max_seq_len:
             budget = self.cfg.max_seq_len - prompt.size
@@ -344,15 +565,17 @@ class LLMEngine:
                 raise ValueError(
                     f"prompt length {prompt.size} exceeds max_seq_len "
                     f"{self.cfg.max_seq_len}")
-        need = -(-(prompt.size + budget) // self.cfg.kv_page_size)
-        if need > self._n_pages:
-            raise ValueError(
-                f"request needs {need} KV pages; pool has {self._n_pages} "
-                f"total — it could never be admitted")
+        if self._paged:
+            need = -(-(prompt.size + budget) // self.cfg.kv_page_size)
+            if need > self._n_pages:
+                raise ValueError(
+                    f"request needs {need} KV pages; pool has "
+                    f"{self._n_pages} total — it could never be admitted")
         req = _Request(request_id=f"req-{next(self._req_counter)}",
                        prompt=prompt, max_new_tokens=budget,
                        temperature=float(temperature), top_p=float(top_p),
-                       stop_ids=frozenset(stop_token_ids or ()))
+                       stop_ids=frozenset(stop_token_ids or ()),
+                       prefix_id=-1 if prefix_id is None else prefix_id)
         with self._lock:
             self._requests[req.request_id] = req
         self._waiting.put(req)
@@ -384,7 +607,8 @@ class LLMEngine:
         """Best-effort early termination. A decoding request's budget
         collapses to what it has generated, so its slot is released at
         the next drain (a few lagged tokens may still arrive). A request
-        still queued is cancelled outright."""
+        still queued is cancelled outright; one that is chunk-prefilling
+        is cancelled at its next chunk."""
         req = self._requests.get(request_id)
         if req is None:
             return
@@ -396,22 +620,28 @@ class LLMEngine:
 
     def generate_sync(self, prompt_ids, max_new_tokens=None,
                       temperature: float = 0.0, top_p: float = 1.0,
-                      stop_token_ids=None) -> List[int]:
+                      stop_token_ids=None,
+                      prefix_id: Optional[int] = None) -> List[int]:
         rid = self.submit(prompt_ids, max_new_tokens, temperature,
-                          top_p=top_p, stop_token_ids=stop_token_ids)
+                          top_p=top_p, stop_token_ids=stop_token_ids,
+                          prefix_id=prefix_id)
         return list(self.stream(rid))
 
     def get_stats(self) -> Dict[str, Any]:
         with self._lock:
             out = {**self.stats, "active": len(self._active),
                    "waiting": self._waiting.qsize(),
-                   "free_slots": len(self._free_slots),
-                   "kv_pages": {
-                       "page_size": self.cfg.kv_page_size,
-                       "total": self._n_pages,
-                       "free": len(self._free_pages),
-                       "in_use": self._n_pages - len(self._free_pages),
-                       "peak_in_use": self._page_hwm}}
+                   "prefilling": len(self._prefilling),
+                   "free_slots": len(self._free_slots)}
+            if self._paged:
+                out["kv_pages"] = {
+                    "page_size": self.cfg.kv_page_size,
+                    "total": self._n_pages,
+                    "free": len(self._free_pages),
+                    "in_use": self._n_pages - len(self._free_pages),
+                    "pinned_prefix": sum(
+                        len(p) for p in self._prefix_pages.values()),
+                    "peak_in_use": self._page_hwm}
             samples = list(self._ttft_samples)
             tpots = sorted(self._tpot_samples)
         if tpots:
@@ -440,27 +670,123 @@ class LLMEngine:
         raise ValueError(f"prompt length {n} exceeds largest prefill "
                          f"bucket {self.cfg.prefill_buckets[-1]}")
 
-    def _admit_paged(self, req: _Request) -> bool:
-        """Reserve pages + a slot; False when the pool is short."""
-        pages = self._alloc_pages(self._pages_needed(req))
-        if pages is None:
+    def _largest_bucket(self) -> int:
+        """0 when no bucket fits max_seq_len (then every prompt that
+        chunking can take is chunked)."""
+        return max((b for b in self.cfg.prefill_buckets
+                    if b <= self.cfg.max_seq_len), default=0)
+
+    def _chunk_for(self, remaining: int) -> int:
+        """Chunk width of one chunked-prefill dispatch: the configured
+        chunk, or (a prefix's suffix with chunking off) the smallest
+        bucket covering the rest of the prompt, so a short suffix does
+        not pay a largest-bucket-wide pass."""
+        if self.cfg.prefill_chunk > 0:
+            return self.cfg.prefill_chunk
+        for b in sorted(self.cfg.prefill_buckets):
+            if remaining <= b <= self.cfg.max_seq_len:
+                return b
+        return self._largest_bucket() or self.cfg.max_seq_len
+
+    def _use_chunked(self, n: int) -> bool:
+        """Chunked prefill takes prompts longer than prefill_chunk and
+        any prompt past the largest bucket."""
+        if self.cfg.prefill_chunk <= 0:
             return False
+        return n > self.cfg.prefill_chunk or n > self._largest_bucket()
+
+    def _fail_admission(self, req: _Request, slot: int, err) -> None:
+        self._free_slots.append(slot)
+        req.slot = -1
+        req.out_queue.put(("error", err))
+        req.out_queue.put(_END)
+
+    def _admit_contiguous(self, req: _Request) -> bool:
+        """Take a slot; a prefix request adopts its prefix's KV with one
+        on-device row copy. False when the request failed (its stream is
+        errored)."""
         slot = self._free_slots.pop()
         req.slot = slot
         req.admit_ts = time.time()
-        self._slot_pages[slot] = pages
-        self._set_page_row(slot, pages)
-        # reset the slot's device length now: a reused slot's stale
-        # length would aim inactive decode steps' writes at an arbitrary
-        # position of the new occupant's pages
-        self._lengths[slot] = 0
-        self._disp_len[slot] = 0
+        plen = 0
+        if req.prefix_id >= 0:
+            plen = int(self._prefixes[req.prefix_id].size)
+            try:
+                for (ck, cv), (pk, pv) in zip(self._cache,
+                                              self._prefix_cache):
+                    ck[slot, :plen] = pk[req.prefix_id, :plen]
+                    cv[slot, :plen] = pv[req.prefix_id, :plen]
+            except Exception as e:  # noqa: BLE001  per-request containment
+                self._fail_admission(req, slot, e)
+                return False
+            req.prefill_pos = plen
+            self.stats["prefix_tokens_saved"] += plen
+        # reset the slot's stale length (a previous occupant's) now
+        self._lengths[slot] = plen
+        self._disp_len[slot] = plen
         return True
 
+    def _admit_paged(self, req: _Request) -> str:
+        """Reserve pages + a slot. Returns "ok", "nopages" (hold the
+        request) or "failed" (its stream is errored). A prefix request
+        shares the prefix's full pages by page-table reference and copies
+        only its partial last page."""
+        ps = self.cfg.kv_page_size
+        need_total = self._pages_needed(req)
+        # pinned prefix pages never return to the pool: a request needing
+        # more than can ever be free would hold the queue head forever
+        pinned = sum(len(p) for p in self._prefix_pages.values())
+        n_shared = (int(self._prefixes[req.prefix_id].size) // ps
+                    if req.prefix_id >= 0 else 0)
+        if need_total - n_shared > self._n_pages - pinned:
+            req.out_queue.put(("error", ValueError(
+                f"request needs {need_total - n_shared} exclusive KV pages "
+                f"but only {self._n_pages - pinned} can ever be free "
+                f"({pinned} pinned by prefixes)")))
+            req.out_queue.put(_END)
+            return "failed"
+        excl = self._alloc_pages(need_total - n_shared)
+        if excl is None:
+            return "nopages"
+        slot = self._free_slots.pop()
+        req.slot = slot
+        req.admit_ts = time.time()
+        plen = 0
+        pages = excl
+        if req.prefix_id >= 0:
+            prefix_pages = self._prefix_pages[req.prefix_id]
+            plen = int(self._prefixes[req.prefix_id].size)
+            if plen % ps:
+                try:
+                    self._copy_page(prefix_pages[n_shared], excl[0])
+                except Exception as e:  # noqa: BLE001
+                    self._free_pages.extend(excl)
+                    self._fail_admission(req, slot, e)
+                    return "failed"
+            pages = prefix_pages[:n_shared] + excl
+            req.prefill_pos = plen
+            self.stats["prefix_tokens_saved"] += plen
+        self._slot_pages[slot] = (n_shared, pages)
+        self._set_page_row(slot, pages)
+        # a reused slot's stale length would aim inactive decode steps'
+        # writes at an arbitrary position of the new occupant's pages
+        self._lengths[slot] = plen
+        self._disp_len[slot] = plen
+        return "ok"
+
+    def _copy_page(self, src: int, dst: int) -> None:
+        """Copy one page's k/v rows in every layer: the only copy a
+        paged prefix adoption makes (its partial last page)."""
+        ps = self.cfg.kv_page_size
+        for (k, v) in self._pools:
+            k[dst * ps:(dst + 1) * ps] = k[src * ps:(src + 1) * ps]
+            v[dst * ps:(dst + 1) * ps] = v[src * ps:(src + 1) * ps]
+
     def _admit_all(self, inflight) -> None:
-        """Issue prefills for every waiting request that gets a slot and
-        its pages. Requests sharing a length bucket prefill together;
-        their first tokens drain through the same pipeline as decode."""
+        """Issue prefills for every waiting request that gets a slot (and
+        its pages). Requests sharing a length bucket prefill together;
+        long prompts and prefix requests join the chunked-prefill queue.
+        First tokens drain through the same pipeline as decode."""
         taken: List[tuple] = []
         while self._free_slots:
             if self._pending_head is not None:
@@ -475,12 +801,21 @@ class LLMEngine:
                 # the consumer
                 self._requests.pop(req.request_id, None)
                 continue
-            if not self._admit_paged(req):
-                # page pool exhausted: hold the head request (FIFO) until
-                # releases refill the pool
-                self._pending_head = req
-                break
-            taken.append((self._bucket(req.prompt.size), req, req.slot))
+            if self._paged:
+                outcome = self._admit_paged(req)
+                if outcome == "nopages":
+                    # hold the head request (FIFO) until releases refill
+                    # the pool
+                    self._pending_head = req
+                    break
+                if outcome == "failed":
+                    continue
+            elif not self._admit_contiguous(req):
+                continue
+            if req.prefix_id >= 0 or self._use_chunked(req.prompt.size):
+                self._prefilling.append(req)
+            else:
+                taken.append((self._bucket(req.prompt.size), req, req.slot))
         groups: Dict[int, List[tuple]] = {}
         for pad_len, req, slot in taken:
             groups.setdefault(pad_len, []).append((req, slot))
@@ -493,7 +828,8 @@ class LLMEngine:
     def _dispatch_prefill(self, inflight, pad_len: int, members) -> None:
         """One prefill call for members = [(req, slot), ...] of a shared
         bucket; the group size pads to a power of two on the scratch
-        slot."""
+        slot (a contiguous cache without batching prefills one prompt in
+        place)."""
         g_real = len(members)
         t_dispatch = time.time()
         g = _next_pow2(g_real)
@@ -508,13 +844,15 @@ class LLMEngine:
             lens[i] = req.prompt.size
             temps[i] = req.temperature
             top_ps[i] = req.top_p
+        single = (not self._paged and self.cfg.max_prefill_batch <= 1)
         try:
-            toks = self._prefill_paged(
+            toks = self._prefill(
                 self._to_dev(tokens), self._to_dev(slots),
                 self._to_dev(lens), self._to_dev(temps),
                 self._to_dev(top_ps), pad_len,
                 any_temp=bool((temps > 0).any()),
-                any_top_p=bool((top_ps < 1.0).any()))[:g_real]
+                any_top_p=bool((top_ps < 1.0).any()),
+                single_slot=int(slots[0]) if single else None)[:g_real]
             real_slots = self._to_dev(slots[:g_real]).long()
             self._last_tokens[real_slots] = toks
         except Exception as e:  # noqa: BLE001  per-request containment
@@ -535,6 +873,44 @@ class LLMEngine:
         self._mask_dirty = True
         inflight.append(("prefill_batch", [r for r, _ in members],
                          _Fetch(toks)))
+
+    def _dispatch_chunk(self, inflight) -> None:
+        """Advance the oldest chunk-prefilling request by one chunk. The
+        final chunk samples the first token and activates the slot."""
+        req = self._prefilling[0]
+        if req.aborted:
+            # cancelled mid-prefill: drop the rest, free the slot, close
+            # the stream with no token forced
+            self._prefilling.popleft()
+            self._release(req)
+            return
+        start = req.prefill_pos
+        n = min(self._chunk_for(req.prompt.size - start),
+                req.prompt.size - start)
+        is_last = start + n >= req.prompt.size
+        t_dispatch = time.time()
+        try:
+            tok = self._prefill_chunk(
+                self._to_dev(req.prompt[None, start:start + n]), req.slot,
+                start, req.temperature, req.top_p, sample=is_last)
+        except Exception as e:  # noqa: BLE001  per-request containment
+            self._prefilling.popleft()
+            self._free_slot_pages(req.slot)
+            self._free_slots.append(req.slot)
+            req.slot = -1
+            req.out_queue.put(("error", e))
+            req.out_queue.put(_END)
+            return
+        req.prefill_pos = start + n
+        self._disp_len[req.slot] = req.prefill_pos
+        req.prefill_dispatch_ms += (time.time() - t_dispatch) * 1000
+        if is_last:
+            self._prefilling.popleft()
+            self.stats["prefills"] += 1
+            self._last_tokens[req.slot:req.slot + 1] = tok
+            self._active[req.slot] = req
+            self._mask_dirty = True
+            inflight.append(("prefill_batch", [req], _Fetch(tok)))
 
     def _emit(self, req: _Request, tok: int) -> None:
         req.generated += 1
@@ -596,13 +972,18 @@ class LLMEngine:
         self._page_table[slot] = self._to_dev(row)
 
     def _free_slot_pages(self, slot: int) -> None:
-        """Return the slot's pages to the pool and point its row at the
-        trash page so lagged decode writes cannot reach a reused page."""
+        """Forget the slot's length mirror; on the paged cache return its
+        exclusive pages to the pool (shared prefix pages stay pinned) and
+        point its row at the trash page, so lagged decode writes cannot
+        reach a reused page."""
         self._disp_len.pop(slot, None)
-        pages = self._slot_pages.pop(slot, None)
-        if pages is None:
+        if not self._paged:
             return
-        self._free_pages.extend(pages)
+        entry = self._slot_pages.pop(slot, None)
+        if entry is None:
+            return
+        n_shared, pages = entry
+        self._free_pages.extend(pages[n_shared:])
         self._set_page_row(slot, [])
 
     def _release(self, req: _Request) -> None:
@@ -624,10 +1005,14 @@ class LLMEngine:
             _put_dropping_one(req.out_queue, _END)
 
     def _decode_window_pages(self) -> int:
-        """Power-of-2 page window covering every occupied slot plus this
-        step's new token; 0 = the full table."""
+        """Power-of-2 page window covering every slot that holds KV
+        (decoding and chunk-prefilling: a narrower window would let the
+        clamped write index of `PagedKV.flat_rows` reach a prefilling
+        slot's pages) plus this dispatch's new tokens; 0 = the full
+        table."""
         ps = self.cfg.kv_page_size
-        need = max(self._disp_len.values(), default=0) + 1
+        need = (max(self._disp_len.values(), default=0)
+                + max(1, self.cfg.decode_block))
         w = _next_pow2(-(-need // ps))
         return 0 if w >= self._pages_per_slot else w
 
@@ -651,9 +1036,9 @@ class LLMEngine:
         return self._mask_state
 
     def _drain_one(self, inflight) -> None:
-        """Read the oldest in-flight result and emit its tokens.
-        Termination checks happen here, `pipeline_depth` steps behind
-        dispatch; lagged tokens of finished or reused slots are
+        """Read the oldest in-flight result and emit its tokens in step
+        order. Termination checks happen here, `pipeline_depth`
+        dispatches behind; lagged tokens of finished or reused slots are
         discarded by the (req.slot == slot, generated < budget) guards."""
         kind, payload, fetch = inflight.popleft()
         try:
@@ -680,19 +1065,21 @@ class LLMEngine:
                         >= self.cfg.max_seq_len):
                     self._release(req)
             return
-        self.stats["decode_steps"] += 1
-        for slot, req in payload:
-            if req.slot != slot:
-                continue  # released/reused slot: lagged, discard
-            if req.generated >= req.max_new_tokens:
-                # budget shrank out of band (abort())
-                self._release(req)
-                continue
-            self._emit(req, int(host[slot]))
-            if (req.generated >= req.max_new_tokens
-                    or req.prompt.size + req.generated
-                    >= self.cfg.max_seq_len):
-                self._release(req)
+        rows = host if host.ndim == 2 else host[None, :]   # (block, S)
+        self.stats["decode_steps"] += rows.shape[0]
+        for row in rows:
+            for slot, req in payload:
+                if req.slot != slot:
+                    continue  # released/reused slot: lagged, discard
+                if req.generated >= req.max_new_tokens:
+                    # budget shrank out of band (abort())
+                    self._release(req)
+                    continue
+                self._emit(req, int(row[slot]))
+                if (req.generated >= req.max_new_tokens
+                        or req.prompt.size + req.generated
+                        >= self.cfg.max_seq_len):
+                    self._release(req)
 
     def _engine_loop(self) -> None:
         with torch.no_grad():
@@ -707,24 +1094,46 @@ class LLMEngine:
                         self._release(req)
                     inflight.clear()
 
+    def _run_commands(self) -> None:
+        """Run queued cache mutations (prefix registration) between
+        dispatches."""
+        while True:
+            try:
+                fn, done = self._control_q.get_nowait()
+            except queue_mod.Empty:
+                return
+            try:
+                fn()
+                done.set_result(None)
+            except Exception as e:  # noqa: BLE001  raised in the caller
+                done.set_exception(e)
+
     def _step(self, inflight) -> None:
+        self._run_commands()
         self._admit_all(inflight)
+        if self._prefilling:
+            self._dispatch_chunk(inflight)
         if self._active:
             mask, temps, top_ps, any_temp, any_top_p = \
                 self._device_mask_temps()
             snapshot = list(self._active.items())
-            toks, self._lengths = self._decode_paged(
-                mask, temps, top_ps, self._decode_window_pages(),
-                any_temp, any_top_p)
+            block = max(1, self.cfg.decode_block)
+            window = self._decode_window_pages() if self._paged else 0
+            steps = []
+            for _ in range(block):
+                toks, self._lengths = self._decode(
+                    mask, temps, top_ps, window, any_temp, any_top_p)
+                self._last_tokens = toks
+                steps.append(toks)
             for slot in self._active:
-                self._disp_len[slot] += 1
-            self._last_tokens = toks
-            inflight.append(("decode", snapshot, _Fetch(toks)))
+                self._disp_len[slot] += block
+            out = steps[0] if block == 1 else torch.stack(steps)
+            inflight.append(("decode", snapshot, _Fetch(out)))
         if not inflight:
             time.sleep(0.002)
             return
-        # stay `pipeline_depth` steps ahead while decoding; drain fully
-        # once nothing is active
+        # stay `pipeline_depth` dispatches ahead while decoding; drain
+        # fully once nothing is active
         target = self.cfg.pipeline_depth if self._active else 0
         while len(inflight) > target:
             self._drain_one(inflight)

@@ -309,7 +309,8 @@ def test_paged_input_checks(case):
 
 
 def test_build_lists_sources_and_defers_compiling():
-    assert build.sources() == ["flash_bwd", "flash_fwd", "paged_decode"]
+    assert build.sources() == ["flash_bwd", "flash_fwd", "paged_decode",
+                               "rmsnorm"]
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     for name in build.sources():
         assert os.path.isfile(os.path.join(build.CSRC_DIR, name + ".cu"))
@@ -331,10 +332,13 @@ def test_kernel_modules_import_without_nvcc_or_triton():
         "import ray_tpu_torch.ops.kernels.build as b\n"
         "import ray_tpu_torch.ops.kernels.flash_attention as f\n"
         "import ray_tpu_torch.ops.kernels.paged_attention as p\n"
+        "import ray_tpu_torch.ops.kernels.rmsnorm as r\n"
         "assert 'triton' not in sys.modules\n"
         "assert not b._libs\n"
         "q = torch.randn(1, 5, 2, 16)\n"
         "f.flash_attention(q, q, q)\n"
+        "r.fused_rms_norm(q, torch.ones(16))\n"
+        "assert not b._libs\n"
         "print('ok')\n")
     res = _run_python(code, env)
     assert res.returncode == 0, res.stderr
@@ -369,7 +373,8 @@ def test_port_imports_no_jax_and_no_ray_tpu():
     n_modules, mods = res.stdout.strip().splitlines()
     assert int(n_modules) >= 15
     assert _leaks(mods.split()) == []
-    for name in ("ray_tpu_torch.serve.llm.engine", "ray_tpu_torch.train.spmd",
+    for name in ("ray_tpu_torch.serve.llm.engine",
+                 "ray_tpu_torch.ops.kernels.rmsnorm", "ray_tpu_torch.train.spmd",
                  "ray_tpu_torch.train.optim", "ray_tpu_torch.train.checkpoint",
                  "ray_tpu_torch.parallel.precision"):
         assert name in mods.split()
