@@ -10,11 +10,13 @@ phases and fails (non-zero exit, no result line) if any of them fails:
 
 1. kernels: each kernel against its plain PyTorch version at
    Llama-3-8B attention shapes (Hq 32, Hkv 8, D 128, bf16; K2a/K2b also
-   fp32 at D 64) and, for K4 (RMSNorm), at the shapes its callers use
-   (up to 2 x 2048 rows of 4096, bf16 with an fp32 weight), with the
-   tolerance printed; K4's backward against plain autograd; kernel,
-   plain and library times on the card and the least time the card
-   could take (the bound).
+   at the flagship's D 64 in bf16 and fp32, ragged lengths and Hq = Hkv,
+   and two launches compared bit for bit) and, for K4 (RMSNorm), at the
+   shapes its callers use (up to 2 x 2048 rows of 4096, bf16 with an
+   fp32 weight), with the tolerance printed; K4's backward against plain
+   autograd; kernel, plain and library times on the card and the least
+   time the card could take (the bound); the wgmma kernels' registers
+   and spills from the ptxas log (a spill fails).
 2. serve: `LLMServer` on Llama-3-8B widths at full depth (32 layers,
    bf16, random weights from a seed), one model under four engine
    configurations, a burst of 8 requests of 32 new tokens each (greedy,
@@ -97,11 +99,21 @@ K1_RECORD = (1, 2048)                         # shape written to the JSON
 # absolute floor for the near-zero entries of the sums.
 K2_ATOL, K2_RTOL = 1e-2, 1.6e-2
 K2_ATOL_FP32 = 1e-4     # fp32: exact products, sums in another order
-# (batch, sequence, causal); Hq 32, Hkv 8, D 128, bf16. (2, 2048) is the
-# train phase's shape and the one written to the JSON.
-K2_SHAPES = [(1, 128, True), (4, 512, True), (1, 2048, True),
-             (2, 2048, True), (1, 1024, False), (1, 1000, True)]
-K2_RECORD = (2, 2048, True)
+# (batch, sequence, causal, Hq, Hkv, D), bf16. (2, 2048, True, 32, 8,
+# 128) is the train phase's shape and the one written to the JSON. D 64
+# and 128 take the wgmma kernels (128-row resident tiles, 64-row
+# streamed tiles): S 32 is the north-star phase's shape (FLAGSHIP
+# heads), shorter than one tile; S 130 and 1000 end inside a tile; Hq =
+# Hkv has no GQA group. D 32 and 16 take the mma.sync kernels, at ragged
+# S and a GQA group of 2 and 4.
+K2_SHAPES = [(1, 128, True, 32, 8, 128), (4, 512, True, 32, 8, 128),
+             (1, 2048, True, 32, 8, 128), (2, 2048, True, 32, 8, 128),
+             (1, 1024, False, 32, 8, 128), (1, 1000, True, 32, 8, 128),
+             (1, 1000, False, 32, 8, 128), (1, 512, True, 8, 8, 128),
+             (4, 32, True, 8, 4, 64), (1, 130, True, 8, 4, 64),
+             (2, 130, False, 8, 8, 64), (1, 130, True, 8, 4, 32),
+             (2, 40, False, 8, 2, 16)]
+K2_RECORD = (2, 2048, True, 32, 8, 128)
 # fp32 at the train-parity phase's head shape (Hq 8, Hkv 4, D 64)
 K2_FP32_SHAPES = [(2, 256, True), (1, 300, False)]
 K3_LENGTHS = [1, 37, 250, 512, 900, 1333, 1700, 2000]
@@ -318,17 +330,26 @@ def k2_rows(torch, gen):
     from ray_tpu_torch.ops.kernels import flash_attention as fa
     for b, s, causal in K2_FP32_SHAPES:
         k2_check(torch, gen, b, s, causal, 8, 4, 64, torch.float32)
-    hq, hkv, d = 32, 8, 128
     err_dq = err_dkv = 0.0
     rec = {}
-    for b, s, causal in K2_SHAPES:
+    for b, s, causal, hq, hkv, d in K2_SHAPES:
         (q, k, v, do, lse, delta), errs = k2_check(
             torch, gen, b, s, causal, hq, hkv, d, torch.bfloat16)
         err_dq = max(err_dq, errs[0])
         err_dkv = max(err_dkv, errs[1], errs[2])
-        if (b, s, causal) != K2_RECORD:
+        if (b, s, causal, hq, hkv, d) != K2_RECORD:
             continue
         kw = dict(causal=causal)
+        # determinism: no atomics, so two launches on the same inputs give
+        # the same bits
+        runs = [(fa.flash_bwd_dq(q, k, v, do, lse, delta, **kw),
+                 *fa.flash_bwd_dkv(q, k, v, do, lse, delta, **kw))
+                for _ in range(2)]
+        same = all(torch.equal(x, y) for x, y in zip(*runs))
+        print(f"kernels: K2a/K2b B={b} S={s} two launches bit-identical "
+              f"(dq, dk, dv): {same}", flush=True)
+        check(same, "K2a/K2b gave different bits on the same inputs")
+        del runs
         ms_dq = time_ms(lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta,
                                                 **kw))
         ms_dkv = time_ms(lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta,
@@ -337,10 +358,15 @@ def k2_rows(torch, gen):
             q, k, v, do, lse, delta, **kw), iters=5)
         plain_dkv = time_ms(lambda: fa.flash_bwd_dkv_plain(
             q, k, v, do, lse, delta, **kw), iters=5)
+        # the whole backward as _FlashAttention runs it: delta, K2a, K2b
+        out, _ = fa.flash_attention_fwd(q, k, v, **kw)
+        ms_bwd = time_ms(lambda: fa.flash_attention_bwd(q, k, v, out, lse,
+                                                        do, **kw))
         # library: SDPA's backward on the same inputs through autograd on
-        # a retained graph. It computes dQ, dK and dV in one pass, and no
-        # PyTorch call computes dQ or (dK, dV) alone, so both rows carry
-        # this one time: compare it with K2a + K2b.
+        # a retained graph. It computes dQ, dK and dV in one pass (its own
+        # delta included), and no PyTorch call computes dQ or (dK, dV)
+        # alone, so both rows carry this one time: compare it with K2a +
+        # K2b, and with the whole backward.
         qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
                       for x in (q, k, v))
         out_t = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
@@ -357,24 +383,51 @@ def k2_rows(torch, gen):
         # same and writes dK, dV (bf16: 2 bytes an element)
         bq, byq = bound_ms(3 * prod, 2 * (3 * n_q + 2 * n_kv) + stats)
         bkv, bykv = bound_ms(4 * prod, 2 * (2 * n_q + 4 * n_kv) + stats)
-        print(f"kernels: K2a dq B={b} S={s} kernel {ms_dq:.4f} ms, plain "
+
+        def tflops(n_prod, ms):
+            return n_prod * prod / (ms * 1e-3) / 1e12
+        print(f"kernels: K2a dq B={b} S={s} kernel {ms_dq:.4f} ms "
+              f"({tflops(3, ms_dq):.1f} TFLOP/s, 3 products), plain "
               f"{plain_dq:.4f} ms, bound {bq:.4f} ms ({byq})", flush=True)
-        print(f"kernels: K2b dkv B={b} S={s} kernel {ms_dkv:.4f} ms, plain "
-              f"{plain_dkv:.4f} ms, bound {bkv:.4f} ms ({bykv})", flush=True)
-        print(f"kernels: K2a + K2b {ms_dq + ms_dkv:.4f} ms against the "
-              f"library (sdpa backward: dq, dk and dv in one call) "
-              f"{lib:.4f} ms", flush=True)
+        print(f"kernels: K2b dkv B={b} S={s} kernel {ms_dkv:.4f} ms "
+              f"({tflops(4, ms_dkv):.1f} TFLOP/s, 4 products), plain "
+              f"{plain_dkv:.4f} ms, bound {bkv:.4f} ms ({bykv})",
+              flush=True)
+        print(f"kernels: K2a + K2b {ms_dq + ms_dkv:.4f} ms; the whole "
+              f"backward (attention_delta + K2a + K2b) {ms_bwd:.4f} ms; "
+              f"the library (sdpa backward: dq, dk and dv in one call) "
+              f"{lib:.4f} ms ({tflops(5, lib):.1f} TFLOP/s, 5 products)",
+              flush=True)
+        if causal:
+            # causal imbalance: a 64-row warpgroup skips the 64 x 64 blocks
+            # wholly above the diagonal, so with n = S / 64 it computes
+            # (n + 1) / 2n of the non-causal blocks; a balanced grid would
+            # take that share of the non-causal time
+            o_nc, l_nc = fa.flash_attention_fwd(q, k, v, causal=False)
+            d_nc = fa.attention_delta(o_nc, do)
+            nc_dq = time_ms(lambda: fa.flash_bwd_dq(q, k, v, do, l_nc, d_nc,
+                                                    causal=False))
+            nc_dkv = time_ms(lambda: fa.flash_bwd_dkv(q, k, v, do, l_nc,
+                                                      d_nc, causal=False))
+            n = -(-s // 64)
+            print(f"kernels: K2 causal / non-causal time B={b} S={s}: K2a "
+                  f"{ms_dq / nc_dq:.4f} ({nc_dq:.4f} ms non-causal), K2b "
+                  f"{ms_dkv / nc_dkv:.4f} ({nc_dkv:.4f} ms); share of "
+                  f"64 x 64 blocks computed {(n + 1) / (2 * n):.4f}",
+                  flush=True)
+            del o_nc, l_nc, d_nc
         shape = (f"B={b} S={s} Hq={hq} Hkv={hkv} D={d} bf16 "
                  f"{'causal' if causal else 'non-causal'}")
         lib_note = ("SDPA's whole backward (dQ, dK, dV in one call), "
                     "to compare with K2a + K2b")
+        extra = dict(library=lib_note, shape=shape, whole_bwd_ms=ms_bwd)
         rec = {"dq": dict(ms=ms_dq, plain_ms=plain_dq, bound_ms=bq,
-                          bound_by=byq, library_ms=lib, library=lib_note,
-                          shape=shape),
+                          bound_by=byq, library_ms=lib,
+                          tflops=tflops(3, ms_dq), **extra),
                "dkv": dict(ms=ms_dkv, plain_ms=plain_dkv, bound_ms=bkv,
-                           bound_by=bykv, library_ms=lib, library=lib_note,
-                           shape=shape)}
-        del qt, kt, vt, out_t, dot
+                           bound_by=bykv, library_ms=lib,
+                           tflops=tflops(4, ms_dkv), **extra)}
+        del qt, kt, vt, out_t, dot, out
     src = "ray_tpu_torch/csrc/flash_bwd.cu"
     return [dict(name="flash_bwd_dq (K2a)", route="cuda", source=src,
                  replaces="ray_tpu/ops/pallas/flash_attention.py:175",
@@ -1033,6 +1086,31 @@ def phase_north_star(torch):
     torch.cuda.empty_cache()
 
 
+def check_spills(build) -> None:
+    """Registers and spills of the wgmma kernels, from the `-Xptxas -v`
+    log written beside the loaded build of flash_bwd.cu; a missing log or
+    any spill fails."""
+    import re
+    path = build.log_path("flash_bwd")
+    check(os.path.exists(path), f"no build log {path} for the loaded "
+                                f"flash_bwd library")
+    with open(path) as f:
+        log = f.read()
+    pat = re.compile(r"Function properties for (\S*wgmma\S*)\n\s*(\d+) bytes "
+                     r"stack frame, (\d+) bytes spill stores, (\d+) bytes "
+                     r"spill loads\n.*?Used (\d+) registers")
+    found = pat.findall(log)
+    for name, _, stores, loads, regs in found:
+        kernel = re.search(r"(bwd_(?:dq|dkv)_wgmma_kernel)ILi(\d+)", name)
+        print(f"build: {kernel.group(1)}<{kernel.group(2)}> {regs} registers "
+              f"at launch, spill stores {stores} B, loads {loads} B",
+              flush=True)
+    check(len(found) == 4, f"ptxas log lists {len(found)} wgmma kernels, "
+                           f"want 4")
+    check(all(int(s) == 0 and int(ld) == 0 for _, _, s, ld, _ in found),
+          "a wgmma kernel spills registers")
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(HERE, "ray_tpu_torch", "csrc")):
         fail("run from a checkout of the repository: ray_tpu_torch/ is "
@@ -1054,6 +1132,7 @@ def main() -> None:
     build.build_all()
     print(f"build: {', '.join(build.sources())} in {time.time() - t0:.1f} s "
           f"(nvcc {' '.join(build.NVCC_FLAGS)})", flush=True)
+    check_spills(build)
 
     rows = phase_kernels(torch)
     launches = phase_serve(torch, gpu_line)

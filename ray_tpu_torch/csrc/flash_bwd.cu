@@ -14,30 +14,46 @@
 //
 // What bounds them on the card: K2a does three and K2b four products of
 // 2*S*S*D/2 operations per head (causal) on O(S*D) elements, so at
-// training lengths both are bound by arithmetic. Two kernels each,
-// chosen by the input type: bf16 runs on the tensor cores
-// (`mma.sync.m16n8k16`, bf16 operands, fp32 accumulation), with P and dS
-// rounded to bf16 before the products that take them, as the Pallas
-// kernels do (`p.astype(do.dtype)`, `ds.astype(q.dtype)`); fp32 runs on
-// scalar fp32 FMAs from shared memory, so fp32 results stay exact
-// products (the port's fp32 parity checks need it). Neither pipelines
-// its tile loads; wgmma/TMA tiles are later work. What the design does
-// about the bound: the S x S scores and probabilities never reach device
-// memory, every product reads its operands from shared memory, and
-// causal tiles that see no key are never loaded.
+// training lengths both are bound by arithmetic, on the tensor cores.
+// What the design does about it, by input type and head dim:
+//  * bf16 at D 64 and 128 (every path of the port): warp-specialised
+//    kernels on `wgmma.mma_async` (hopper.cuh). One producer warp keeps
+//    TMA loads (`cp.async.bulk.tensor`, 128-byte swizzle) of the
+//    streamed tiles in flight through a 3-stage ring of full/empty
+//    mbarriers, so no consumer waits on device memory; two consumer
+//    warpgroups of 64 rows each take the producer's registers
+//    (`setmaxnreg`). S and dP (or S^T and dP^T) are wgmma with both
+//    operands in shared memory; the second products take P and dS from
+//    registers (the 64-row accumulator, rounded to bf16, is wgmma's
+//    register-A layout) and B from the same shared tile through a
+//    transposed (MN-major) descriptor: no operand is gathered element by
+//    element.
+//  * bf16 at D 16 and 32 keep the `mma.sync.m16n8k16` kernels (a wgmma
+//    tile is at least 64 wide in K and the TMA box at least 16 bytes;
+//    no path of the port runs these head dims).
+//  * fp32 runs on scalar fp32 FMAs from shared memory, so fp32 results
+//    stay exact products (the port's fp32 parity checks need it).
+// P and dS are rounded to bf16 before the products that take them, as
+// the Pallas kernels do (`p.astype(do.dtype)`, `ds.astype(q.dtype)`).
+// The S x S scores and probabilities never reach device memory, and
+// causal tiles that see no key of a warpgroup are not computed.
 //
 // Differences from the TPU grids:
-//  * K2a: one CTA per (batch*q-head, 64-row q tile), looping over key
-//    tiles inside the block and stopping at the diagonal under causal
-//    masking; the heaviest (last) q tiles are launched first.
-//  * K2b: one CTA per (batch*kv-head, 64-key tile). It loops over the
-//    Hq/Hkv query heads of its group and over their q tiles, and keeps
-//    dK/dV for the kv head in fp32 registers. GQA thus needs no expanded
-//    K/V, no atomics and no second reduction pass, and the result is
-//    deterministic; this replaces the reference's repeat-then-sum
-//    (`jnp.repeat` of K/V before the kernel, summed back by autodiff).
-//    Under causal masking the q loop starts at the key tile's first row.
-//  * ragged edges are masked in the kernels (no padded copies);
+//  * K2a: one CTA per (batch*q-head, q tile: 128 rows for wgmma, 64
+//    for mma.sync and fp32), looping over key tiles inside the block and
+//    stopping at the diagonal under causal masking; the heaviest (last)
+//    q tiles are launched first.
+//  * K2b: one CTA per (batch*kv-head, key tile: 128 keys for wgmma, 64
+//    otherwise). It loops over the Hq/Hkv query heads of its group and
+//    over their q tiles, and keeps dK/dV for the kv head in fp32
+//    registers. GQA thus needs no expanded K/V, no atomics and no second
+//    reduction pass, and the result is deterministic; this replaces the
+//    reference's repeat-then-sum (`jnp.repeat` of K/V before the kernel,
+//    summed back by autodiff). Under causal masking the q loop starts at
+//    the key tile's first row, and the wgmma grid launches the key tiles
+//    with the most query rows first.
+//  * ragged edges are masked in the kernels (no padded copies; TMA reads
+//    rows past the end as zeros, and the mask still decides);
 //  * lse and delta are (B*Hq, Sq) fp32, not the Mosaic (BH, 1, S) layout.
 // Kept: causal masking compares absolute indices (key k <= query q);
 // masked and out-of-range entries of P are 0.
@@ -48,6 +64,7 @@
 // caller's stream.
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -670,20 +687,500 @@ cudaError_t prepare(Kern kern, size_t smem) {
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
+// ---- bf16 at D 64 and 128: warp-specialised wgmma kernels ----------------
+//
+// 384 threads: warpgroups 0 and 1 consume, each owning 64 rows of the
+// CTA's 128-row tile (query rows in K2a, key rows in K2b: wgmma's M);
+// warpgroup 2 produces, one warp of it issuing TMA loads into a ring of
+// kStages stages guarded by full/empty mbarriers, and gives its
+// registers to the consumers (setmaxnreg). The tile that stays (Q and dO
+// in K2a, K and V in K2b) is loaded once by TMA; the streamed tiles (K
+// and V in K2a; Q, dO, lse and delta in K2b) pass through the ring.
+//
+// A consumer's step: S (or S^T) and dP (or dP^T) as wgmma with both
+// operands in shared memory (K-major: every tile is stored [row][d]);
+// P and dS in fp32 registers under the masks; then the second products
+// with A from registers (the 64-row accumulator, rounded to bf16, is
+// already wgmma's register-A layout) and B the streamed or resident
+// tile read MN-major through a descriptor with the transpose bit.
+
+constexpr int kWG = 128;                  // threads of a warpgroup
+constexpr int kConsumers = 2;             // consumer warpgroups
+constexpr int kWsThreads = (kConsumers + 1) * kWG;
+constexpr int kTileRows = kConsumers * 64;  // rows of the resident tile
+constexpr int kStreamRows = 64;           // rows of a streamed tile
+constexpr int kStages = 3;
+// The launch gives each thread 168 registers (64K / 384, rounded down to
+// 8), 64512 a CTA; 24 * 128 + 240 * 256 = 64512 splits them. K2b's
+// consumers at D 128 hold 128 fp32 of dK/dV and 64 of S^T/dP^T: at 232
+// registers ptxas spills, at 240 it does not.
+constexpr int kProducerRegs = 24;
+constexpr int kConsumerRegs = 240;
+
+__device__ __forceinline__ unsigned char* align_1024(unsigned char* p) {
+  const uint32_t a = rtt::smem_addr(p);
+  return p + ((1024 - (a & 1023)) & 1023);
+}
+
+// A tile of R rows x D columns in shared memory, as D/64 column blocks
+// of R x 64; `block(c)` is column block c.
+template <int R, int D>
+struct Tile {
+  static constexpr int kBytes = R * D * 2;
+  static constexpr uint32_t kBlockBytes = R * 128;
+  bf16* p;
+  __device__ __forceinline__ bf16* block(int c) const { return p + c * R * 64; }
+};
+
+// Load rows [row0, row0 + R) of head `h` of batch `b` from a (B, S, H, D)
+// map: D/64 boxes of R x 64.
+template <int R, int D>
+__device__ __forceinline__ void tma_tile(const Tile<R, D>& t,
+                                         const CUtensorMap* map,
+                                         uint64_t* bar, int h, int row0,
+                                         int b) {
+#pragma unroll
+  for (int c = 0; c < D / 64; ++c)
+    rtt::tma_load_4d(t.block(c), map, bar, c * 64, h, row0, b);
+}
+
+// d = A B^T over all D columns of two K-major tiles (the first k step
+// overwrites d): A is the 64 rows of `a` from row `a_row`, B^T all RB
+// rows of `bt`.
+template <int RA, int RB, int D>
+__device__ __forceinline__ void gemm_ss(float (&d)[RB / 2],
+                                        const Tile<RA, D>& a, int a_row,
+                                        const Tile<RB, D>& bt) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int c = kk / 4, off = (kk % 4) * 16;
+    rtt::wgmma_ss<RB>(d, rtt::desc_kmajor(a.block(c) + a_row * 64 + off),
+                      rtt::desc_kmajor(bt.block(c) + off), kk > 0);
+  }
+}
+
+// d += A B: A (64 x 64) from registers (4 k steps of the packed
+// fragment), B the 64 rows of `bt` read MN-major (K = rows, N = D).
+template <int RB, int D>
+__device__ __forceinline__ void gemm_rs(float (&d)[D / 2],
+                                        const uint32_t (&a)[4][4],
+                                        const Tile<RB, D>& bt) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    rtt::wgmma_rs_tb<D>(d, a[kk],
+                        rtt::desc_mnmajor(bt.p + kk * 16 * 64,
+                                          Tile<RB, D>::kBlockBytes), 1);
+}
+
+// The 64 x 64 fp32 accumulator of this thread as 4 k steps of wgmma's
+// register-A fragment, rounded to bf16.
+__device__ __forceinline__ void pack_a(const float (&s)[32],
+                                       uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      a[kk][e] = rtt::pack_bf16(s[8 * kk + 2 * e], s[8 * kk + 2 * e + 1]);
+}
+
+// Store a 64 x D fp32 accumulator (rows 16w + g and + 8 of the thread's
+// warp) as bf16 rows of a (B, S, H, D) array; rows at or past `nrows`
+// are left alone.
+template <int D>
+__device__ __forceinline__ void store_rows(const float (&acc)[D / 2],
+                                           bf16* base, long stride,
+                                           const int (&pos)[2], int nrows,
+                                           int t) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (pos[r] >= nrows) continue;
+    bf16* row = base + (long)pos[r] * stride + 2 * t;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<uint32_t*>(row + 8 * j) =
+          rtt::pack_bf16(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
+  }
+}
+
+template <int D>
+struct DqLayout {
+  using QTile = Tile<kTileRows, D>;
+  using KTile = Tile<kStreamRows, D>;
+  static constexpr int kQ = 0;
+  static constexpr int kO = kQ + QTile::kBytes;
+  static constexpr int kK = kO + QTile::kBytes;            // kStages tiles
+  static constexpr int kV = kK + kStages * KTile::kBytes;  // kStages tiles
+  static constexpr int kBar = kV + kStages * KTile::kBytes;
+  static constexpr size_t kBytes = kBar + 8 * (2 * kStages + 1) + 1024;
+};
+
+template <int D>
+__global__ void __launch_bounds__(kWsThreads, 1)
+bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
+                    const __grid_constant__ CUtensorMap map_k,
+                    const __grid_constant__ CUtensorMap map_v,
+                    const __grid_constant__ CUtensorMap map_o,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta, bf16* __restrict__ dq,
+                    int Sq, int Sk, int Hq, int Hkv, float scale,
+                    int causal) {
+  using L = DqLayout<D>;
+  using QTile = typename L::QTile;
+  using KTile = typename L::KTile;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  const QTile sQ{reinterpret_cast<bf16*>(smem + L::kQ)};
+  const QTile sO{reinterpret_cast<bf16*>(smem + L::kO)};
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::kBar);
+  uint64_t* empty = full + kStages;
+  uint64_t* qo_full = empty + kStages;
+
+  const int tid = threadIdx.x;
+  const int bh = blockIdx.x;
+  const int b = bh / Hq;
+  const int h = bh % Hq;
+  const int kvh = h / (Hq / Hkv);
+  // the heaviest (last) q tiles first
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTileRows;
+  const int k_end = causal ? min(Sk, q0 + kTileRows) : Sk;
+  const int n_tiles = (k_end + kStreamRows - 1) / kStreamRows;
+
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      rtt::mbar_init(&full[s], 1);
+      rtt::mbar_init(&empty[s], kConsumers * kWG);
+    }
+    rtt::mbar_init(qo_full, 1);
+    rtt::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (tid >= kConsumers * kWG) {
+    // ---- producer ----
+    rtt::setmaxnreg_dec<kProducerRegs>();
+    if (tid == kConsumers * kWG) {
+      rtt::tma_prefetch_map(&map_k);
+      rtt::tma_prefetch_map(&map_v);
+      rtt::mbar_arrive_expect_tx(qo_full, 2 * QTile::kBytes);
+      tma_tile(sQ, &map_q, qo_full, h, q0, b);
+      tma_tile(sO, &map_o, qo_full, h, q0, b);
+      for (int n = 0; n < n_tiles; ++n) {
+        const int s = n % kStages;
+        rtt::mbar_wait(&empty[s], ((n / kStages) & 1) ^ 1);
+        rtt::mbar_arrive_expect_tx(&full[s], 2 * KTile::kBytes);
+        const KTile sK{reinterpret_cast<bf16*>(smem + L::kK) +
+                       s * KTile::kBytes / 2};
+        const KTile sV{reinterpret_cast<bf16*>(smem + L::kV) +
+                       s * KTile::kBytes / 2};
+        tma_tile(sK, &map_k, &full[s], kvh, n * kStreamRows, b);
+        tma_tile(sV, &map_v, &full[s], kvh, n * kStreamRows, b);
+      }
+    }
+  } else {
+    // ---- consumers ----
+    rtt::setmaxnreg_inc<kConsumerRegs>();
+    const int wg = tid / kWG;
+    const int lane = tid & 31;
+    const int g = lane >> 2;
+    const int t = lane & 3;
+    const int row0 = wg * 64;  // this warpgroup's rows of the q tile
+    const int qpos[2] = {q0 + row0 + ((tid >> 5) & 3) * 16 + g,
+                         q0 + row0 + ((tid >> 5) & 3) * 16 + g + 8};
+    float lr[2], dr[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      lr[r] = qpos[r] < Sq ? lse[(long)bh * Sq + qpos[r]] : 0.f;
+      dr[r] = qpos[r] < Sq ? delta[(long)bh * Sq + qpos[r]] : 0.f;
+    }
+    float acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    rtt::mbar_wait(qo_full, 0);
+
+    for (int n = 0; n < n_tiles; ++n) {
+      const int s = n % kStages;
+      const int k0 = n * kStreamRows;
+      const KTile sK{reinterpret_cast<bf16*>(smem + L::kK) +
+                     s * KTile::kBytes / 2};
+      const KTile sV{reinterpret_cast<bf16*>(smem + L::kV) +
+                     s * KTile::kBytes / 2};
+      rtt::mbar_wait(&full[s], (n / kStages) & 1);
+      // under causal masking a key tile past all 64 rows adds nothing
+      if (!causal || k0 <= q0 + row0 + 63) {
+        // the first products overwrite these (scale_d = 0): nothing
+        // carries from one tile to the next
+        float sc[32], dp[32];
+        rtt::fence_regs(sc);
+        rtt::fence_regs(dp);
+        rtt::wgmma_fence();
+        gemm_ss(sc, sQ, row0, sK);     // S = Q K^T
+        gemm_ss(dp, sO, row0, sV);     // dP = dO V^T
+        rtt::wgmma_commit();
+        rtt::wgmma_wait_all();
+        rtt::fence_regs(sc);
+        rtt::fence_regs(dp);
+        // element i: row qpos[(i >> 1) & 1], key k0 + 8 (i >> 2) + 2t + i%2
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int r = (i >> 1) & 1;
+          const int kpos = k0 + 8 * (i >> 2) + 2 * t + (i & 1);
+          const bool ok = kpos < Sk && qpos[r] < Sq &&
+                          (!causal || kpos <= qpos[r]);
+          const float p = ok ? __expf(sc[i] * scale - lr[r]) : 0.f;
+          sc[i] = p * (dp[i] - dr[r]) * scale;
+        }
+        uint32_t a[4][4];
+        pack_a(sc, a);
+        rtt::fence_regs(acc);
+        rtt::wgmma_fence();
+        gemm_rs(acc, a, sK);           // dQ += dS K
+        rtt::wgmma_commit();
+        rtt::wgmma_wait_all();
+        rtt::fence_regs(acc);
+      }
+      rtt::mbar_arrive(&empty[s]);
+    }
+    const long stride = (long)Hq * D;
+    store_rows<D>(acc, dq + (long)b * Sq * stride + (long)h * D, stride,
+                  qpos, Sq, t);
+  }
+}
+
+template <int D>
+struct DkvLayout {
+  using KTile = Tile<kTileRows, D>;
+  using QTile = Tile<kStreamRows, D>;
+  static constexpr int kK = 0;
+  static constexpr int kV = kK + KTile::kBytes;
+  static constexpr int kQ = kV + KTile::kBytes;            // kStages tiles
+  static constexpr int kO = kQ + kStages * QTile::kBytes;  // kStages tiles
+  static constexpr int kL = kO + kStages * QTile::kBytes;  // [kStages][64]
+  static constexpr int kD = kL + kStages * kStreamRows * 4;
+  static constexpr int kBar = kD + kStages * kStreamRows * 4;
+  static constexpr size_t kBytes = kBar + 8 * (2 * kStages + 1) + 1024;
+};
+
+template <int D>
+__global__ void __launch_bounds__(kWsThreads, 1)
+bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
+                     const __grid_constant__ CUtensorMap map_k,
+                     const __grid_constant__ CUtensorMap map_v,
+                     const __grid_constant__ CUtensorMap map_o,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta,
+                     bf16* __restrict__ dk, bf16* __restrict__ dv, int Sq,
+                     int Sk, int Hq, int Hkv, float scale, int causal) {
+  using L = DkvLayout<D>;
+  using KTile = typename L::KTile;
+  using QTile = typename L::QTile;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  const KTile sK{reinterpret_cast<bf16*>(smem + L::kK)};
+  const KTile sV{reinterpret_cast<bf16*>(smem + L::kV)};
+  float* sL = reinterpret_cast<float*>(smem + L::kL);
+  float* sD = reinterpret_cast<float*>(smem + L::kD);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::kBar);
+  uint64_t* empty = full + kStages;
+  uint64_t* kv_full = empty + kStages;
+
+  const int tid = threadIdx.x;
+  const int b = blockIdx.x / Hkv;
+  const int kvh = blockIdx.x % Hkv;
+  const int rep = Hq / Hkv;
+  // key tiles in launch order: blockIdx.y = 0 (the most query rows under
+  // causal masking) is dispatched first
+  const int k0 = blockIdx.y * kTileRows;
+  // causal: query rows before k0 see none of this CTA's keys
+  const int q_begin = causal ? k0 : 0;
+  const int per_head =
+      Sq > q_begin ? (Sq - q_begin + kStreamRows - 1) / kStreamRows : 0;
+  const int n_tiles = rep * per_head;
+
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      rtt::mbar_init(&full[s], 32);
+      rtt::mbar_init(&empty[s], kConsumers * kWG);
+    }
+    rtt::mbar_init(kv_full, 1);
+    rtt::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (tid >= kConsumers * kWG) {
+    // ---- producer: the first warp of warpgroup 2 ----
+    rtt::setmaxnreg_dec<kProducerRegs>();
+    const int lane = tid - kConsumers * kWG;
+    if (lane < 32) {
+      if (lane == 0) {
+        rtt::tma_prefetch_map(&map_q);
+        rtt::tma_prefetch_map(&map_o);
+        rtt::mbar_arrive_expect_tx(kv_full, 2 * KTile::kBytes);
+        tma_tile(sK, &map_k, kv_full, kvh, k0, b);
+        tma_tile(sV, &map_v, kv_full, kvh, k0, b);
+      }
+      for (int n = 0; n < n_tiles; ++n) {
+        const int s = n % kStages;
+        const int h = kvh * rep + n / per_head;
+        const int q0 = q_begin + (n % per_head) * kStreamRows;
+        rtt::mbar_wait(&empty[s], ((n / kStages) & 1) ^ 1);
+        if (lane == 0) {
+          rtt::mbar_expect_tx(&full[s], 2 * QTile::kBytes);
+          const QTile sQ{reinterpret_cast<bf16*>(smem + L::kQ) +
+                         s * QTile::kBytes / 2};
+          const QTile sO{reinterpret_cast<bf16*>(smem + L::kO) +
+                         s * QTile::kBytes / 2};
+          tma_tile(sQ, &map_q, &full[s], h, q0, b);
+          tma_tile(sO, &map_o, &full[s], h, q0, b);
+        }
+        // lse and delta rows are Sq floats, no multiple of 16 bytes in
+        // general, so no TMA map takes them: the warp copies them
+        const long row = ((long)b * Hq + h) * Sq;
+#pragma unroll
+        for (int i = lane; i < kStreamRows; i += 32) {
+          const int qr = q0 + i;
+          sL[s * kStreamRows + i] = qr < Sq ? lse[row + qr] : 0.f;
+          sD[s * kStreamRows + i] = qr < Sq ? delta[row + qr] : 0.f;
+        }
+        rtt::mbar_arrive(&full[s]);
+      }
+    }
+  } else {
+    // ---- consumers ----
+    rtt::setmaxnreg_inc<kConsumerRegs>();
+    const int wg = tid / kWG;
+    const int lane = tid & 31;
+    const int g = lane >> 2;
+    const int t = lane & 3;
+    const int row0 = wg * 64;  // this warpgroup's keys of the k tile
+    const int kpos[2] = {k0 + row0 + ((tid >> 5) & 3) * 16 + g,
+                         k0 + row0 + ((tid >> 5) & 3) * 16 + g + 8};
+    float acc_k[D / 2], acc_v[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc_k[i] = acc_v[i] = 0.f;
+    rtt::mbar_wait(kv_full, 0);
+
+    for (int n = 0; n < n_tiles; ++n) {
+      const int s = n % kStages;
+      const int q0 = q_begin + (n % per_head) * kStreamRows;
+      const QTile sQ{reinterpret_cast<bf16*>(smem + L::kQ) +
+                     s * QTile::kBytes / 2};
+      const QTile sO{reinterpret_cast<bf16*>(smem + L::kO) +
+                     s * QTile::kBytes / 2};
+      const float* lq = sL + s * kStreamRows;
+      const float* dlt = sD + s * kStreamRows;
+      rtt::mbar_wait(&full[s], (n / kStages) & 1);
+      // under causal masking a q tile before all 64 keys adds nothing
+      if (!causal || q0 + kStreamRows - 1 >= k0 + row0) {
+        float st[32], dpt[32];  // overwritten by the first products
+        rtt::fence_regs(st);
+        rtt::fence_regs(dpt);
+        rtt::wgmma_fence();
+        gemm_ss(st, sK, row0, sQ);     // S^T = K Q^T
+        gemm_ss(dpt, sV, row0, sO);    // dP^T = V dO^T
+        rtt::wgmma_commit();
+        rtt::wgmma_wait_all();
+        rtt::fence_regs(st);
+        rtt::fence_regs(dpt);
+        // element i: key kpos[(i >> 1) & 1], query q0 + 8 (i >> 2) + 2t +
+        // i%2
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int r = (i >> 1) & 1;
+          const int col = 8 * (i >> 2) + 2 * t + (i & 1);
+          const int qpos = q0 + col;
+          const bool ok = qpos < Sq && kpos[r] < Sk &&
+                          (!causal || kpos[r] <= qpos);
+          const float p = ok ? __expf(st[i] * scale - lq[col]) : 0.f;
+          dpt[i] = p * (dpt[i] - dlt[col]) * scale;
+          st[i] = p;
+        }
+        uint32_t pa[4][4], sa[4][4];
+        pack_a(st, pa);
+        pack_a(dpt, sa);
+        rtt::fence_regs(acc_k);
+        rtt::fence_regs(acc_v);
+        rtt::wgmma_fence();
+        gemm_rs(acc_v, pa, sO);        // dV += P^T dO
+        gemm_rs(acc_k, sa, sQ);        // dK += dS^T Q
+        rtt::wgmma_commit();
+        rtt::wgmma_wait_all();
+        rtt::fence_regs(acc_k);
+        rtt::fence_regs(acc_v);
+      }
+      rtt::mbar_arrive(&empty[s]);
+    }
+    const long stride = (long)Hkv * D;
+    const long off = (long)b * Sk * stride + (long)kvh * D;
+    store_rows<D>(acc_k, dk + off, stride, kpos, Sk, t);
+    store_rows<D>(acc_v, dv + off, stride, kpos, Sk, t);
+  }
+}
+
+template <int D>
+cudaError_t make_maps(const Args& a, int q_rows, int kv_rows,
+                      CUtensorMap (&m)[4]) {
+  cudaError_t e;
+  if ((e = rtt::make_bshd_map(&m[0], a.q, a.B, a.Sq, a.Hq, D, q_rows)) ||
+      (e = rtt::make_bshd_map(&m[1], a.k, a.B, a.Sk, a.Hkv, D, kv_rows)) ||
+      (e = rtt::make_bshd_map(&m[2], a.v, a.B, a.Sk, a.Hkv, D, kv_rows)) ||
+      (e = rtt::make_bshd_map(&m[3], a.dout, a.B, a.Sq, a.Hq, D, q_rows)))
+    return e;
+  return cudaSuccess;
+}
+
+template <int D>
+cudaError_t launch_dq_wgmma(const Args& a, cudaStream_t st) {
+  CUtensorMap m[4];
+  cudaError_t err = make_maps<D>(a, kTileRows, kStreamRows, m);
+  if (err != cudaSuccess) return err;
+  const size_t smem = DqLayout<D>::kBytes;
+  if ((err = prepare(bwd_dq_wgmma_kernel<D>, smem)) != cudaSuccess)
+    return err;
+  dim3 grid(a.B * a.Hq, (a.Sq + kTileRows - 1) / kTileRows);
+  bwd_dq_wgmma_kernel<D><<<grid, kWsThreads, smem, st>>>(
+      m[0], m[1], m[2], m[3], static_cast<const float*>(a.lse),
+      static_cast<const float*>(a.delta), static_cast<bf16*>(a.dq), a.Sq,
+      a.Sk, a.Hq, a.Hkv, a.scale, a.causal);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_dkv_wgmma(const Args& a, cudaStream_t st) {
+  CUtensorMap m[4];
+  cudaError_t err = make_maps<D>(a, kStreamRows, kTileRows, m);
+  if (err != cudaSuccess) return err;
+  const size_t smem = DkvLayout<D>::kBytes;
+  if ((err = prepare(bwd_dkv_wgmma_kernel<D>, smem)) != cudaSuccess)
+    return err;
+  dim3 grid(a.B * a.Hkv, (a.Sk + kTileRows - 1) / kTileRows);
+  bwd_dkv_wgmma_kernel<D><<<grid, kWsThreads, smem, st>>>(
+      m[0], m[1], m[2], m[3], static_cast<const float*>(a.lse),
+      static_cast<const float*>(a.delta), static_cast<bf16*>(a.dk),
+      static_cast<bf16*>(a.dv), a.Sq, a.Sk, a.Hq, a.Hkv, a.scale,
+      a.causal);
+  return cudaGetLastError();
+}
+
 template <int D>
 cudaError_t launch_dq(const Args& a, bool bf, cudaStream_t st) {
-  dim3 grid((a.Sq + kBQ - 1) / kBQ, a.B * a.Hq);
   if (bf) {
-    const size_t smem = dq_mma_smem_bytes<D>();
-    cudaError_t err = prepare(bwd_dq_mma_kernel<D>, smem);
-    if (err != cudaSuccess) return err;
-    bwd_dq_mma_kernel<D><<<grid, kThreads, smem, st>>>(
-        static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-        static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
-        static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-        static_cast<bf16*>(a.dq), a.Sq, a.Sk, a.Hq, a.Hkv, a.scale,
-        a.causal);
+    // by head dim: wgmma at 64 and 128, mma.sync at 16 and 32
+    if constexpr (D >= 64) {
+      return launch_dq_wgmma<D>(a, st);
+    } else {
+      const dim3 grid((a.Sq + kBQ - 1) / kBQ, a.B * a.Hq);
+      const size_t smem = dq_mma_smem_bytes<D>();
+      cudaError_t err = prepare(bwd_dq_mma_kernel<D>, smem);
+      if (err != cudaSuccess) return err;
+      bwd_dq_mma_kernel<D><<<grid, kThreads, smem, st>>>(
+          static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+          static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
+          static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+          static_cast<bf16*>(a.dq), a.Sq, a.Sk, a.Hq, a.Hkv, a.scale,
+          a.causal);
+    }
   } else {
+    const dim3 grid((a.Sq + kBQ - 1) / kBQ, a.B * a.Hq);
     const size_t smem = dq_smem_bytes<D>();
     cudaError_t err = prepare(bwd_dq_kernel<D>, smem);
     if (err != cudaSuccess) return err;
@@ -699,18 +1196,24 @@ cudaError_t launch_dq(const Args& a, bool bf, cudaStream_t st) {
 
 template <int D>
 cudaError_t launch_dkv(const Args& a, bool bf, cudaStream_t st) {
-  dim3 grid((a.Sk + kBK - 1) / kBK, a.B * a.Hkv);
   if (bf) {
-    const size_t smem = dkv_mma_smem_bytes<D>();
-    cudaError_t err = prepare(bwd_dkv_mma_kernel<D>, smem);
-    if (err != cudaSuccess) return err;
-    bwd_dkv_mma_kernel<D><<<grid, kThreads, smem, st>>>(
-        static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-        static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
-        static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-        static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), a.Sq, a.Sk,
-        a.Hq, a.Hkv, a.scale, a.causal);
+    // by head dim: wgmma at 64 and 128, mma.sync at 16 and 32
+    if constexpr (D >= 64) {
+      return launch_dkv_wgmma<D>(a, st);
+    } else {
+      const dim3 grid((a.Sk + kBK - 1) / kBK, a.B * a.Hkv);
+      const size_t smem = dkv_mma_smem_bytes<D>();
+      cudaError_t err = prepare(bwd_dkv_mma_kernel<D>, smem);
+      if (err != cudaSuccess) return err;
+      bwd_dkv_mma_kernel<D><<<grid, kThreads, smem, st>>>(
+          static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+          static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
+          static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+          static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), a.Sq, a.Sk,
+          a.Hq, a.Hkv, a.scale, a.causal);
+    }
   } else {
+    const dim3 grid((a.Sk + kBK - 1) / kBK, a.B * a.Hkv);
     const size_t smem = dkv_smem_bytes<D>();
     cudaError_t err = prepare(bwd_dkv_kernel<D>, smem);
     if (err != cudaSuccess) return err;

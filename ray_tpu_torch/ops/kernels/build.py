@@ -63,6 +63,11 @@ def _target(name: str) -> str:
     return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
 
 
+def log_path(name: str) -> str:
+    """The nvcc / `-Xptxas -v` log of the library `_target(name)`."""
+    return _target(name)[:-len(".so")] + ".log"
+
+
 def _compile(names: List[str]) -> None:
     """Run one nvcc per missing library, all started together."""
     todo = [(n, _target(n)) for n in names
@@ -81,7 +86,7 @@ def _compile(names: List[str]) -> None:
     failed = []
     for name, out, tmp, proc in procs:
         log, _ = proc.communicate()
-        with open(os.path.join(BUILD_DIR, name + ".log"), "wb") as f:
+        with open(out[:-len(".so")] + ".log", "wb") as f:
             f.write(log)
         if proc.returncode != 0:
             # the first errors are the informative ones

@@ -75,19 +75,30 @@ def test_flash_plain_matches_pallas(causal, hq, hkv, s):
                                rtol=0)
 
 
-@pytest.mark.parametrize("causal,hq,hkv,s", [
-    (True, 4, 4, 32),
-    (False, 4, 4, 32),
-    (True, 8, 2, 40),       # GQA; S not a multiple of the 16-row block
-    (False, 8, 2, 23),      # GQA; ragged
+def _bwd_case(causal, hq, hkv, s, d=16, b=2):
+    return pytest.param(causal, hq, hkv, s, d, b,
+                        id="-".join(map(str, (causal, hq, hkv, s)))
+                        + ("" if d == 16 else f"-d{d}-b{b}"))
+
+
+@pytest.mark.parametrize("causal,hq,hkv,s,d,b", [
+    _bwd_case(True, 4, 4, 32),
+    _bwd_case(False, 4, 4, 32),
+    _bwd_case(True, 8, 2, 40),      # GQA; S not a multiple of the 16-row block
+    _bwd_case(False, 8, 2, 23),     # GQA; ragged
+    # the head dim of the wgmma kernels: the north-star shape (S 32, less
+    # than one 64-row tile), a ragged S past two tiles, and Hq = Hkv
+    _bwd_case(True, 8, 4, 32, d=64, b=2),
+    _bwd_case(True, 8, 4, 130, d=64, b=1),
+    _bwd_case(False, 8, 4, 130, d=64, b=1),
+    _bwd_case(True, 4, 4, 130, d=64, b=1),
 ])
-def test_flash_bwd_plain_matches_pallas(causal, hq, hkv, s):
+def test_flash_bwd_plain_matches_pallas(causal, hq, hkv, s, d, b):
     """flash_attention_bwd_plain (K2a/K2b's plain version) against the
     Pallas backward kernels (`_bwd_dq_kernel`, `_bwd_dkv_kernel`) on the
     same fp32 inputs; dK/dV per kv head, as the reference's repeat of K/V
     sums them back under autodiff."""
     rng = np.random.RandomState(1)
-    b, d = 2, 16
     q = rng.randn(b, s, hq, d).astype(np.float32)
     k = rng.randn(b, s, hkv, d).astype(np.float32)
     v = rng.randn(b, s, hkv, d).astype(np.float32)
@@ -314,6 +325,17 @@ def test_build_lists_sources_and_defers_compiling():
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     for name in build.sources():
         assert os.path.isfile(os.path.join(build.CSRC_DIR, name + ".cu"))
+
+
+def test_build_log_belongs_to_its_library():
+    """Each library's ptxas log is named by the same source hash, so a
+    reused library is never paired with another build's log."""
+    logs = [build.log_path(n) for n in build.sources()]
+    assert len(set(logs)) == len(logs)
+    for name, log in zip(build.sources(), logs):
+        lib = build._target(name)
+        assert log == lib[:-len(".so")] + ".log"
+        assert os.path.dirname(log) == build.BUILD_DIR
 
 
 def _run_python(code, env=None):
