@@ -9,9 +9,11 @@ It builds every CUDA kernel from `ray_tpu_torch/csrc/`, then runs six
 phases and fails (non-zero exit, no result line) if any of them fails:
 
 1. kernels: each kernel against its plain PyTorch version at
-   Llama-3-8B attention shapes (Hq 32, Hkv 8, D 128, bf16; K2a/K2b also
-   at the flagship's D 64 in bf16 and fp32, ragged lengths and Hq = Hkv,
-   and two launches compared bit for bit) and, for K4 (RMSNorm), at the
+   Llama-3-8B attention shapes (Hq 32, Hkv 8, D 128, bf16; K1 and
+   K2a/K2b also at the flagship's D 64 in bf16 and fp32, D 32 and 16,
+   ragged lengths and Hq = Hkv, and two launches compared bit for bit;
+   K3 also at the edges of its key splits, rep 1 and 16, D 64, page 8
+   and fp32) and, for K4 (RMSNorm), at the
    shapes its callers use (up to 2 x 2048 rows of 4096, bf16 with an
    fp32 weight), with the tolerance printed; K4's backward against plain
    autograd; kernel, plain and library times on the card and the least
@@ -87,8 +89,30 @@ HOLD_CYCLES = 2_000_000     # ~1 ms of device spin at the H100's clocks
 K1_ATOL_OUT, K1_RTOL_OUT = 1e-2, 1.6e-2
 K1_ATOL_LSE = 1e-3      # lse is fp32 in both
 K3_ATOL = 2e-2
-
-K1_SHAPES = [(1, 128), (4, 512), (1, 2048)]   # (batch, sequence), causal
+K1_ATOL_FP32 = 1e-4     # fp32 (out and lse): exact products, sums in
+                        # another order
+# (batch, sequence, causal, Hq, Hkv, D, dtype) against the plain version.
+# bf16 D 64 and 128 take the wgmma kernel (128 query rows a CTA, 64-key
+# tiles): causal Llama-3-8B heads at three lengths (timed; (1, 2048) is
+# the shape written to the JSON), non-causal, S 1000 (ends inside a
+# tile) both ways, Hq = Hkv, and the flagship's D 64 at S 32 (the
+# north-star phase's shape, shorter than one tile) and S 130. bf16 D 32
+# and 16 take the mma.sync kernel, fp32 the scalar one (the train-parity
+# phase's head shape).
+K1_SHAPES = [(1, 128, True, 32, 8, 128, "bfloat16"),
+             (4, 512, True, 32, 8, 128, "bfloat16"),
+             (1, 2048, True, 32, 8, 128, "bfloat16"),
+             (1, 1024, False, 32, 8, 128, "bfloat16"),
+             (1, 1000, True, 32, 8, 128, "bfloat16"),
+             (1, 1000, False, 32, 8, 128, "bfloat16"),
+             (1, 512, True, 8, 8, 128, "bfloat16"),
+             (4, 32, True, 8, 4, 64, "bfloat16"),
+             (1, 130, True, 8, 4, 64, "bfloat16"),
+             (2, 130, False, 8, 8, 64, "bfloat16"),
+             (1, 130, True, 8, 4, 32, "bfloat16"),
+             (2, 40, False, 8, 2, 16, "bfloat16"),
+             (2, 256, True, 8, 4, 64, "float32")]
+K1_TIMED = [(1, 128), (4, 512), (1, 2048)]   # causal D 128 bf16 shapes
 K1_RECORD = (1, 2048)                         # shape written to the JSON
 # K2a/K2b vs their plain versions, bf16. Both round dS (and K2b P) to
 # bf16 before the products that take them, as the Pallas kernels do, but
@@ -116,8 +140,35 @@ K2_SHAPES = [(1, 128, True, 32, 8, 128), (4, 512, True, 32, 8, 128),
 K2_RECORD = (2, 2048, True, 32, 8, 128)
 # fp32 at the train-parity phase's head shape (Hq 8, Hkv 4, D 64)
 K2_FP32_SHAPES = [(2, 256, True), (1, 300, False)]
+# K3's timed shape (written to the JSON): 8 sequences of Llama-3-8B heads,
+# page 16, a 2048-key table, bf16
 K3_LENGTHS = [1, 37, 250, 512, 900, 1333, 1700, 2000]
 K3_EARLY_QPOS = (3, 100)                      # (row, qpos < lengths - 1)
+K3_ATOL_FP32 = 1e-4     # fp32: exact products, sums in another order
+# K3 against its plain version at the edges of its splits (256 keys, or
+# the most whole pages that fit): (label, Hq, Hkv, D, page size, table
+# keys, dtype, lengths, {row: early qpos}). Lengths of exactly one split,
+# one past it, one short of a page, 0 beside full rows and the table's
+# whole width; rep 1 and 16 (MAX_REP); D 64; page 8; a table of one split
+# (the kernel writes O itself, no merge); a table whose last split is
+# short (63 pages of 16); page 48 (splits of 240 keys); fp32 (the parity
+# phase's heads).
+K3_CASES = [
+    ("split edges", 32, 8, 128, 16, 2048, "bfloat16",
+     [256, 257, 255, 0, 2048, 47, 1, 512], {7: 300}),
+    ("rep 1", 8, 8, 128, 16, 2048, "bfloat16", [300, 0, 2048, 17], {}),
+    ("rep 16", 32, 2, 128, 16, 2048, "bfloat16", [1000, 256, 0, 2048],
+     {0: 500}),
+    ("D 64", 8, 4, 64, 16, 2048, "bfloat16", [513, 0, 2048, 64], {}),
+    ("page 8", 32, 8, 128, 8, 2048, "bfloat16", [256, 257, 7, 2048, 0], {}),
+    ("one split", 32, 8, 128, 16, 256, "bfloat16", [256, 0, 100, 17], {}),
+    ("short last split", 32, 8, 128, 16, 1008, "bfloat16",
+     [1008, 1000, 769, 0], {}),
+    ("page 48", 32, 8, 128, 48, 1008, "bfloat16", [1008, 240, 241, 0, 500],
+     {}),
+    ("fp32", 32, 8, 128, 16, 2048, "float32", [256, 257, 0, 2048, 1000],
+     {4: 10}),
+]
 # K4 vs rms_norm_plain: (x shape, x type, weight type). fp32 sums in
 # another order: atol = rtol = 1e-5. bf16 and fp16: both round y once
 # from fp32 values a few fp32 ulps apart, so they may land one ulp apart:
@@ -182,33 +233,68 @@ def bound_ms(flops: float, nbytes: float, peak_flops: float = PEAK_BF16_FLOPS):
 
 
 def phase_kernels(torch):
-    import torch.nn.functional as F
     from ray_tpu_torch.ops.kernels import flash_attention as fa
     from ray_tpu_torch.ops.kernels import paged_attention as pa
+    from ray_tpu_torch.ops.kernels import rmsnorm as rn
     gen = torch.Generator(device="cuda").manual_seed(0)
-    hq, hkv, d, dt = 32, 8, 128, torch.bfloat16
-    rows = []
+    rows = [k1_row(torch, gen), k3_row(torch, gen)]
+    rows += k2_rows(torch, gen)
+    rows.append(k4_rows(torch, gen))
+    print("kernels: launches in this phase " + json.dumps(
+        {"flash_fwd (K1)": fa.flash_attention_fwd.launches,
+         "paged_decode (K3)": pa.paged_decode_attention.launches,
+         "flash_bwd_dq (K2a)": fa.flash_bwd_dq.launches,
+         "flash_bwd_dkv (K2b)": fa.flash_bwd_dkv.launches,
+         "rmsnorm (K4)": rn.rmsnorm_fwd.launches}), flush=True)
+    return rows
 
-    k1_err = 0.0
-    k1_rec = None
-    for b, s in K1_SHAPES:
+
+def k1_row(torch, gen):
+    """K1 against flash_attention_plain at K1_SHAPES; two launches of the
+    wgmma kernel compared bit for bit; times at K1_TIMED."""
+    import torch.nn.functional as F
+    from ray_tpu_torch.ops.kernels import flash_attention as fa
+    k1_err, rec = 0.0, None
+    for b, s, causal, hq, hkv, d, dt_name in K1_SHAPES:
+        dt = getattr(torch, dt_name)
         q = torch.randn(b, s, hq, d, device="cuda", generator=gen).to(dt)
         k = torch.randn(b, s, hkv, d, device="cuda", generator=gen).to(dt)
         v = torch.randn(b, s, hkv, d, device="cuda", generator=gen).to(dt)
-        out, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+        out, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
         torch.cuda.synchronize()
-        ref, ref_lse = fa.flash_attention_plain(q, k, v, causal=True)
+        ref, ref_lse = fa.flash_attention_plain(q, k, v, causal=causal)
         diff = (out.float() - ref.float()).abs()
         err = diff.max().item()
-        within = bool((diff <= K1_ATOL_OUT
-                       + K1_RTOL_OUT * ref.float().abs()).all())
         lse_err = (lse - ref_lse).abs().max().item()
-        print(f"kernels: K1 flash_fwd B={b} S={s} max_abs_err out={err:.3g} "
-              f"(atol {K1_ATOL_OUT} + rtol {K1_RTOL_OUT}: {within}) "
-              f"lse={lse_err:.3g} (atol {K1_ATOL_LSE})", flush=True)
-        check(within and lse_err <= K1_ATOL_LSE,
-              f"K1 disagrees with its plain version at B={b} S={s}")
+        if dt == torch.float32:
+            tol = f"atol {K1_ATOL_FP32}"
+            ok = err <= K1_ATOL_FP32 and lse_err <= K1_ATOL_FP32
+        else:
+            tol = (f"out atol {K1_ATOL_OUT} + rtol {K1_RTOL_OUT}, lse atol "
+                   f"{K1_ATOL_LSE}")
+            ok = bool((diff <= K1_ATOL_OUT
+                       + K1_RTOL_OUT * ref.float().abs()).all()) \
+                and lse_err <= K1_ATOL_LSE
+        route = ("fp32 scalar" if dt == torch.float32 else
+                 "wgmma" if d >= 64 else "mma.sync")
+        label = (f"B={b} S={s} Hq={hq} Hkv={hkv} D={d} {dt_name} "
+                 f"{'causal' if causal else 'non-causal'}")
+        print(f"kernels: K1 flash_fwd {label} ({route}) max_abs_err out="
+              f"{err:.3g} lse={lse_err:.3g} ({tol}: {ok})", flush=True)
+        check(ok, f"K1 disagrees with its plain version at {label}")
         k1_err = max(k1_err, err)
+        if not (causal and d == 128 and hq == 32 and dt == torch.bfloat16
+                and (b, s) in K1_TIMED):
+            continue
+        if (b, s) == K1_RECORD:
+            # no atomics: two launches on the same inputs give the same bits
+            runs = [fa.flash_attention_fwd(q, k, v, causal=True)
+                    for _ in range(2)]
+            same = all(torch.equal(x, y) for x, y in zip(*runs))
+            print(f"kernels: K1 {label} two launches bit-identical (out, "
+                  f"lse): {same}", flush=True)
+            check(same, "K1 gave different bits on the same inputs")
+            del runs
         ms = time_ms(lambda: fa.flash_attention_fwd(q, k, v, causal=True))
         plain = time_ms(lambda: fa.flash_attention_plain(q, k, v,
                                                          causal=True))
@@ -219,21 +305,27 @@ def phase_kernels(torch):
         nbytes = 2.0 * (2 * b * s * hq * d + 2 * b * s * hkv * d) \
             + 4.0 * b * hq * s
         bms, by = bound_ms(flops, nbytes)
-        print(f"kernels: K1 B={b} S={s} kernel {ms:.4f} ms, plain "
-              f"{plain:.4f} ms, library (sdpa) {lib:.4f} ms, bound "
+        print(f"kernels: K1 B={b} S={s} kernel {ms:.4f} ms "
+              f"({flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s), plain "
+              f"{plain:.4f} ms, library (sdpa) {lib:.4f} ms "
+              f"({flops / (lib * 1e-3) / 1e12:.1f} TFLOP/s), bound "
               f"{bms:.4f} ms ({by})", flush=True)
         if (b, s) == K1_RECORD:
-            k1_rec = dict(ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
-                          library_ms=lib, shape=f"B={b} S={s} Hq={hq} "
-                          f"Hkv={hkv} D={d} bf16 causal")
-        del q, k, v, out, lse, ref, ref_lse, qt, kt, vt
-    rows.append(dict(name="flash_fwd (K1)", route="cuda",
-                     source="ray_tpu_torch/csrc/flash_fwd.cu",
-                     replaces="ray_tpu/ops/pallas/flash_attention.py:36",
-                     max_abs_err=k1_err, **k1_rec))
+            rec = dict(ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
+                       library_ms=lib, shape=label)
+        del qt, kt, vt
+    return dict(name="flash_fwd (K1)", route="cuda",
+                source="ray_tpu_torch/csrc/flash_fwd.cu",
+                replaces="ray_tpu/ops/pallas/flash_attention.py:36",
+                max_abs_err=k1_err, **rec)
 
-    ps, n = 16, len(K3_LENGTHS)
-    per_seq = -(-2048 // ps)
+
+def k3_inputs(torch, gen, hq, hkv, d, ps, table_keys, dt, lengths, early):
+    """Random page pools, a shuffled page table of table_keys keys per
+    sequence (one spare page), q, lengths and qpos (lengths - 1, except
+    the rows of `early`)."""
+    n = len(lengths)
+    per_seq = -(-table_keys // ps)
     n_pages = n * per_seq
     k_flat = torch.randn((n_pages + 1) * ps, hkv, d, device="cuda",
                          generator=gen).to(dt)
@@ -241,52 +333,66 @@ def phase_kernels(torch):
                          generator=gen).to(dt)
     table = torch.randperm(n_pages, device="cuda", generator=gen) \
         .reshape(n, per_seq).to(torch.int32)
-    lengths = torch.tensor(K3_LENGTHS, dtype=torch.int32, device="cuda")
-    qpos = lengths - 1
-    qpos[K3_EARLY_QPOS[0]] = K3_EARLY_QPOS[1]
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    qpos = lens - 1
+    for row, qp in early.items():
+        qpos[row] = qp
     q = torch.randn(n, hq, d, device="cuda", generator=gen).to(dt)
-    out = pa.paged_decode_attention(q, k_flat, v_flat, table, lengths, ps,
-                                    qpos=qpos)
-    torch.cuda.synchronize()
-    ref = pa.paged_decode_attention_plain(q, k_flat, v_flat, table, lengths,
-                                          ps, qpos=qpos)
-    err = (out.float() - ref.float()).abs().max().item()
-    print(f"kernels: K3 paged_decode S={n} page_size={ps} lengths="
-          f"{K3_LENGTHS} qpos[{K3_EARLY_QPOS[0]}]={K3_EARLY_QPOS[1]} "
-          f"max_abs_err={err:.3g} (atol {K3_ATOL})", flush=True)
-    check(err <= K3_ATOL, "K3 disagrees with its plain version")
-    ms = time_ms(lambda: pa.paged_decode_attention(
-        q, k_flat, v_flat, table, lengths, ps, qpos=qpos))
-    plain = time_ms(lambda: pa.paged_decode_attention_plain(
-        q, k_flat, v_flat, table, lengths, ps, qpos=qpos))
-    keys = sum(min(ln, qp + 1) for ln, qp in
-               zip(K3_LENGTHS, qpos.tolist()))
-    flops = 4.0 * hq * d * keys
-    nbytes = (2.0 * keys * hkv * d * 2          # K and V rows read
-              + 2.0 * 2 * n * hq * d             # q in, out
-              + 4.0 * sum(-(-min(ln, qp + 1) // ps) for ln, qp in
-                          zip(K3_LENGTHS, qpos.tolist()))
-              + 4.0 * 2 * n)                     # lengths, qpos
-    bms, by = bound_ms(flops, nbytes)
-    print(f"kernels: K3 kernel {ms:.4f} ms, plain {plain:.4f} ms, library "
-          f"none, bound {bms:.4f} ms ({by})", flush=True)
-    rows.append(dict(name="paged_decode (K3)", route="cuda",
-                     source="ray_tpu_torch/csrc/paged_decode.cu",
-                     replaces="ray_tpu/ops/pallas/paged_attention.py:47",
-                     max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
-                     bound_by=by, library_ms=None,
-                     shape=f"S={n} Hq={hq} Hkv={hkv} D={d} page_size={ps} "
-                     f"bf16 keys={keys}"))
-    rows += k2_rows(torch, gen)
-    rows.append(k4_rows(torch, gen))
-    from ray_tpu_torch.ops.kernels import rmsnorm as rn
-    print("kernels: launches in this phase " + json.dumps(
-        {"flash_fwd (K1)": fa.flash_attention_fwd.launches,
-         "paged_decode (K3)": pa.paged_decode_attention.launches,
-         "flash_bwd_dq (K2a)": fa.flash_bwd_dq.launches,
-         "flash_bwd_dkv (K2b)": fa.flash_bwd_dkv.launches,
-         "rmsnorm (K4)": rn.rmsnorm_fwd.launches}), flush=True)
-    return rows
+    return q, k_flat, v_flat, table, lens, qpos
+
+
+def k3_row(torch, gen):
+    """K3 against paged_decode_attention_plain at K3_CASES and at its
+    timed shape (K3_LENGTHS), with its times there."""
+    from ray_tpu_torch.ops.kernels import paged_attention as pa
+    err_max = 0.0
+    cases = [("timed", 32, 8, 128, 16, 2048, "bfloat16", K3_LENGTHS,
+              dict([K3_EARLY_QPOS]))] + K3_CASES
+    for label, hq, hkv, d, ps, keys, dt_name, lengths, early in cases:
+        dt = getattr(torch, dt_name)
+        args = k3_inputs(torch, gen, hq, hkv, d, ps, keys, dt, lengths,
+                         early)
+        q, k_flat, v_flat, table, lens, qpos = args
+        out = pa.paged_decode_attention(q, k_flat, v_flat, table, lens, ps,
+                                        qpos=qpos)
+        torch.cuda.synchronize()
+        ref = pa.paged_decode_attention_plain(q, k_flat, v_flat, table, lens,
+                                              ps, qpos=qpos)
+        err = (out.float() - ref.float()).abs().max().item()
+        atol = K3_ATOL_FP32 if dt == torch.float32 else K3_ATOL
+        split_keys, n_split = pa.split_plan(table.shape[1], ps)
+        print(f"kernels: K3 paged_decode {label}: Hq={hq} Hkv={hkv} D={d} "
+              f"page_size={ps} {dt_name} lengths={lengths} qpos "
+              f"{early or 'lengths - 1'} splits {n_split} x {split_keys} "
+              f"keys, max_abs_err={err:.3g} (atol {atol}: {err <= atol})",
+              flush=True)
+        check(out.shape == ref.shape and err <= atol,
+              f"K3 disagrees with its plain version ({label})")
+        err_max = max(err_max, err)
+        if label != "timed":
+            continue
+        ms = time_ms(lambda: pa.paged_decode_attention(
+            q, k_flat, v_flat, table, lens, ps, qpos=qpos))
+        plain = time_ms(lambda: pa.paged_decode_attention_plain(
+            q, k_flat, v_flat, table, lens, ps, qpos=qpos))
+        bounds = [min(ln, qp + 1) for ln, qp in zip(lengths, qpos.tolist())]
+        keys_read = sum(bounds)
+        flops = 4.0 * hq * d * keys_read
+        nbytes = (2.0 * keys_read * hkv * d * 2        # K and V rows read
+                  + 2.0 * 2 * len(lengths) * hq * d     # q in, out
+                  + 4.0 * sum(-(-b // ps) for b in bounds)   # page ids
+                  + 4.0 * 2 * len(lengths))             # lengths, qpos
+        bms, by = bound_ms(flops, nbytes)
+        print(f"kernels: K3 kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+              f"library none, bound {bms:.4f} ms ({by})", flush=True)
+        rec = dict(ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
+                   library_ms=None,
+                   shape=f"S={len(lengths)} Hq={hq} Hkv={hkv} D={d} "
+                   f"page_size={ps} bf16 keys={keys_read}")
+    return dict(name="paged_decode (K3)", route="cuda",
+                source="ray_tpu_torch/csrc/paged_decode.cu",
+                replaces="ray_tpu/ops/pallas/paged_attention.py:47",
+                max_abs_err=err_max, **rec)
 
 
 def k2_check(torch, gen, b, s, causal, hq, hkv, d, dt):
@@ -1087,28 +1193,35 @@ def phase_north_star(torch):
 
 
 def check_spills(build) -> None:
-    """Registers and spills of the wgmma kernels, from the `-Xptxas -v`
-    log written beside the loaded build of flash_bwd.cu; a missing log or
-    any spill fails."""
+    """Registers and spills of the wgmma kernels (K1's forward, K2a's and
+    K2b's backward at D 64 and 128), from the `-Xptxas -v` logs written
+    beside the loaded builds of flash_fwd.cu and flash_bwd.cu; a missing
+    log, a missing kernel, any spill, or ptxas serialising wgmma
+    (advisories C7514/C7515: the products no longer overlap the code
+    between them) fails."""
     import re
-    path = build.log_path("flash_bwd")
-    check(os.path.exists(path), f"no build log {path} for the loaded "
-                                f"flash_bwd library")
-    with open(path) as f:
-        log = f.read()
     pat = re.compile(r"Function properties for (\S*wgmma\S*)\n\s*(\d+) bytes "
                      r"stack frame, (\d+) bytes spill stores, (\d+) bytes "
                      r"spill loads\n.*?Used (\d+) registers")
-    found = pat.findall(log)
-    for name, _, stores, loads, regs in found:
-        kernel = re.search(r"(bwd_(?:dq|dkv)_wgmma_kernel)ILi(\d+)", name)
-        print(f"build: {kernel.group(1)}<{kernel.group(2)}> {regs} registers "
-              f"at launch, spill stores {stores} B, loads {loads} B",
-              flush=True)
-    check(len(found) == 4, f"ptxas log lists {len(found)} wgmma kernels, "
-                           f"want 4")
-    check(all(int(s) == 0 and int(ld) == 0 for _, _, s, ld, _ in found),
-          "a wgmma kernel spills registers")
+    for lib, want in (("flash_fwd", 2), ("flash_bwd", 4)):
+        path = build.log_path(lib)
+        check(os.path.exists(path), f"no build log {path} for the loaded "
+                                    f"{lib} library")
+        with open(path) as f:
+            log = f.read()
+        found = pat.findall(log)
+        serial = sorted(set(re.findall(r"\(C751[45]\)[^\n]*?function "
+                                       r"'(\S+)'", log)))
+        check(not serial, f"ptxas serialises wgmma in {lib}: {serial}")
+        for name, _, stores, loads, regs in found:
+            kernel = re.search(r"(\w+_wgmma_kernel)ILi(\d+)", name)
+            print(f"build: {kernel.group(1)}<{kernel.group(2)}> {regs} "
+                  f"registers at launch, spill stores {stores} B, loads "
+                  f"{loads} B", flush=True)
+        check(len(found) == want, f"ptxas log of {lib} lists {len(found)} "
+                                  f"wgmma kernels, want {want}")
+        check(all(int(st) == 0 and int(ld) == 0 for _, _, st, ld, _ in found),
+              f"a wgmma kernel of {lib} spills registers")
 
 
 def main() -> None:

@@ -1,6 +1,6 @@
 // Shared helpers for the port's CUDA kernels: element-type conversion,
-// warp reductions, tile loads into shared memory and the bf16
-// tensor-core fragment helpers. Every kernel accumulates in fp32
+// warp reductions, tile loads into shared memory, `cp.async` copies and
+// the bf16 tensor-core fragment helpers. Every kernel accumulates in fp32
 // whatever its storage type.
 #pragma once
 
@@ -30,6 +30,13 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
 }
 template <> __device__ __forceinline__ __half from_f32<__half>(float x) {
   return __float2half(x);
+}
+
+// 2^x by the hardware's approximation (ex2.approx); 2^-inf = 0.
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // Reductions over `width` consecutive lanes (a power of two <= 32).
@@ -82,6 +89,25 @@ __device__ __forceinline__ void load_tile(const T* __restrict__ src,
 #pragma unroll
     for (int e = 0; e < kVec; ++e) dst[r * DST + d0 + e] = to_f32(x[e]);
   }
+}
+
+// ---- cp.async: 16-byte copies from device to shared memory -------------
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N committed groups of this thread's copies are
+// still in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // ---- bf16 tensor-core helpers (mma.sync.m16n8k16) -----------------------

@@ -1,8 +1,10 @@
 // Hopper (sm_90a) building blocks for the port's kernels, in inline PTX:
 // mbarriers, TMA tile loads (`cp.async.bulk.tensor`), warpgroup matrix
 // products (`wgmma.mma_async`) with their shared-memory descriptors,
-// `setmaxnreg`, and the host-side tensor-map encoder reached through
-// `cudaGetDriverEntryPoint` (so no library needs `-lcuda`).
+// `setmaxnreg`, the swizzled tiles and the products on them that the
+// flash forward and backward share, and the host-side tensor-map encoder
+// reached through `cudaGetDriverEntryPoint` (so no library needs
+// `-lcuda`).
 //
 // Shared-memory tiles are in the layout a TMA load with the 128-byte
 // swizzle writes: a tile of R rows and D bf16 columns is D/64 column
@@ -23,7 +25,11 @@
 
 #include <cstdint>
 
+#include "common.cuh"
+
 namespace rtt {
+
+using bf16 = __nv_bfloat16;
 
 // ---- mbarriers --------------------------------------------------------------
 
@@ -115,12 +121,27 @@ __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
 
+// Wait until at most N committed groups of products are still running.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
 // Keep the compiler from moving reads or writes of an accumulator across
 // the asynchronous products that own it.
 template <int N>
 __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// The same for a register-A operand that a running product still reads:
+// its registers stay live, and unchanged, up to this point.
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
 }
 
 // Descriptor of a 128-byte-swizzled operand in shared memory.
@@ -227,6 +248,93 @@ __device__ __forceinline__ void wgmma_rs_tb<128>(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
+
+// ---- tiles and the products on them (flash forward and backward) -----
+
+__device__ __forceinline__ unsigned char* align_1024(unsigned char* p) {
+  const uint32_t a = smem_addr(p);
+  return p + ((1024 - (a & 1023)) & 1023);
+}
+
+// A tile of R rows x D columns in shared memory, as D/64 column blocks
+// of R x 64; `block(c)` is column block c.
+template <int R, int D>
+struct Tile {
+  static constexpr int kBytes = R * D * 2;
+  static constexpr uint32_t kBlockBytes = R * 128;
+  bf16* p;
+  __device__ __forceinline__ bf16* block(int c) const { return p + c * R * 64; }
+};
+
+// Load rows [row0, row0 + R) of head `h` of batch `b` from a (B, S, H, D)
+// map: D/64 boxes of R x 64.
+template <int R, int D>
+__device__ __forceinline__ void tma_tile(const Tile<R, D>& t,
+                                         const CUtensorMap* map,
+                                         uint64_t* bar, int h, int row0,
+                                         int b) {
+#pragma unroll
+  for (int c = 0; c < D / 64; ++c)
+    tma_load_4d(t.block(c), map, bar, c * 64, h, row0, b);
+}
+
+// d = A B^T over all D columns of two K-major tiles (the first k step
+// overwrites d): A is the 64 rows of `a` from row `a_row`, B^T all RB
+// rows of `bt`.
+template <int RA, int RB, int D>
+__device__ __forceinline__ void gemm_ss(float (&d)[RB / 2],
+                                        const Tile<RA, D>& a, int a_row,
+                                        const Tile<RB, D>& bt) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int c = kk / 4, off = (kk % 4) * 16;
+    wgmma_ss<RB>(d, desc_kmajor(a.block(c) + a_row * 64 + off),
+                 desc_kmajor(bt.block(c) + off), kk > 0);
+  }
+}
+
+// d += A B: A (64 x 64) from registers (4 k steps of the packed
+// fragment), B the 64 rows of `bt` read MN-major (K = rows, N = D).
+template <int RB, int D>
+__device__ __forceinline__ void gemm_rs(float (&d)[D / 2],
+                                        const uint32_t (&a)[4][4],
+                                        const Tile<RB, D>& bt) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_rs_tb<D>(d, a[kk],
+                   desc_mnmajor(bt.p + kk * 16 * 64, Tile<RB, D>::kBlockBytes),
+                   1);
+}
+
+// The 64 x 64 fp32 accumulator of this thread as 4 k steps of wgmma's
+// register-A fragment, rounded to bf16.
+__device__ __forceinline__ void pack_a(const float (&s)[32],
+                                       uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      a[kk][e] = pack_bf16(s[8 * kk + 2 * e], s[8 * kk + 2 * e + 1]);
+}
+
+// Store a 64 x D fp32 accumulator (rows 16w + g and + 8 of the thread's
+// warp) as bf16 rows of a (B, S, H, D) array; rows at or past `nrows`
+// are left alone.
+template <int D>
+__device__ __forceinline__ void store_rows(const float (&acc)[D / 2],
+                                           bf16* base, long stride,
+                                           const int (&pos)[2], int nrows,
+                                           int t) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (pos[r] >= nrows) continue;
+    bf16* row = base + (long)pos[r] * stride + 2 * t;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<uint32_t*>(row + 8 * j) =
+          pack_bf16(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
+  }
+}
 
 // ---- host: tensor maps ------------------------------------------------------
 

@@ -10,6 +10,12 @@ Keys count at positions below `min(lengths, qpos + 1)` (the causal bound
 a replayed query at an earlier position needs) and below the page
 table's width. A row with no valid key gives 0.
 
+The kernel splits each sequence's key range across CTAs (`split_plan`,
+from the page table's shape alone) and merges the splits' partial
+softmaxes in a second launch; the two launches are one K3 call. The
+wrapper reads no value of `lengths` or `qpos` on the host, so a decode
+step pipelined on CUDA events never waits for the device here.
+
 `paged_decode_attention` routes by device: a CPU tensor takes
 `paged_decode_attention_plain`, a CUDA tensor launches the kernel or
 raises.
@@ -17,7 +23,7 @@ raises.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -26,6 +32,7 @@ from . import build
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128)      # head sizes the kernel is built for
 MAX_REP = 16                       # query heads per kv head it takes
+SPLIT_KEYS = 256                   # keys of one CTA, at most (whole pages)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -64,11 +71,37 @@ def paged_decode_attention_plain(q, k_flat, v_flat, page_table, lengths,
     return out.reshape(s_n, hq, d).to(q.dtype)
 
 
+def split_plan(n_pages: int, page_size: int) -> Tuple[int, int]:
+    """How K3 cuts a sequence's keys across CTAs: (split_keys, n_split).
+    A split is the most whole pages that fit in SPLIT_KEYS keys (one page
+    at least), and n_split splits cover the table's [0, n_pages *
+    page_size). Only the table's shape goes in: no tensor value is read,
+    so no host sync."""
+    pages = max(1, SPLIT_KEYS // page_size)
+    return pages * page_size, max(1, -(-n_pages // pages))
+
+
+def _workspace(q, page_table, page_size: int):
+    """(split_keys, n_split, o_part, ml_part) for a K3 call: the split
+    plan and, with more than one split, the fp32 partials the splits
+    write (unnormalised o (S, Hq, n_split, D); max and sum (2, S, Hq,
+    n_split)), from torch's caching allocator. Shapes only go in."""
+    s_n, hq, d = q.shape
+    split_keys, n_split = split_plan(page_table.shape[1], page_size)
+    if n_split == 1:
+        return split_keys, n_split, None, None
+    o_part = torch.empty((s_n, hq, n_split, d), dtype=torch.float32,
+                         device=q.device)
+    ml_part = torch.empty((2, s_n, hq, n_split), dtype=torch.float32,
+                          device=q.device)
+    return split_keys, n_split, o_part, ml_part
+
+
 def _lib():
     lib = build.load("paged_decode")
     fn = lib.rtt_paged_decode
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
+        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 9
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
@@ -138,13 +171,16 @@ def paged_decode_attention(q, k_flat, v_flat, page_table, lengths,
     out = torch.empty_like(q)
     if s_n == 0:
         return out
+    split_keys, n_split, o_part, ml_part = _workspace(q, page_table,
+                                                     page_size)
     fn = _lib()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     status = fn(q.data_ptr(), k_flat.data_ptr(), v_flat.data_ptr(),
                 page_table.data_ptr(), lengths.data_ptr(), qpos.data_ptr(),
-                out.data_ptr(), s_n, hq, hkv, d, page_size,
-                page_table.shape[1], k_flat.shape[0], float(scale),
-                _DTYPES[q.dtype], stream)
+                out.data_ptr(), None if o_part is None else o_part.data_ptr(),
+                None if ml_part is None else ml_part.data_ptr(), s_n, hq, hkv,
+                d, page_size, page_table.shape[1], k_flat.shape[0],
+                split_keys, n_split, float(scale), _DTYPES[q.dtype], stream)
     build.check(status, "paged_decode")
     paged_decode_attention.launches += 1
     return out

@@ -75,6 +75,33 @@ def test_flash_plain_matches_pallas(causal, hq, hkv, s):
                                rtol=0)
 
 
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_plain_matches_pallas_d64_ragged(causal):
+    """The head dim of the wgmma forward (D 64) at a length that ends
+    inside a tile (S 130), GQA: flash_attention_plain's out and lse
+    against the Pallas forward."""
+    rng = np.random.RandomState(3)
+    b, s, hq, hkv, d = 1, 130, 8, 4, 64
+    q = rng.randn(b, s, hq, d).astype(np.float32)
+    k = rng.randn(b, s, hkv, d).astype(np.float32)
+    v = rng.randn(b, s, hkv, d).astype(np.float32)
+    want = j_flash.flash_attention(jnp.asarray(q), jnp.asarray(k),
+                                   jnp.asarray(v), causal=causal,
+                                   block_q=16, block_k=16, interpret=True)
+
+    def flat(x):
+        x = jnp.repeat(jnp.asarray(x), hq // x.shape[2], axis=2)
+        return x.transpose(0, 2, 1, 3).reshape(b * hq, s, d)
+    _, want_lse = j_flash._flash_fwd(flat(q), flat(k), flat(v), d ** -0.5,
+                                     causal, 16, 16, True)
+    out, lse = t_flash.flash_attention_plain(_t(q), _t(k), _t(v),
+                                             causal=causal)
+    np.testing.assert_allclose(out.numpy(), np.asarray(want), atol=ATOL,
+                               rtol=0)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(want_lse), atol=ATOL,
+                               rtol=0)
+
+
 def _bwd_case(causal, hq, hkv, s, d=16, b=2):
     return pytest.param(causal, hq, hkv, s, d, b,
                         id="-".join(map(str, (causal, hq, hkv, s)))
@@ -211,6 +238,69 @@ def test_paged_decode_plain_matches_pallas(hq, hkv):
         _t(q), _t(k_flat), _t(v_flat), _t(table), _t(lengths), ps)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL,
                                rtol=0)
+
+
+@pytest.mark.parametrize("hq,hkv", [(4, 4), (16, 2)])
+def test_paged_decode_plain_edges_match_pallas(hq, hkv):
+    """Lengths on page boundaries (one page, two pages, the table's
+    whole width) and a 0-length row beside full ones, at rep 1 and rep 8:
+    the plain version (K3's yardstick on the card) against the Pallas
+    kernel."""
+    S, P, ps, d = 4, 4, 8, 16
+    rng = np.random.RandomState(2)
+    lengths = np.asarray([8, 0, P * ps, 16], np.int32)
+    k_flat, v_flat, table = _build_pool(rng, S, P, ps, hkv, d, lengths)
+    q = rng.randn(S, hq, d).astype(np.float32)
+    want = j_paged_decode(jnp.asarray(q), jnp.asarray(k_flat),
+                          jnp.asarray(v_flat), jnp.asarray(table),
+                          jnp.asarray(lengths), page_size=ps, interpret=True)
+    got = t_paged.paged_decode_attention_plain(
+        _t(q), _t(k_flat), _t(v_flat), _t(table), _t(lengths), ps)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL,
+                               rtol=0)
+    assert torch.all(got[1] == 0)
+
+
+@pytest.mark.parametrize("n_pages,page_size", [
+    (128, 16), (256, 8), (16, 16), (4, 16), (1, 16), (0, 16), (3, 300),
+    (100, 7), (1000, 1)])
+def test_paged_split_plan_covers_the_table_in_whole_pages(n_pages,
+                                                          page_size):
+    split_keys, n_split = t_paged.split_plan(n_pages, page_size)
+    width = n_pages * page_size
+    assert split_keys % page_size == 0 and split_keys >= page_size
+    assert split_keys <= max(t_paged.SPLIT_KEYS, page_size)
+    assert n_split >= 1 and n_split * split_keys >= width
+    assert (n_split - 1) * split_keys < max(width, 1)
+
+
+def test_paged_workspace_reads_no_tensor_value():
+    """The host side of a K3 call plans its splits and allocates its
+    partials from shapes alone: no op that reads a value back to the
+    host (`.item()`, `.tolist()`, a copy to the CPU) runs, so a decode
+    step pipelined on CUDA events never waits here."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Record(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.ops.append(str(func))
+            return func(*args, **(kwargs or {}))
+
+    q = torch.randn(8, 32, 128)
+    table = torch.zeros(8, 128, dtype=torch.int32)
+    with Record() as rec:
+        split_keys, n_split, o_part, ml_part = t_paged._workspace(
+            q, table, 16)
+    assert (split_keys, n_split) == (256, 8)
+    assert o_part.shape == (8, 32, 8, 128) and ml_part.shape == (2, 8, 32, 8)
+    assert o_part.dtype == ml_part.dtype == torch.float32
+    assert rec.ops and all(op.startswith("aten.empty") for op in rec.ops)
+    # one split: the kernel writes O itself, no partials
+    assert t_paged._workspace(q, table[:, :16], 16)[1:] == (1, None, None)
 
 
 def test_paged_decode_plain_replay_at_earlier_position():
