@@ -5,7 +5,7 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
-It builds every CUDA kernel from `ray_tpu_torch/csrc/`, then runs six
+It builds every CUDA kernel from `ray_tpu_torch/csrc/`, then runs seven
 phases and fails (non-zero exit, no result line) if any of them fails:
 
 1. kernels: each kernel against its plain PyTorch version at
@@ -14,11 +14,13 @@ phases and fails (non-zero exit, no result line) if any of them fails:
    ragged lengths and Hq = Hkv, and two launches compared bit for bit;
    K3 also at the edges of its key splits, rep 1 and 16, D 64, page 8
    and fp32) and, for K4 (RMSNorm), at the
-   shapes its callers use (up to 2 x 2048 rows of 4096, bf16 with an
-   fp32 weight), with the tolerance printed; K4's backward against plain
-   autograd; kernel, plain and library times on the card and the least
-   time the card could take (the bound); the wgmma kernels' registers
-   and spills from the ptxas log (a spill fails).
+   shapes its callers use (1 to 2 x 2048 rows of 4096, bf16 with an
+   fp32 weight) and at the edges of each of its routes, with the
+   tolerance printed; K4's backward against plain autograd; kernel,
+   plain and library times on the card and the least time the card
+   could take (the bound), K4's at 4096 rows and at a decode step's 8;
+   the wgmma kernels' and K4's registers and spills from the ptxas log
+   (a spill fails).
 2. serve: `LLMServer` on Llama-3-8B widths at full depth (32 layers,
    bf16, random weights from a seed), one model under four engine
    configurations, a burst of 8 requests of 32 new tokens each (greedy,
@@ -39,17 +41,23 @@ phases and fails (non-zero exit, no result line) if any of them fails:
    loop through the same model with no cache and its attention held to
    the einsum path (`einsum_attention`; no kernel launches there,
    checked).
-4. train: `make_train_step` with adamw and warmup_cosine on Llama-3-8B
+4. routes: the paged engine at 2 layers of head dim 96 (Phi-3-mini
+   widths) and of MQA (Llama-3-8B widths, one kv head) in fp32, greedy
+   tokens equal to the same full-recompute loop, and an fp16 burst at
+   Llama-3-8B widths with in-vocab tokens: K3 is launched in none of
+   them (K1 only on the MQA prefills), as the routes by shape and type
+   say.
+5. train: `make_train_step` with adamw and warmup_cosine on Llama-3-8B
    widths cut to 8 layers (bf16 compute, fp32 master weights, remat),
    5 steps on one fixed batch of 2 x 2048 tokens: finite losses and
    grad norms, the last loss below the first, and K1/K2a/K2b launched
    exactly as the path implies (counters zeroed just before); then one
    more step under the profiler.
-5. train-parity: 3 fp32 train steps (TF32 off) of the flagship widths
+6. train-parity: 3 fp32 train steps (TF32 off) of the flagship widths
    on the GPU (K1/K2a/K2b) give the CPU's loss and grad_norm, and so
    does one GPU step under remat "dots" (selective checkpointing; K1
    runs twice per layer).
-6. north-star: pretrain the flagship widths on a repeating corpus,
+7. north-star: pretrain the flagship widths on a repeating corpus,
    checkpoint through CheckpointManager, restore, and serve the restored
    weights through LLMServer: the greedy continuation must match the
    corpus at least once in 6 tokens.
@@ -172,19 +180,38 @@ K3_CASES = [
 # K4 vs rms_norm_plain: (x shape, x type, weight type). fp32 sums in
 # another order: atol = rtol = 1e-5. bf16 and fp16: both round y once
 # from fp32 values a few fp32 ulps apart, so they may land one ulp apart:
-# |err| <= atol + rtol * |plain|. Rows of up to 512 16-byte vectors stay
-# in registers; fp32 at d = 4096 (1024 vectors) takes the two-pass
-# vector loop; a row of d = 1001 is no whole number of 16-byte vectors in
-# either type and takes the scalar loads.
+# |err| <= atol + rtol * |plain|. Whole 16-byte-vector rows take the
+# ring route (rows streamed through shared memory by bulk copies): one
+# row, 8 rows of 4096 (a decode step's norm), 5005 rows (a block a warp,
+# no multiple of a CTA's warps), rows of 1 KB several to a stage with a
+# short last stage (4101 fp32 rows of 256, 4099 bf16 rows of 512),
+# bf16, fp16 and fp32 weights (a bf16 weight of 1004 values is no whole
+# number of 16-byte vectors: staged by scalar loads), fp32 at d = 4096
+# (16 KB rows); an fp32
+# row of 20480 is too wide for the ring (weight and two stages past a
+# CTA's shared memory) and takes the two-pass vector loop; a row of d =
+# 1001 is no whole number of 16-byte vectors in either type and takes
+# the scalar loads.
 K4_SHAPES = [((4, 33, 256), "float32", "float32"),
              ((4, 1024, 512), "bfloat16", "bfloat16"),
              ((2, 2048, 4096), "bfloat16", "float32"),
+             ((1, 4096), "bfloat16", "float32"),
+             ((8, 4096), "bfloat16", "float32"),
+             ((5, 1001, 4096), "bfloat16", "float32"),
+             ((3, 1367, 256), "float32", "float32"),
+             ((4099, 512), "bfloat16", "bfloat16"),
+             ((2, 64, 4096), "bfloat16", "bfloat16"),
+             ((2, 64, 4096), "bfloat16", "float16"),
+             ((4, 16, 2048), "float16", "float16"),
              ((3, 7, 1000), "float32", "float32"),
+             ((3, 7, 1004), "float32", "bfloat16"),
              ((2, 64, 4096), "float32", "float32"),
+             ((3, 5, 20480), "float32", "float32"),
              ((4, 16, 512), "float16", "float32"),
              ((3, 7, 1001), "float32", "float32"),
              ((3, 7, 1001), "bfloat16", "float32")]
 K4_RECORD = ((2, 2048, 4096), "bfloat16", "float32")
+K4_DECODE = ((8, 4096), "bfloat16", "float32")   # timed beside the record
 K4_TOL_FP32 = 1e-5
 K4_ATOL_BF16, K4_RTOL_BF16 = 1e-2, 8e-3
 K4_GRAD_TOL = 1e-4
@@ -543,12 +570,28 @@ def k2_rows(torch, gen):
                  max_abs_err=err_dkv, **rec["dkv"])]
 
 
+def k4_times(torch, rn, x, w):
+    """K4, its plain version and F.rms_norm on x, w, with the bound."""
+    import torch.nn.functional as F
+    ms = time_ms(lambda: rn.fused_rms_norm(x, w))
+    plain = time_ms(lambda: rn.rms_norm_plain(x, w))
+    # F.rms_norm wants the weight in x's type (bf16 here)
+    wx = w.to(x.dtype)
+    lib = time_ms(lambda: F.rms_norm(x, (x.shape[-1],), wx, 1e-6))
+    n = x.numel()
+    # x read once, y written once, the weight read once; per element a
+    # square-add, a product by the row's scale and one by w
+    bms, by = bound_ms(4.0 * n, n * 2 * x.element_size()
+                       + w.numel() * w.element_size(), PEAK_FP32_FLOPS)
+    return dict(ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
+                library_ms=lib)
+
+
 def k4_rows(torch, gen):
     """K4 against rms_norm_plain at K4_SHAPES, its backward against
-    plain autograd, and its times at K4_RECORD."""
-    import torch.nn.functional as F
+    plain autograd, and its times at K4_RECORD and K4_DECODE."""
     from ray_tpu_torch.ops.kernels import rmsnorm as rn
-    err_max, rec = 0.0, None
+    err_max, timed = 0.0, {}
     for shape, xt, wt in K4_SHAPES:
         x = torch.randn(shape, device="cuda", generator=gen).to(
             getattr(torch, xt))
@@ -572,27 +615,17 @@ def k4_rows(torch, gen):
         check(ok and y.dtype == x.dtype and y.shape == x.shape,
               f"K4 disagrees with its plain version at {shape} {xt}")
         err_max = max(err_max, err)
-        if (shape, xt, wt) != K4_RECORD:
-            continue
-        ms = time_ms(lambda: rn.fused_rms_norm(x, w))
-        plain = time_ms(lambda: rn.rms_norm_plain(x, w))
-        # F.rms_norm wants the weight in x's type (bf16 here)
-        wx = w.to(x.dtype)
-        lib = time_ms(lambda: F.rms_norm(x, (shape[-1],), wx, 1e-6))
-        n = x.numel()
-        # x read once, y written once, the weight read once; per element
-        # a square-add, a product by the row's scale and one by w
-        bms, by = bound_ms(4.0 * n, n * 2 * x.element_size()
-                           + w.numel() * w.element_size(), PEAK_FP32_FLOPS)
-        print(f"kernels: K4 x{shape} {xt} weight {wt} kernel {ms:.4f} ms, "
-              f"plain {plain:.4f} ms, library (F.rms_norm, bf16 weight) "
-              f"{lib:.4f} ms, bound {bms:.4f} ms ({by})", flush=True)
-        rec = dict(ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
-                   library_ms=lib,
-                   library="F.rms_norm with the weight cast to bf16 (it "
-                           "takes no fp32 weight with a bf16 x)",
-                   shape=f"x {shape} {xt}, weight {wt}")
-        del x, w, y, ref, wx
+        if (shape, xt, wt) in (K4_RECORD, K4_DECODE):
+            t = k4_times(torch, rn, x, w)
+            print(f"kernels: K4 x{shape} {xt} weight {wt} kernel "
+                  f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, library "
+                  f"(F.rms_norm, bf16 weight) {t['library_ms']:.4f} ms, "
+                  f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}), "
+                  f"{100 * t['bound_ms'] / t['ms']:.1f}% of the bound",
+                  flush=True)
+            timed[(shape, xt, wt)] = dict(t, shape=f"x {shape} {xt}, "
+                                                   f"weight {wt}")
+        del x, w, y, ref
     # the backward: autograd through the plain math, as the reference
     x = torch.randn(8, 64, device="cuda", generator=gen, requires_grad=True)
     w = torch.randn(64, device="cuda", generator=gen, requires_grad=True)
@@ -608,7 +641,10 @@ def k4_rows(torch, gen):
     return dict(name="rmsnorm (K4)", route="cuda",
                 source="ray_tpu_torch/csrc/rmsnorm.cu",
                 replaces="ray_tpu/ops/pallas/rmsnorm.py:25",
-                max_abs_err=err_max, **rec)
+                max_abs_err=err_max, **timed[K4_RECORD],
+                library="F.rms_norm with the weight cast to bf16 (it "
+                        "takes no fp32 weight with a bf16 x)",
+                decode_shape=timed[K4_DECODE])
 
 
 def burst(server, bodies):
@@ -883,32 +919,15 @@ PARITY_CASES = [
 ]
 
 
-def phase_parity(torch):
-    """fp32 greedy tokens of the engine in every PARITY_CASES
-    configuration against a full-recompute loop through the same model
-    with no cache and its attention held to the einsum path. A prefix
-    case registers the 300-token prompt's first PARITY_PREFIX tokens and
-    submits the rest with its prefix_id, beside the full prompt."""
+def plain_greedy(torch, model, prompts):
+    """PARITY_NEW greedy tokens of each prompt from a full-recompute loop
+    through `model` with no cache and its attention held to the einsum
+    path, so the reference shares no kernel with the engine."""
     from unittest import mock
 
-    import numpy as np
-    from ray_tpu_torch.models import Llama, LlamaConfig
     from ray_tpu_torch.models import llama as llama_module
     from ray_tpu_torch.ops import einsum_attention
     from ray_tpu_torch.ops.kernels import flash_attention as fa
-    from ray_tpu_torch.ops.kernels import paged_attention as pa
-    from ray_tpu_torch.serve.llm import LLMEngine, LLMEngineConfig
-
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    cfg = LlamaConfig.llama3_8b(n_layers=4, dtype=torch.float32,
-                                param_dtype=torch.float32, remat=False)
-    model = Llama(cfg, device="cuda", seed=1)
-    rng = np.random.RandomState(1)
-    prompts = [rng.randint(0, cfg.vocab_size, n).tolist()
-               for n in PARITY_PLENS]
-    # the reference shares no kernel with the engine: the cache-less
-    # forward's attention is held to the einsum path
     want = []
     zero_counters(fa)
     with torch.no_grad(), mock.patch.object(
@@ -921,6 +940,30 @@ def phase_parity(torch):
             want.append(seq[len(p):])
     check(fa.flash_attention_fwd.launches == 0,
           "the plain reference launched K1")
+    return want
+
+
+def phase_parity(torch):
+    """fp32 greedy tokens of the engine in every PARITY_CASES
+    configuration against a full-recompute loop through the same model
+    with no cache and its attention held to the einsum path. A prefix
+    case registers the 300-token prompt's first PARITY_PREFIX tokens and
+    submits the rest with its prefix_id, beside the full prompt."""
+    import numpy as np
+    from ray_tpu_torch.models import Llama, LlamaConfig
+    from ray_tpu_torch.ops.kernels import flash_attention as fa
+    from ray_tpu_torch.ops.kernels import paged_attention as pa
+    from ray_tpu_torch.serve.llm import LLMEngine, LLMEngineConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = LlamaConfig.llama3_8b(n_layers=4, dtype=torch.float32,
+                                param_dtype=torch.float32, remat=False)
+    model = Llama(cfg, device="cuda", seed=1)
+    rng = np.random.RandomState(1)
+    prompts = [rng.randint(0, cfg.vocab_size, n).tolist()
+               for n in PARITY_PLENS]
+    want = plain_greedy(torch, model, prompts)
     for i, w in enumerate(want):
         print(f"parity: prompt {i} ({len(prompts[i])} tokens) plain {w}",
               flush=True)
@@ -972,6 +1015,84 @@ def phase_parity(torch):
     del model
     gc.collect()
     torch.cuda.empty_cache()
+
+
+# paged engines of ROUTE_LAYERS layers whose shapes or type K1 or K3 do
+# not take: (label, model widths, compute and weight type, K1 taken on
+# fresh prefill). Head dim 96 at Phi-3-mini's widths (d 3072, 32 heads
+# and kv heads, d_ff 8192, vocab 32064); MQA at Llama-3-8B's widths with
+# one kv head (a group of 32, past K3's MAX_REP of 16); Llama-3-8B in
+# fp16. K3 takes none of them. The fp32 cases are held token for token
+# to plain_greedy; the fp16 one must finish with in-vocab tokens.
+ROUTE_LAYERS = 2
+_LLAMA3_8B = dict(vocab_size=128256, d_model=4096, n_heads=32, n_kv_heads=8,
+                  d_ff=14336, max_seq_len=8192)
+ROUTE_CASES = [
+    ("head dim 96", dict(vocab_size=32064, d_model=3072, n_heads=32,
+                         n_kv_heads=32, d_ff=8192, max_seq_len=4096),
+     "float32", False),
+    ("MQA 32/1", dict(_LLAMA3_8B, n_kv_heads=1), "float32", True),
+    ("fp16", _LLAMA3_8B, "float16", False),
+]
+
+
+def phase_routes(torch):
+    """The paged engine (page 16) at each ROUTE_CASES configuration:
+    PARITY_PLENS prompts of PARITY_NEW greedy tokens, the K1 and K3
+    counters zeroed just before and read just after; each counter must
+    be 0 where the route takes no kernel (K1 > 0 where it does)."""
+    import numpy as np
+    from ray_tpu_torch.models import Llama, LlamaConfig
+    from ray_tpu_torch.ops.kernels import flash_attention as fa
+    from ray_tpu_torch.ops.kernels import paged_attention as pa
+    from ray_tpu_torch.serve.llm import LLMEngine, LLMEngineConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for label, widths, dt_name, takes_k1 in ROUTE_CASES:
+        dt = getattr(torch, dt_name)
+        cfg = LlamaConfig(**widths, n_layers=ROUTE_LAYERS, dtype=dt,
+                          param_dtype=dt)
+        model = Llama(cfg, device="cuda", seed=3)
+        rng = np.random.RandomState(3)
+        prompts = [rng.randint(0, cfg.vocab_size, n).tolist()
+                   for n in PARITY_PLENS]
+        want = plain_greedy(torch, model, prompts) if dt == torch.float32 \
+            else None
+        engine = LLMEngine(model, None, LLMEngineConfig(
+            max_slots=4, max_seq_len=2048, kv_page_size=16,
+            prefill_buckets=(32, 64, 128, 256, 512)), device="cuda")
+        zero_counters(fa)
+        pa.paged_decode_attention.launches = 0
+        try:
+            rids = [engine.submit(p, max_new_tokens=PARITY_NEW)
+                    for p in prompts]
+            got = [list(engine.stream(r)) for r in rids]
+        finally:
+            engine.shutdown()
+        k1 = fa.flash_attention_fwd.launches
+        k3 = pa.paged_decode_attention.launches
+        print(f"routes: {label}: D {cfg.head_dim}, Hq {cfg.n_heads}, Hkv "
+              f"{cfg.n_kv_heads}, {dt_name}, {ROUTE_LAYERS} layers: K1 "
+              f"{k1}, K3 {k3} launches (want K1 "
+              f"{'> 0' if takes_k1 else '0'}, K3 0)", flush=True)
+        check(k3 == 0 and (k1 > 0 if takes_k1 else k1 == 0),
+              f"routes: {label}: K1 {k1}, K3 {k3}")
+        check(all(len(g) == PARITY_NEW and all(0 <= t < cfg.vocab_size
+                                               for t in g) for g in got),
+              f"routes: {label}: a request did not finish with "
+              f"{PARITY_NEW} in-vocab tokens: {got}")
+        if want is not None:
+            for i, (g, w) in enumerate(zip(got, want)):
+                if g != w:
+                    print(f"routes: {label}: request {i} engine {g} plain "
+                          f"{w}", flush=True)
+            check(got == want, f"routes: {label}: engine greedy tokens "
+                               f"differ from the plain full-recompute loop")
+        print(f"routes: {label}: ok ({len(got)} requests"
+              f"{', equal to the plain loop' if want else ''})", flush=True)
+        del model, engine
+        gc.collect()
+        torch.cuda.empty_cache()
 
 
 TRAIN_LAYERS = 8          # depth cut of the train phase (widths: full 8B)
@@ -1194,11 +1315,11 @@ def phase_north_star(torch):
 
 def check_spills(build) -> None:
     """Registers and spills of the wgmma kernels (K1's forward, K2a's and
-    K2b's backward at D 64 and 128), from the `-Xptxas -v` logs written
-    beside the loaded builds of flash_fwd.cu and flash_bwd.cu; a missing
-    log, a missing kernel, any spill, or ptxas serialising wgmma
-    (advisories C7514/C7515: the products no longer overlap the code
-    between them) fails."""
+    K2b's backward at D 64 and 128) and of every K4 kernel, from the
+    `-Xptxas -v` logs written beside the loaded builds of flash_fwd.cu,
+    flash_bwd.cu and rmsnorm.cu; a missing log, a missing kernel, any
+    spill, or ptxas serialising wgmma (advisories C7514/C7515: the
+    products no longer overlap the code between them) fails."""
     import re
     pat = re.compile(r"Function properties for (\S*wgmma\S*)\n\s*(\d+) bytes "
                      r"stack frame, (\d+) bytes spill stores, (\d+) bytes "
@@ -1222,6 +1343,24 @@ def check_spills(build) -> None:
                                   f"wgmma kernels, want {want}")
         check(all(int(st) == 0 and int(ld) == 0 for _, _, st, ld, _ in found),
               f"a wgmma kernel of {lib} spills registers")
+    # K4: every function of the library, the ring kernel's nine
+    # instantiations (three x types by three weight types) among them
+    path = build.log_path("rmsnorm")
+    check(os.path.exists(path), f"no build log {path} for the loaded "
+                                f"rmsnorm library")
+    with open(path) as f:
+        log = f.read()
+    found = re.findall(r"Function properties for (\S+)\n\s*\d+ bytes stack "
+                       r"frame, (\d+) bytes spill stores, (\d+) bytes spill "
+                       r"loads\n.*?Used (\d+) registers", log)
+    ring = [regs for name, _, _, regs in found if "ring_kernel" in name]
+    print(f"build: rmsnorm {len(found)} kernels, ring kernel registers at "
+          f"launch {sorted(set(map(int, ring)))}, spill bytes "
+          f"{sum(int(st) + int(ld) for _, st, ld, _ in found)}", flush=True)
+    check(len(ring) == 9, f"ptxas log of rmsnorm lists {len(ring)} ring "
+                          f"kernels, want 9")
+    check(all(int(st) == 0 and int(ld) == 0 for _, st, ld, _ in found),
+          "a kernel of rmsnorm spills registers")
 
 
 def main() -> None:
@@ -1250,6 +1389,7 @@ def main() -> None:
     rows = phase_kernels(torch)
     launches = phase_serve(torch, gpu_line)
     phase_parity(torch)
+    phase_routes(torch)
     launches["train"] = phase_train(torch, gpu_line)
     phase_train_parity(torch)
     phase_north_star(torch)

@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks for the port's kernels, in inline PTX:
-// mbarriers, TMA tile loads (`cp.async.bulk.tensor`), warpgroup matrix
+// mbarriers, 1-D bulk copies (`cp.async.bulk`) and TMA tile loads
+// (`cp.async.bulk.tensor`), warpgroup matrix
 // products (`wgmma.mma_async`) with their shared-memory descriptors,
 // `setmaxnreg`, the swizzled tiles and the products on them that the
 // flash forward and backward share, and the host-side tensor-map encoder
@@ -75,6 +76,56 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
       "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
       "@!done bra WAIT_%=;\n"
       "}\n" ::"r"(smem_addr(bar)), "r"(parity) : "memory");
+}
+
+// ---- 1-D bulk copies ---------------------------------------------------------
+//
+// The TMA unit copying one contiguous byte range, with no tensor map:
+// `bytes` a multiple of 16, both addresses 16-byte aligned.
+
+// Global -> shared; completion is counted on `bar` (announce the bytes
+// with mbar_arrive_expect_tx first).
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(src)),
+        "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// Shared -> global, tracked by bulk groups (bulk_commit, bulk_wait*).
+// The threads that wrote `src` run fence_proxy_async() before the
+// barrier that precedes this.
+__device__ __forceinline__ void bulk_store(void* dst, const void* src,
+                                           uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
+               ::"l"(reinterpret_cast<uint64_t>(dst)), "r"(smem_addr(src)),
+                 "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N committed bulk groups still read shared memory.
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// Wait until at most N committed bulk groups are still running.
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Order this thread's shared-memory writes before later reads of the
+// same bytes by the async proxy (a bulk store).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // ---- TMA ----------------------------------------------------------------------

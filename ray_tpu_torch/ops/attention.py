@@ -4,21 +4,26 @@
 does in the reference but with no crossover length and no knob: on a
 CUDA tensor it takes `kernels.flash_attention` (K1 forward, K2a/K2b
 backward) when there are no segment ids, the mask needs no offset
-(`not causal or Sq == Sk`: the kernels compare absolute indices), the
-head dim is one the kernels are built for and the type is fp32 or bf16;
-every other call, and every CPU tensor, takes the plain einsum path
-(`einsum_attention`: fp32 scores, causal, GQA, segment masks). The
-cached paths share one tail, `_attend_cached`, so the paged and
-contiguous caches cannot drift apart numerically.
+(`not causal or Sq == Sk`: the kernels compare absolute indices) and
+`flash_takes` holds (a head dim the kernels are built for, fp32 or
+bf16, q, k and v of one type); every other call, and every CPU tensor,
+takes the plain einsum path (`einsum_attention`: fp32 scores, causal,
+GQA, segment masks). The cached paths share one tail, `_attend_cached`,
+so the paged and contiguous caches cannot drift apart numerically.
 
 `paged_cached_attention` has three routes, chosen by the call's shape:
-  * fresh prefill (every sequence starts empty) -> K1,
-    `kernels.flash_attention`, at every prompt length;
-  * single-token decode -> K3, `kernels.paged_decode_attention`;
-  * any other shape -> the page-gather path below.
-Each kernel wrapper takes its plain PyTorch version for a CPU tensor and
-launches its CUDA kernel for a CUDA tensor; nothing falls back from a
-kernel to a plain version.
+  * fresh prefill (every sequence starts empty) -> `multi_head_attention`
+    over the new tokens, as the reference does: K1 where it takes the
+    call, the einsum path otherwise;
+  * single-token decode -> K3, `kernels.paged_decode_attention`, on a
+    CUDA tensor where `paged_decode_takes` holds (a head dim K3 is built
+    for, at most `MAX_REP` query heads per kv head, fp32 or bf16, q and
+    both pools of one type);
+  * any other call -> the page-gather path below.
+These are routes by shape and type, as the reference's. Each kernel
+wrapper takes its plain PyTorch version for a CPU tensor and launches
+its CUDA kernel for a CUDA tensor; nothing falls back from a kernel to
+a plain version.
 
 JAX's functional caches become in-place updates here: the KV pools and
 contiguous caches are written with `index_copy_` / indexed assignment
@@ -31,10 +36,13 @@ from typing import Optional
 
 import torch
 
-from .kernels.flash_attention import HEAD_DIMS, flash_attention
-from .kernels.paged_attention import paged_decode_attention
+from .kernels.flash_attention import HEAD_DIMS as FLASH_HEAD_DIMS
+from .kernels.flash_attention import flash_attention
+from .kernels.paged_attention import HEAD_DIMS as DECODE_HEAD_DIMS
+from .kernels.paged_attention import MAX_REP, paged_decode_attention
 
 _F32_MIN = torch.finfo(torch.float32).min
+_KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def _repeat_kv(x: torch.Tensor, rep: int) -> torch.Tensor:
@@ -42,12 +50,30 @@ def _repeat_kv(x: torch.Tensor, rep: int) -> torch.Tensor:
     return x.repeat_interleave(rep, dim=2) if rep > 1 else x
 
 
+def flash_takes(head_dim: int, q_dtype: torch.dtype, k_dtype: torch.dtype,
+                v_dtype: torch.dtype) -> bool:
+    """Whether K1 (and K2a/K2b) is built for this head dim and these
+    types: the shape-and-type half of the flash route."""
+    return (head_dim in FLASH_HEAD_DIMS and q_dtype in _KERNEL_DTYPES
+            and k_dtype == q_dtype and v_dtype == q_dtype)
+
+
+def paged_decode_takes(head_dim: int, n_heads: int, n_kv_heads: int,
+                       q_dtype: torch.dtype, k_dtype: torch.dtype,
+                       v_dtype: torch.dtype) -> bool:
+    """Whether K3 is built for this head dim, GQA group and these types
+    (q's and the two pools'): the shape-and-type half of the decode
+    route."""
+    return (head_dim in DECODE_HEAD_DIMS and n_heads % n_kv_heads == 0
+            and n_heads // n_kv_heads <= MAX_REP
+            and q_dtype in _KERNEL_DTYPES
+            and k_dtype == q_dtype and v_dtype == q_dtype)
+
+
 def _takes_flash(q, k, v, causal, segment_ids) -> bool:
     return (q.is_cuda and segment_ids is None
             and (not causal or q.shape[1] == k.shape[1])
-            and q.shape[-1] in HEAD_DIMS
-            and q.dtype in (torch.float32, torch.bfloat16)
-            and k.dtype == q.dtype and v.dtype == q.dtype)
+            and flash_takes(q.shape[-1], q.dtype, k.dtype, v.dtype))
 
 
 def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -195,13 +221,14 @@ def paged_cached_attention(q: torch.Tensor, k: torch.Tensor,
 
     if cache.fresh:
         # pure prefill: no prior context, attend over the new tokens
-        # (K1). Padding-tail keys only reach discarded query rows.
-        out = flash_attention(q, k.to(q.dtype).contiguous(),
-                              v.to(q.dtype).contiguous(), causal=True,
-                              scale=scale)
+        # (K1 where it takes the call). Padding-tail keys only reach
+        # discarded query rows.
+        out = multi_head_attention(q, k.to(q.dtype), v.to(q.dtype),
+                                   causal=True, scale=scale)
         return out, new_cache
 
-    if s == 1:
+    if s == 1 and q.is_cuda and paged_decode_takes(
+            d, hq, k_flat.shape[1], q.dtype, k_flat.dtype, v_flat.dtype):
         # one-token decode: K3 reads the pages in place, no gather
         out = paged_decode_attention(
             q[:, 0].contiguous(), k_flat, v_flat, page_table.contiguous(),

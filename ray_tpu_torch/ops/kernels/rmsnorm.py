@@ -107,8 +107,8 @@ def fused_rms_norm(x: torch.Tensor, weight: torch.Tensor,
     """Drop-in for `ops.norms.rms_norm` with the K4 forward. x: (..., d);
     weight: (d,). Leading dims are flattened into rows, as the reference
     does. The reference's `block_rows` and `interpret` are not taken:
-    the tensor's device picks the route, and the launch picks the rows
-    per CTA."""
+    the tensor's device picks the route, and the launch its grid and
+    rows a stage from the card's SM count and shared memory."""
     d = x.shape[-1]
     out = _FusedRMSNorm.apply(x.reshape(-1, d).contiguous(),
                               weight.contiguous(), eps)

@@ -203,3 +203,104 @@ def test_paged_cached_attention_routes(route):
     _close(tn.v_flat, jn.v_flat)
     assert tn.lengths.tolist() == np.asarray(jn.lengths).tolist()
     assert tn.k_flat is tc.k_flat      # written in place
+
+
+# (head dim, Hq, Hkv, q dtype, k and v dtype, K1 takes it, K3 takes it):
+# the shape-and-type halves of the paged routes. fp16, head dims 96 and
+# 256, GQA groups past K3's MAX_REP (17, and MQA at 32 heads) and pools
+# of another type take no kernel; Llama-3-8B (D 128, rep 4, bf16), the
+# flagship (D 64, rep 2, fp32) and D 16 at rep 16 take both.
+_ROUTE_CASES = [
+    (128, 32, 8, torch.float16, torch.float16, False, False),
+    (96, 32, 8, torch.bfloat16, torch.bfloat16, False, False),
+    (256, 8, 4, torch.bfloat16, torch.bfloat16, False, False),
+    (64, 17, 1, torch.bfloat16, torch.bfloat16, True, False),
+    (128, 32, 1, torch.bfloat16, torch.bfloat16, True, False),
+    (128, 32, 8, torch.bfloat16, torch.float32, False, False),
+    (64, 8, 4, torch.float32, torch.bfloat16, False, False),
+    (128, 32, 8, torch.bfloat16, torch.bfloat16, True, True),
+    (64, 8, 4, torch.float32, torch.float32, True, True),
+    (16, 16, 1, torch.bfloat16, torch.bfloat16, True, True),
+]
+
+
+@pytest.mark.parametrize("d,hq,hkv,q_dt,kv_dt,flash,decode", _ROUTE_CASES)
+def test_paged_route_conditions(d, hq, hkv, q_dt, kv_dt, flash, decode):
+    assert t_att.flash_takes(d, q_dt, kv_dt, kv_dt) is flash
+    assert t_att.paged_decode_takes(d, hq, hkv, q_dt, kv_dt, kv_dt) is decode
+
+
+def test_paged_route_conditions_read_the_kernels_limits():
+    """The conditions follow the kernel modules' own HEAD_DIMS and
+    MAX_REP: every head dim the kernels list is taken, the largest
+    group K3 takes is taken and one more is not."""
+    from ray_tpu_torch.ops.kernels import flash_attention as k_flash
+    from ray_tpu_torch.ops.kernels import paged_attention as k_paged
+    bf16 = torch.bfloat16
+    for d in k_flash.HEAD_DIMS:
+        assert t_att.flash_takes(d, bf16, bf16, bf16)
+    for d in k_paged.HEAD_DIMS:
+        assert t_att.paged_decode_takes(d, 2, 2, bf16, bf16, bf16)
+    rep = k_paged.MAX_REP
+    assert t_att.paged_decode_takes(64, rep, 1, bf16, bf16, bf16)
+    assert not t_att.paged_decode_takes(64, rep + 1, 1, bf16, bf16, bf16)
+    # the pools' types are checked one by one
+    assert not t_att.paged_decode_takes(64, 4, 2, bf16, bf16,
+                                        torch.float32)
+
+
+@pytest.mark.parametrize("route", ["decode", "fresh"])
+def test_paged_cached_attention_routes_d96_mqa(route):
+    """Head dim 96 and 32 query heads on one kv head, shapes no kernel
+    takes, against the JAX op: fresh prefill through
+    multi_head_attention, one-token decode through the page gather."""
+    b, hq, hkv, d, ps = 2, 32, 1, 96, 4
+    rng, k_flat, v_flat, table = _paged_inputs(9, b=b, P=3, ps=ps, hkv=hkv,
+                                               d=d)
+    if route == "decode":
+        lengths = np.array([5, 11], np.int32)
+        s = 1
+    else:
+        lengths = np.zeros((b,), np.int32)
+        s = 7
+    pos = (lengths[:, None] + np.arange(s)[None, :]).astype(np.int32)
+    q = rng.randn(b, s, hq, d).astype(np.float32)
+    k = rng.randn(b, s, hkv, d).astype(np.float32)
+    v = rng.randn(b, s, hkv, d).astype(np.float32)
+    fresh = route == "fresh"
+    jc = j_att.PagedKV(jnp.asarray(k_flat), jnp.asarray(v_flat),
+                       jnp.asarray(table), jnp.asarray(lengths), ps,
+                       fresh=fresh)
+    want, jn = j_att.paged_cached_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jc,
+        jnp.asarray(pos))
+    tc = t_att.PagedKV(_t(k_flat), _t(v_flat), _t(table), _t(lengths), ps,
+                       fresh=fresh)
+    got, tn = t_att.paged_cached_attention(_t(q), _t(k), _t(v), tc, _t(pos))
+    _close(got, want)
+    _close(tn.k_flat, jn.k_flat)
+    _close(tn.v_flat, jn.v_flat)
+    assert tn.lengths.tolist() == np.asarray(jn.lengths).tolist()
+
+
+def test_paged_fresh_prefill_goes_through_multi_head_attention(monkeypatch):
+    """A fresh prefill hands the new tokens to multi_head_attention
+    (causal, k and v in q's type), which picks K1 or the einsum path."""
+    calls = []
+    real = t_att.multi_head_attention
+
+    def spy(q, k, v, **kw):
+        calls.append((q.shape, k.dtype, v.dtype, kw))
+        return real(q, k, v, **kw)
+
+    monkeypatch.setattr(t_att, "multi_head_attention", spy)
+    rng, k_flat, v_flat, table = _paged_inputs(10)
+    b, s, hq, hkv, d, ps = 3, 5, 4, 2, 8, 4
+    pos = np.tile(np.arange(s, dtype=np.int32), (b, 1))
+    q = _t(rng.randn(b, s, hq, d).astype(np.float32))
+    kv = _t(rng.randn(b, s, hkv, d).astype(np.float32)).double()
+    tc = t_att.PagedKV(_t(k_flat), _t(v_flat), _t(table),
+                       torch.zeros(b, dtype=torch.int32), ps, fresh=True)
+    t_att.paged_cached_attention(q, kv, kv, tc, _t(pos), scale=0.3)
+    assert calls == [((b, s, hq, d), torch.float32, torch.float32,
+                      dict(causal=True, scale=0.3))]
