@@ -5,7 +5,7 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
-It builds every CUDA kernel from `ray_tpu_torch/csrc/`, then runs seven
+It builds every CUDA kernel from `ray_tpu_torch/csrc/`, then runs eight
 phases and fails (non-zero exit, no result line) if any of them fails:
 
 1. kernels: each kernel against its plain PyTorch version at
@@ -22,18 +22,25 @@ phases and fails (non-zero exit, no result line) if any of them fails:
    the wgmma kernels' and K4's registers and spills from the ptxas log
    (a spill fails).
 2. serve: `LLMServer` on Llama-3-8B widths at full depth (32 layers,
-   bf16, random weights from a seed), one model under four engine
-   configurations, a burst of 8 requests of 32 new tokens each (greedy,
-   one temperature/top_p, one streamed): the paged cache (profiled a
-   second time); (i) the contiguous cache; (ii) paged with chunked
-   prefill (512) and decode_block 4, beside the same with decode_block
-   1 and with decode_block 4 under a pipeline of 3 dispatches (the
-   TPOT of each printed together); (iii) paged with one 1000-token
-   prefix registered and 8 requests of prefix + suffix. Every request
-   must finish with in-vocab tokens; the launch counters of K1 and K3,
-   zeroed just before each burst, must have grown where the path runs
-   them (and stayed at 0 on the contiguous cache); the prefix saved 8 x
-   1000 prefill tokens, and its registration launched K1.
+   bf16, random weights from a seed), one model under every engine
+   configuration. First (v) precompile: the first request's TTFT on a
+   fresh paged engine (chunked prefill, prefixes) without precompile,
+   with `precompile()` (its wall time printed; every slot free after),
+   and without it again. Then bursts of 8 requests of 32 new tokens
+   each (greedy, one temperature/top_p, one streamed): the paged cache
+   (profiled a second time); (i) the contiguous cache; (ii) paged with
+   chunked prefill (512) and decode_block 4, beside the same with
+   decode_block 1 and with decode_block 4 under a pipeline of 3
+   dispatches (the TPOT of each printed together); (iii) paged with one
+   1000-token prefix registered and 8 requests of prefix + suffix; (iv)
+   serve-spec: repetitive greedy prompts, plain and with
+   ngram_speculation=4 (verify steps, accepted tokens a step, TTFT,
+   TPOT and decode tokens/s of both); a guided burst (choices of token
+   ids) and a penalised one (presence, frequency, logit_bias). Every
+   request must finish with in-vocab tokens; the launch counters of K1
+   and K3, zeroed just before each burst, must have grown where the
+   path runs them (and stayed at 0 on the contiguous cache); the prefix
+   saved 8 x 1000 prefill tokens, and its registration launched K1.
 3. parity: at the same widths with 4 layers in fp32 (TF32 off), the
    engine's greedy tokens in nine configurations (paged; contiguous
    with prefill batches of 1 and 4; chunked prefill, decode_block 4 and
@@ -41,23 +48,34 @@ phases and fails (non-zero exit, no result line) if any of them fails:
    loop through the same model with no cache and its attention held to
    the einsum path (`einsum_attention`; no kernel launches there,
    checked).
-4. routes: the paged engine at 2 layers of head dim 96 (Phi-3-mini
+4. controls: at the parity phase's shape, on the paged and the
+   contiguous cache, the request controls held to the same
+   full-recompute loop with the engine's rules applied on the host:
+   n-gram speculation (K 4; tokens identical, verify steps with
+   accepted proposals, fewer decode dispatches than tokens), presence
+   and frequency penalties and logit_bias (+100 forces a token, -100
+   blocks one), guided choices of token ids alone and with penalties
+   (outputs accepted by the FSM), logprobs within LOGPROB_ATOL of the
+   loop's fp32 log_softmax; an expired deadline raises
+   DeadlineExceededError, and a stall past the watchdog makes the
+   stream raise EngineWedgedError and LLMServer.check_health raise.
+5. routes: the paged engine at 2 layers of head dim 96 (Phi-3-mini
    widths) and of MQA (Llama-3-8B widths, one kv head) in fp32, greedy
    tokens equal to the same full-recompute loop, and an fp16 burst at
    Llama-3-8B widths with in-vocab tokens: K3 is launched in none of
    them (K1 only on the MQA prefills), as the routes by shape and type
    say.
-5. train: `make_train_step` with adamw and warmup_cosine on Llama-3-8B
+6. train: `make_train_step` with adamw and warmup_cosine on Llama-3-8B
    widths cut to 8 layers (bf16 compute, fp32 master weights, remat),
    5 steps on one fixed batch of 2 x 2048 tokens: finite losses and
    grad norms, the last loss below the first, and K1/K2a/K2b launched
    exactly as the path implies (counters zeroed just before); then one
    more step under the profiler.
-6. train-parity: 3 fp32 train steps (TF32 off) of the flagship widths
+7. train-parity: 3 fp32 train steps (TF32 off) of the flagship widths
    on the GPU (K1/K2a/K2b) give the CPU's loss and grad_norm, and so
    does one GPU step under remat "dots" (selective checkpointing; K1
    runs twice per layer).
-7. north-star: pretrain the flagship widths on a repeating corpus,
+8. north-star: pretrain the flagship widths on a repeating corpus,
    checkpoint through CheckpointManager, restore, and serve the restored
    weights through LLMServer: the greedy continuation must match the
    corpus at least once in 6 tokens.
@@ -741,27 +759,73 @@ CHUNKED_VARIANTS = [
 
 
 def serve_burst(torch, server, bodies, label, gpu_line, vocab):
-    """One short sampled request first (the burst's TTFT then leaves out
-    first-use costs: cuBLAS handles, pinned memory, sampling kernels),
-    then every body at once. The K1/K3 counters are zeroed just before
-    and read just after. Each request must return SERVE_NEW in-vocab
-    tokens. Returns (stats, launches)."""
+    """`timed_burst` of LLMServer bodies: one short sampled request
+    first, then every body at once."""
+    def warm():
+        return server({"prompt": bodies[0]["prompt"][:8], "max_tokens": 2,
+                       "temperature": 0.8, "top_p": 0.9})["tokens"]
+    return timed_burst(torch, server.engine, warm,
+                       lambda: burst(server, bodies),
+                       [len(b["prompt"]) for b in bodies], label, gpu_line,
+                       vocab)
+
+
+def run_jobs(engine, jobs):
+    """Submit every (prompt, submit kwargs) job to the engine at once and
+    stream each on its own thread; fails if any fails or does not
+    finish. Returns the token lists in order."""
+    results = [None] * len(jobs)
+    errors = []
+    rids = [engine.submit(p, **kw) for p, kw in jobs]
+
+    def run(i):
+        try:
+            results[i] = list(engine.stream(rids[i]))
+        except Exception as e:  # noqa: BLE001  reported below, then fails
+            errors.append((i, repr(e)))
+
+    threads = [threading.Thread(target=run, args=(i,))
+               for i in range(len(jobs))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    check(not errors, f"requests failed: {errors}")
+    check(all(not t.is_alive() for t in threads), "requests did not finish")
+    return results
+
+
+def engine_burst(torch, engine, jobs, label, gpu_line, vocab):
+    """`timed_burst` of engine jobs (submit kwargs the server's body does
+    not carry: guided FSMs, penalties)."""
+    def warm():
+        return engine.generate_sync(jobs[0][0][:8], max_new_tokens=2,
+                                    temperature=0.8, top_p=0.9)
+    return timed_burst(torch, engine, warm, lambda: run_jobs(engine, jobs),
+                       [len(p) for p, _ in jobs], label, gpu_line, vocab)
+
+
+def timed_burst(torch, engine, warm, run, plens, label, gpu_line, vocab):
+    """One short sampled request first (`warm`: the burst's TTFT then
+    leaves out first-use costs: cuBLAS handles, pinned memory, sampling
+    kernels), then the burst (`run`). The K1/K3 counters are zeroed just
+    before and read just after. Each request must return SERVE_NEW
+    in-vocab tokens. Returns (stats, launches); stats carries the
+    burst's decode tokens/s, verify steps and accepted proposals."""
     from ray_tpu_torch.ops.kernels import flash_attention as fa
     from ray_tpu_torch.ops.kernels import paged_attention as pa
     fa.flash_attention_fwd.launches = 0
     pa.paged_decode_attention.launches = 0
-    warm = server({"prompt": bodies[0]["prompt"][:8], "max_tokens": 2,
-                   "temperature": 0.8, "top_p": 0.9})["tokens"]
-    check(len(warm) == 2, f"{label}: warm-up request failed")
-    server.engine._ttft_samples.clear()
-    server.engine._tpot_samples.clear()
-    steps0 = server.stats()["decode_steps"]
+    check(len(warm()) == 2, f"{label}: warm-up request failed")
+    engine._ttft_samples.clear()
+    engine._tpot_samples.clear()
+    before = engine.get_stats()
     t_start = time.time()
-    results = burst(server, bodies)
+    results = run()
     t_end = time.time()
     launches = {"flash_fwd (K1)": fa.flash_attention_fwd.launches,
                 "paged_decode (K3)": pa.paged_decode_attention.launches}
-    stats = server.stats()
+    stats = engine.get_stats()
     for i, toks in enumerate(results):
         check(toks is not None and len(toks) == SERVE_NEW,
               f"{label}: request {i} returned "
@@ -771,14 +835,16 @@ def serve_burst(torch, server, bodies, label, gpu_line, vocab):
               f"{label}: request {i} has out-of-vocab tokens")
     ttft = stats["ttft_breakdown_p50_ms"]["total_ms"]
     n_tok = sum(len(t) for t in results)
-    decode_tok_s = (n_tok - len(results)) / (t_end - t_start)
+    stats["decode_tok_s"] = (n_tok - len(results)) / (t_end - t_start)
+    for key in ("decode_steps", "spec_steps", "spec_accepted"):
+        stats["burst_" + key] = stats[key] - before[key]
     print(f"{label}: {len(results)} requests x {SERVE_NEW} tokens, prompts "
-          f"{[len(b['prompt']) for b in bodies]}, wall "
-          f"{t_end - t_start:.3f} s, TTFT p50 {ttft} ms (engine), decode "
-          f"tokens/s {decode_tok_s:.1f} (tokens after each first token / "
-          f"wall), TPOT p50 {stats.get('tpot_p50_ms')} ms, decode steps "
-          f"{stats['decode_steps'] - steps0} (the burst's), launches "
-          f"{json.dumps(launches)} [{gpu_line}]", flush=True)
+          f"{plens}, wall {t_end - t_start:.3f} s, TTFT p50 {ttft} ms "
+          f"(engine), decode tokens/s {stats['decode_tok_s']:.1f} (tokens "
+          f"after each first token / wall), TPOT p50 "
+          f"{stats.get('tpot_p50_ms')} ms, decode steps "
+          f"{stats['burst_decode_steps']} (the burst's), launches "
+          f"{json.dumps(launches)} [{gpu_line}; one burst]", flush=True)
     return stats, launches
 
 
@@ -787,6 +853,128 @@ def close_server(torch, server):
     del server
     gc.collect()
     torch.cuda.empty_cache()
+
+
+# (v): the first request's TTFT on fresh engines, with and without
+# precompile, under the configuration with the most paths to warm
+PRECOMPILE_CONFIG = dict(kv_page_size=16, prefill_chunk=512, max_prefixes=2)
+# (iv): repetitive prompts, a 16-token segment repeated
+SPEC_PLENS = [64, 96, 128, 160, 192, 256, 320, 400]
+
+
+def first_ttft_ms(engine, prompt):
+    """Host time from submit to the first token of one request of 4."""
+    t0 = time.time()
+    it = engine.stream(engine.submit(prompt, max_new_tokens=4))
+    next(it)
+    ttft = (time.time() - t0) * 1000
+    check(len(list(it)) == 3, "precompile: a request did not finish")
+    return ttft
+
+
+def precompile_probe(torch, model, base, prompt, gpu_line):
+    """(v) Fresh paged engines on the 8B model: the first request's TTFT
+    without precompile (the first engine of the process on this model),
+    then with precompile() (its wall time printed), then without it
+    again (the process warm)."""
+    from ray_tpu_torch.serve.llm import LLMEngine, LLMEngineConfig
+    results = []
+    for label, pre in (("first engine, no precompile", False),
+                       ("precompile", True),
+                       ("again, no precompile", False)):
+        engine = LLMEngine(model, None, LLMEngineConfig(
+            **base, **PRECOMPILE_CONFIG), device="cuda")
+        try:
+            pre_s = None
+            if pre:
+                t0 = time.time()
+                engine.precompile()
+                torch.cuda.synchronize()
+                pre_s = time.time() - t0
+                st = engine.get_stats()
+                check(st["free_slots"] == base["max_slots"]
+                      and st["prefix_tokens_saved"] == 0
+                      and st["kv_pages"]["free"] == st["kv_pages"]["total"],
+                      f"precompile left the engine busy: {st}")
+            ttft = first_ttft_ms(engine, prompt)
+        finally:
+            engine.shutdown()
+            del engine
+            gc.collect()
+            torch.cuda.empty_cache()
+        results.append((label, pre_s, ttft))
+        print(f"serve-precompile: {label}: "
+              f"{'' if pre_s is None else f'precompile() {pre_s:.3f} s, '}"
+              f"first request ({len(prompt)}-token prompt) TTFT "
+              f"{ttft:.1f} ms [{gpu_line}; one request]", flush=True)
+    return results
+
+
+def serve_controls(torch, model, base, rng, gpu_line):
+    """(iv) serve-spec: greedy repetitive prompts on the paged cache,
+    plain and with ngram_speculation=4 (acceptance only reported: bf16
+    rounds a (K+1)-row product otherwise than a 1-row one); then a guided
+    burst (choices of SERVE_NEW token ids) and a penalised one (presence,
+    frequency, logit_bias), which step synchronously and pipelined.
+    Returns each burst's launches."""
+    import numpy as np
+    from ray_tpu_torch.serve.llm import (LLMEngine, LLMEngineConfig,
+                                         LLMServer, TokenFSM)
+    V = model.cfg.vocab_size
+    launches = {}
+    prompts = [np.tile(rng.randint(0, V, 16), n // 16).tolist()
+               for n in SPEC_PLENS]
+    bodies = [{"prompt": p, "max_tokens": SERVE_NEW} for p in prompts]
+    stats = {}
+    for label, kw in (("serve-spec-plain", {}),
+                      ("serve-spec", dict(ngram_speculation=SPEC_K))):
+        server = LLMServer(lambda: (model, None), engine_config={
+            **base, "kv_page_size": 16, **kw}, device="cuda")
+        stats[label], launches[label] = serve_burst(
+            torch, server, bodies, label, gpu_line, V)
+        close_server(torch, server)
+    st, plain = stats["serve-spec"], stats["serve-spec-plain"]
+    steps = st["burst_spec_steps"]
+    print(f"serve-spec: verify steps {steps}, accepted proposals "
+          f"{st['burst_spec_accepted']} "
+          f"({st['burst_spec_accepted'] / max(steps, 1):.3f} accepted tokens "
+          f"a verify step, summed over its {len(bodies)} requests at most), "
+          f"decode dispatches {st['burst_decode_steps']}; "
+          f"TTFT p50 {st['ttft_breakdown_p50_ms']['total_ms']} ms, TPOT p50 "
+          f"{st.get('tpot_p50_ms')} ms, decode tokens/s "
+          f"{st['decode_tok_s']:.1f} beside the plain paged burst on the "
+          f"same prompts: TTFT p50 {plain['ttft_breakdown_p50_ms']['total_ms']}"
+          f" ms, TPOT p50 {plain.get('tpot_p50_ms')} ms, decode tokens/s "
+          f"{plain['decode_tok_s']:.1f} [{gpu_line}; one burst each]",
+          flush=True)
+
+    plens = SERVE_PLENS
+    guided = []
+    for n in plens:
+        seqs = [rng.randint(0, V, SERVE_NEW).tolist() for _ in range(2)]
+        guided.append((rng.randint(0, V, n).tolist(), dict(
+            max_new_tokens=SERVE_NEW, guided_fsm=TokenFSM.from_choices(
+                seqs, vocab_size=V, eos_id=CONTROLS_EOS))))
+    penalised = [(rng.randint(0, V, n).tolist(), dict(
+        max_new_tokens=SERVE_NEW, presence_penalty=0.5,
+        frequency_penalty=0.3,
+        logit_bias={int(t): 1.0 for t in rng.randint(0, V, 4)}))
+        for n in plens]
+    for label, jobs in (("serve-guided", guided),
+                        ("serve-penalised", penalised)):
+        engine = LLMEngine(model, None, LLMEngineConfig(
+            **base, kv_page_size=16), device="cuda")
+        try:
+            _, launches[label] = engine_burst(torch, engine, jobs, label,
+                                              gpu_line, V)
+        finally:
+            engine.shutdown()
+            del engine
+            gc.collect()
+            torch.cuda.empty_cache()
+        check(launches[label]["paged_decode (K3)"] > 0,
+              f"{label}: K3 {launches[label]}")
+    return launches
 
 
 def phase_serve(torch, gpu_line):
@@ -824,6 +1012,8 @@ def phase_serve(torch, gpu_line):
     bodies[2].update(temperature=0.8, top_p=0.9)
     bodies[5]["stream"] = True
     launches = {}
+
+    precompile_probe(torch, model, base, prompts[3], gpu_line)
 
     server = server_for(kv_page_size=16)
     stats, launches["serve"] = serve_burst(torch, server, bodies, "serve",
@@ -896,6 +1086,8 @@ def phase_serve(torch, gpu_line):
     check(saved == len(pbodies) * PREFIX_LEN,
           f"prefix_tokens_saved {saved}, want {len(pbodies) * PREFIX_LEN}")
     close_server(torch, server)
+
+    launches.update(serve_controls(torch, model, base, rng, gpu_line))
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -1013,6 +1205,281 @@ def phase_parity(torch):
           f"{len(PARITY_CASES)} engine configurations; reference einsum "
           f"attention, 0 kernel launches)", flush=True)
     del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# controls phase: the engine's request controls at the parity phase's
+# shape, held to the full-recompute loop with the same rules applied on
+# the host
+CONTROLS_NEW = 24
+CONTROLS_EOS = 128001           # Llama-3's <|end_of_text|>
+SPEC_K = 4
+LOGPROB_ATOL = 1e-3     # fp32, TF32 off: the engine's cached attention
+                        # and the loop's full recompute sum in other orders
+SPEC_CANDIDATES = 6     # random prompts whose greedy output is searched
+SPEC_SEARCH = 40        # ... at this many starting points for a prompt
+                        # speculation never backs off on
+
+
+def plain_controls(torch, model, prompt, n_new, presence_penalty=0.0,
+                   frequency_penalty=0.0, logit_bias=None, fsm=None,
+                   eos=CONTROLS_EOS):
+    """Greedy tokens and their fp32 logprobs (of the raw distribution)
+    from the full-recompute einsum loop, with the engine's rules applied
+    on the host: bias = logit_bias - presence * (count > 0) - frequency *
+    count over the tokens generated so far, then the FSM's mask, then
+    argmax; the request ends at EOS, a complete FSM match or n_new."""
+    from unittest import mock
+
+    from ray_tpu_torch.models import llama as llama_module
+    from ray_tpu_torch.ops import einsum_attention
+    V = model.cfg.vocab_size
+    static = torch.zeros(V, device="cuda")
+    for t, b in (logit_bias or {}).items():
+        static[int(t)] = float(b)
+    counts = torch.zeros(V, dtype=torch.int32, device="cuda")
+    seq, toks, lps = list(prompt), [], []
+    state = fsm.start if fsm is not None else None
+    with torch.no_grad(), mock.patch.object(
+            llama_module, "multi_head_attention", einsum_attention):
+        for _ in range(n_new):
+            logits, _ = model(torch.tensor([seq], device="cuda"))
+            logits = logits[0, -1].float()
+            bias = (static - presence_penalty * (counts > 0)
+                    - frequency_penalty * counts)
+            adj = logits + bias
+            if fsm is not None:
+                allow = torch.from_numpy(fsm.allowed(state)).cuda()
+                adj = adj.masked_fill(~allow, float("-inf"))
+            tok = int(torch.argmax(adj))
+            toks.append(tok)
+            lps.append(float(torch.log_softmax(logits, -1)[tok]))
+            counts[tok] += 1
+            seq.append(tok)
+            if tok == eos:
+                break
+            if fsm is not None:
+                state = fsm.advance(state, tok)
+                if state < 0 or fsm.is_complete(state):
+                    break
+    return toks, lps
+
+
+def propose_ngram(hist, k=SPEC_K, order=2, lookback=256):
+    """The engine's `_propose_ngram`: the k tokens after the latest
+    earlier occurrence of the trailing `order`-gram, or None."""
+    key = hist[-order:]
+    lo = max(0, len(hist) - order - 1 - max(order + 1, lookback))
+    for i in range(len(hist) - order - 1, lo - 1, -1):
+        if hist[i:i + order] == key:
+            return hist[i + order:i + order + k] or None
+    return None
+
+
+def spec_schedule(prompt, toks, k=SPEC_K):
+    """(verify steps, accepted proposals, backed off) of one speculating
+    request whose greedy output is `toks`, stepped as the engine steps
+    it alone: synchronously, a verify step whenever the history proposes
+    (emitting the proposals the output confirms and the token after
+    them), a plain step otherwise; 8 plain steps in a row back it off to
+    pipelined decode, where this count stops."""
+    hist, i, idle, steps, accepted = list(prompt) + toks[:1], 1, 0, 0, 0
+    while i < len(toks):
+        prop = propose_ngram(hist, k)
+        n = 1
+        if prop:
+            idle = 0
+            steps += 1
+            while n <= len(prop) and prop[n - 1] == toks[i + n - 1] \
+                    and i + n < len(toks):
+                n += 1
+            accepted += n - 1
+        else:
+            idle += 1
+            if idle >= 8:
+                return steps, accepted, True
+        hist.extend(toks[i:i + n])
+        i += n
+    return steps, accepted, False
+
+
+def phase_controls(torch):
+    """The request controls at the parity phase's shape (4 fp32 layers
+    of Llama-3-8B widths, TF32 off), on the paged and contiguous caches,
+    each held to `plain_controls`: n-gram speculation (K = 4) on the
+    prompt whose greedy output repeats most (tokens identical, verify
+    steps run, proposals accepted, fewer decode dispatches than
+    tokens); presence / frequency penalties and logit_bias (+100 forces
+    a token, -100 blocks one); guided choices of token ids alone and
+    with penalties (every output accepted by its FSM); logprobs within
+    LOGPROB_ATOL of the loop's fp32 log_softmax. Then an expired
+    deadline raises DeadlineExceededError, and a stall of the loop past
+    the watchdog makes the stream raise EngineWedgedError and
+    LLMServer.check_health raise."""
+    import numpy as np
+    from ray_tpu_torch.exceptions import (DeadlineExceededError,
+                                          EngineWedgedError)
+    from ray_tpu_torch.models import Llama, LlamaConfig
+    from ray_tpu_torch.serve.llm import (LLMEngine, LLMEngineConfig,
+                                         LLMServer, TokenFSM)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = LlamaConfig.llama3_8b(n_layers=4, dtype=torch.float32,
+                                param_dtype=torch.float32, remat=False)
+    model = Llama(cfg, device="cuda", seed=1)
+    V = cfg.vocab_size
+    rng = np.random.RandomState(7)
+    base = dict(max_slots=4, max_seq_len=2048, eos_token_id=CONTROLS_EOS,
+                prefill_buckets=(32, 64, 128, 256, 512))
+
+    # speculation: a random prompt followed by the first j tokens of the
+    # model's own greedy continuation is continued by the rest of it; of
+    # those prompts, the one whose continuation speculation accepts most
+    # proposals on without backing off (then every step is synchronous
+    # and the engine's counts are exactly `spec_schedule`'s)
+    best = None
+    for _ in range(SPEC_CANDIDATES):
+        p = rng.randint(0, V, 24).tolist()
+        g, _ = plain_controls(torch, model, p, SPEC_SEARCH + CONTROLS_NEW)
+        for j in range(min(SPEC_SEARCH, len(g) - CONTROLS_NEW) + 1):
+            cont = g[j:j + CONTROLS_NEW]
+            steps, accepted, backed_off = spec_schedule(p + g[:j], cont)
+            if not backed_off and accepted and (
+                    best is None or accepted > best[0]):
+                best = (accepted, steps, p + g[:j], cont)
+    check(best is not None, "controls: no prompt found that speculation "
+                            "accepts a proposal on without backing off")
+    spec_accepted, spec_steps, spec_prompt, spec_want = best
+    print(f"controls: speculation prompt of {len(spec_prompt)} tokens: "
+          f"plain loop {spec_want}; expected {spec_steps} verify steps, "
+          f"{spec_accepted} accepted", flush=True)
+
+    # penalties, logit_bias and guided choices, all in one batch
+    prompts = [rng.randint(0, V, n).tolist() for n in (17, 60, 200, 40)]
+    plain0, _ = plain_controls(torch, model, prompts[0], CONTROLS_NEW)
+    forced, blocked = int(rng.randint(0, V)), plain0[0]
+    choices = [rng.randint(0, V, n).tolist() for n in (3, 5, 4)]
+
+    def fsm():
+        return TokenFSM.from_choices(choices, vocab_size=V,
+                                     eos_id=CONTROLS_EOS)
+
+    jobs = [(prompts[0], dict(presence_penalty=1.5,
+                              logit_bias={plain0[1]: 2.0})),
+            (prompts[1], dict(frequency_penalty=1.0)),
+            (prompts[2], dict(presence_penalty=-0.5, frequency_penalty=0.8,
+                              logit_bias={forced: 100.0})),
+            (prompts[0], dict(logit_bias={blocked: -100.0})),
+            (prompts[3], dict(guided_fsm=fsm())),
+            (prompts[1], dict(guided_fsm=fsm(), presence_penalty=2.0,
+                              logit_bias={choices[2][0]: 3.0})),
+            (prompts[2], dict())]
+    want = [plain_controls(torch, model, p, CONTROLS_NEW,
+                           fsm=fsm() if "guided_fsm" in kw else None,
+                           **{k: v for k, v in kw.items()
+                              if k != "guided_fsm"})
+            for p, kw in jobs]
+    check(want[2][0] == [forced] * CONTROLS_NEW,
+          f"controls: logit_bias +100 did not force the loop: {want[2][0]}")
+    check(want[3][0][0] != blocked,
+          "controls: logit_bias -100 did not block the loop's token")
+
+    for kv in (16, 0):
+        label = "paged" if kv else "contiguous"
+        spec = LLMEngine(model, None, LLMEngineConfig(
+            **base, kv_page_size=kv, ngram_speculation=SPEC_K),
+            device="cuda")
+        try:
+            got = spec.generate_sync(spec_prompt,
+                                     max_new_tokens=CONTROLS_NEW)
+            st = spec.get_stats()
+        finally:
+            spec.shutdown()
+        print(f"controls: {label}: speculation {got}; verify steps "
+              f"{st['spec_steps']}, accepted {st['spec_accepted']}, decode "
+              f"dispatches {st['decode_steps']} for {len(got)} tokens",
+              flush=True)
+        check(got == spec_want, f"controls: {label}: speculative tokens "
+                                f"differ from the plain loop")
+        check((st["spec_steps"], st["spec_accepted"])
+              == (spec_steps, spec_accepted) and spec_accepted > 0,
+              f"controls: {label}: verify steps and accepted proposals "
+              f"differ from the schedule's")
+        check(st["decode_steps"] < len(got),
+              f"controls: {label}: {st['decode_steps']} decode dispatches "
+              f"for {len(got)} tokens")
+
+        engine = LLMEngine(model, None, LLMEngineConfig(
+            **base, kv_page_size=kv, logprobs=True), device="cuda")
+        try:
+            rids = [engine.submit(p, max_new_tokens=CONTROLS_NEW, **kw)
+                    for p, kw in jobs]
+            out = [list(engine.stream_detailed(r)) for r in rids]
+            with_deadline = None
+            try:
+                engine.submit(prompts[0], deadline_ts=time.time() - 1)
+            except DeadlineExceededError as e:
+                with_deadline = e
+        finally:
+            engine.shutdown()
+        err = 0.0
+        for i, (o, (w_toks, w_lps)) in enumerate(zip(out, want)):
+            toks = [t for t, _ in o]
+            if toks != w_toks:
+                print(f"controls: {label}: request {i} engine {toks} plain "
+                      f"{w_toks}", flush=True)
+            check(toks == w_toks, f"controls: {label}: request {i}'s tokens "
+                                  f"differ from the plain loop")
+            err = max([err] + [abs(lp - w) for (_, lp), w in zip(o, w_lps)])
+        for i in (4, 5):
+            f = fsm()
+            state = f.start
+            for t in [t for t, _ in out[i]]:
+                check(bool(f.allowed(state)[t]),
+                      f"controls: {label}: guided request {i} left its FSM")
+                state = f.advance(state, t)
+            check(f.is_accepting(state),
+                  f"controls: {label}: guided request {i} did not finish a "
+                  f"choice")
+        print(f"controls: {label}: penalties, logit_bias, guided choices "
+              f"(alone and penalised) equal to the plain loop; logprobs max "
+              f"abs err {err:.3g} (tolerance {LOGPROB_ATOL})", flush=True)
+        check(err <= LOGPROB_ATOL, f"controls: {label}: logprobs differ by "
+                                   f"{err}")
+        check(with_deadline is not None,
+              f"controls: {label}: an expired deadline was accepted")
+
+    server = LLMServer(lambda: (model, None), engine_config={
+        **base, "kv_page_size": 16, "watchdog_s": 0.2}, device="cuda")
+    try:
+        check(len(server.engine.generate_sync(prompts[0],
+                                              max_new_tokens=4)) == 4,
+              "controls: watchdog warm-up request failed")
+        server.check_health()
+        server.engine._chaos_stall(2.5)     # > 10 x 0.2 s
+        rid = server.engine.submit(prompts[0], max_new_tokens=8)
+        wedged = None
+        try:
+            list(server.engine.stream(rid))
+        except EngineWedgedError as e:
+            wedged = e
+        check(wedged is not None, "controls: a stalled loop was not "
+                                  "declared wedged")
+        unhealthy = None
+        try:
+            server.check_health()
+        except EngineWedgedError as e:
+            unhealthy = e
+        check(unhealthy is not None,
+              "controls: check_health passed on a wedged engine")
+    finally:
+        server.shutdown()
+    print("controls: ok (expired deadline refused; a 2.5 s stall under "
+          "watchdog_s 0.2 wedged the engine, its stream and check_health "
+          "raised EngineWedgedError)", flush=True)
+    del model, server
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1389,6 +1856,7 @@ def main() -> None:
     rows = phase_kernels(torch)
     launches = phase_serve(torch, gpu_line)
     phase_parity(torch)
+    phase_controls(torch)
     phase_routes(torch)
     launches["train"] = phase_train(torch, gpu_line)
     phase_train_parity(torch)

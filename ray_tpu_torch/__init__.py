@@ -10,9 +10,12 @@ version, a CUDA tensor launches the kernel or raises.
 
 Ported so far: the serving slice — `ops/` (norms, activations, rotary,
 attention with PagedKV), `models/llama.py` with a flax-weights
-converter, and the paged continuous-batching engine
-(`serve/llm/engine.py`) behind `serve.llm.LLMServer` — and the training
-slice: the flash-attention backward behind a `torch.autograd.Function`,
-activation checkpointing (`remat`), `parallel/precision.py`, and
-`train/` (single-device train step, optimizers, atomic checkpoints).
+converter, and the continuous-batching engine (`serve/llm/engine.py`,
+with every request control of the reference's: speculation, penalties,
+guided decoding, logprobs, deadlines, the watchdog, precompile) behind
+`serve.llm.LLMServer` and `serve.llm.openai_api.OpenAIServer` — and the
+training slice: the flash-attention backward behind a
+`torch.autograd.Function`, activation checkpointing (`remat`),
+`parallel/precision.py`, and `train/` (single-device train step,
+optimizers, atomic checkpoints).
 """

@@ -1,19 +1,27 @@
 """ray_tpu_torch.serve.llm — LLM serving on the continuous-batching engine
 (counterpart of ray_tpu/serve/llm/__init__.py).
 
-`LLMServer` takes the same request body as the JAX one, and the same
-`cached_prefixes`. The deployment binding (`build_llm_deployment`),
-request deadlines and the dynamic `register_prefix` hook need the serve
-control plane and wait for a later slice.
+`LLMServer` takes the same request body as the JAX one, the same
+`cached_prefixes` and dynamic `register_prefix`, and passes the request
+deadline of `serve.context` to the engine; `OpenAIServer`
+(`openai_api.py`) speaks the OpenAI completions and chat schema over it.
+The deployment builders (`build_llm_deployment`,
+`build_openai_deployment`) need the serve control plane and wait for a
+later slice.
 """
 from __future__ import annotations
 
+import threading
 from typing import Any, Dict, Optional
 
 import numpy as np
 
+from ...exceptions import EngineWedgedError
 from ...util.device import DeviceLike
+from ..context import get_request_deadline
 from .engine import LLMEngine, LLMEngineConfig
+from .guided import (GuidedSpec, TokenFSM, compile_guided,
+                     json_schema_to_regex)
 
 
 class LLMServer:
@@ -41,6 +49,9 @@ class LLMServer:
         cfg = LLMEngineConfig(**engine_config)
         self.engine = LLMEngine(model, state, cfg, device=device, seed=seed)
         self.tokenizer = tokenizer
+        self._prefix_lock = threading.Lock()
+        self._prefix_keys: Dict[str, int] = {}   # affinity key -> pid
+        self._prefix_inflight: set = set()       # keys mid-registration
         self._cached_prefixes = []      # (tokens, pid), longest first
         for p in cached_prefixes or []:
             ids = np.asarray(self._encode(p), np.int32).reshape(-1)
@@ -52,11 +63,44 @@ class LLMServer:
         """(submit_prompt, prefix_id): strip the longest registered
         prefix the prompt starts with (and is longer than)."""
         prompt = np.asarray(prompt, np.int32).reshape(-1)
-        for ids, pid in self._cached_prefixes:
+        with self._prefix_lock:
+            prefixes = list(self._cached_prefixes)
+        for ids, pid in prefixes:
             if prompt.size > ids.size and np.array_equal(prompt[:ids.size],
                                                          ids):
                 return prompt[ids.size:], pid
         return prompt, None
+
+    def register_prefix(self, body: Dict[str, Any]) -> Dict[str, Any]:
+        """Register a shared prefix after startup. body: {"prefix": str |
+        [token ids], "key": affinity key}. Idempotent per key; a key
+        whose registration is still running answers {"pending": True}
+        instead of taking a second engine prefix slot. Needs
+        engine_config max_prefixes > 0."""
+        key = body.get("key") or ""
+        ids = np.asarray(self._encode(body["prefix"]), np.int32).reshape(-1)
+        with self._prefix_lock:
+            pid = self._prefix_keys.get(key) if key else None
+            if pid is not None:
+                return {"key": key, "prefix_id": int(pid),
+                        "prefix_tokens": int(ids.size)}
+            if key in self._prefix_inflight:
+                return {"key": key, "prefix_id": -1, "pending": True}
+            self._prefix_inflight.add(key)
+        try:
+            # the prefill may take a while: never under the lock, which
+            # the request path's _match_prefix takes
+            pid = self.engine.register_prefix(ids)
+        finally:
+            with self._prefix_lock:
+                self._prefix_inflight.discard(key)
+        with self._prefix_lock:
+            if key:
+                self._prefix_keys[key] = pid
+            self._cached_prefixes.append((ids, pid))
+            self._cached_prefixes.sort(key=lambda t: -t[0].size)
+        return {"key": key, "prefix_id": int(pid),
+                "prefix_tokens": int(ids.size)}
 
     def _encode(self, prompt):
         if isinstance(prompt, str):
@@ -75,13 +119,15 @@ class LLMServer:
     def __call__(self, body: Dict[str, Any]):
         """Unary or streaming generate. body: {"prompt": [ids] | str,
         "max_tokens": int, "temperature": float, "top_p": float,
-        "stop_token_ids": [ids], "stream": bool}."""
+        "stop_token_ids": [ids], "stream": bool}. The request deadline
+        set in `serve.context`, if any, goes to the engine."""
         prompt, prefix_id = self._match_prefix(self._encode(body["prompt"]))
         rid = self.engine.submit(
             prompt, body.get("max_tokens"),
             float(body.get("temperature", 0.0)),
             top_p=float(body.get("top_p", 1.0)),
-            stop_token_ids=body.get("stop_token_ids"), prefix_id=prefix_id)
+            stop_token_ids=body.get("stop_token_ids"), prefix_id=prefix_id,
+            deadline_ts=get_request_deadline())
         if body.get("stream"):
             def gen():
                 for tok in self.engine.stream(rid):
@@ -92,11 +138,54 @@ class LLMServer:
             return {"text": self.tokenizer.decode(toks), "tokens": toks}
         return {"tokens": toks}
 
-    def stats(self) -> Dict[str, Any]:
+    def generate(self, body: Dict[str, Any]):
+        return self(body)
+
+    def stats(self, _body=None) -> Dict[str, Any]:
         return self.engine.get_stats()
+
+    def autoscale_metrics(self) -> Dict[str, Any]:
+        """The engine's signals an autoscaler keys on: queue depth,
+        active slots, KV-page utilisation, TTFT and TPOT p50, and the
+        prefix-cache savings."""
+        s = self.engine.get_stats()
+        out: Dict[str, Any] = {
+            "queue_depth": float(s.get("waiting", 0) or 0),
+            "active_slots": float(s.get("active", 0) or 0),
+            "prefix_tokens_saved": float(
+                s.get("prefix_tokens_saved", 0) or 0),
+        }
+        kv = s.get("kv_pages") or {}
+        if kv.get("total"):
+            out["kv_util"] = kv["in_use"] / max(kv["total"], 1)
+        ttft = s.get("ttft_breakdown_p50_ms") or {}
+        if ttft.get("total_ms") is not None:
+            out["ttft_p50_ms"] = float(ttft["total_ms"])
+        if s.get("tpot_p50_ms") is not None:
+            out["tpot_ms"] = float(s["tpot_p50_ms"])
+        return out
+
+    def check_health(self) -> None:
+        """Raises when the engine loop died, or EngineWedgedError when
+        the watchdog declared the engine wedged."""
+        if not self.engine._loop_thread.is_alive():
+            raise RuntimeError("engine loop died")
+        if self.engine.wedged:
+            raise EngineWedgedError(
+                "wedged: engine loop made no forward progress past "
+                "its watchdog window; replica must be replaced")
 
     def shutdown(self) -> None:
         self.engine.shutdown()
 
 
-__all__ = ["LLMEngine", "LLMEngineConfig", "LLMServer"]
+def __getattr__(name):
+    if name == "OpenAIServer":
+        from . import openai_api
+        return openai_api.OpenAIServer
+    raise AttributeError(name)
+
+
+__all__ = ["LLMEngine", "LLMEngineConfig", "LLMServer", "GuidedSpec",
+           "TokenFSM", "compile_guided", "json_schema_to_regex",
+           "OpenAIServer"]

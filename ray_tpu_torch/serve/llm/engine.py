@@ -34,9 +34,9 @@ ray_tpu/serve/llm/engine.py).
   shared prefix once, on the engine loop thread. Paged: into pinned
   pages through the scratch slot's row (a fresh prefill, K1); adopters
   share its full pages by page-table reference and copy only its
-  partial last page. Contiguous: into a row of a (max_prefixes, L, Hkv,
-  D) buffer (the reference's extra row only serves `precompile`, which
-  is not ported); adopters copy its rows into their slot.
+  partial last page. Contiguous: into a row of a (max_prefixes + 1, L,
+  Hkv, D) buffer (the extra row is `precompile`'s scratch prefix);
+  adopters copy its rows into their slot.
 * Pipelined host loop: decode steps are issued up to `pipeline_depth`
   ahead of the host reading their tokens. Each step's sampled tokens go
   to pinned host memory by a non-blocking copy, recorded with a CUDA
@@ -49,9 +49,34 @@ written with `index_copy_` / indexed assignment inside attention, and
 the page table and lengths with indexed assignment, all on the engine
 loop thread.
 
-Not ported yet (their config fields must keep their defaults): n-gram
-speculation, guided decoding, penalties, logprobs, precompile, the
-watchdog, metrics and events.
+Request controls, as in the reference:
+* guided decoding (`guided_fsm`, serve/llm/guided.py): a host-side token
+  FSM whose per-state vocab mask is uploaded for each step; guided
+  traffic steps synchronously, since the next mask depends on the token
+  just sampled;
+* presence / frequency penalties and `logit_bias`: per-slot token counts
+  (S, V) int32 and a static bias (S, V) fp32 stay on the device, the
+  counts updated in place from the tokens fed to each step, so
+  penalised traffic keeps the pipeline;
+* logprobs (`logprobs=True`): each token's log-probability under the raw
+  model distribution, fetched with the tokens in one copy;
+* n-gram speculation (`ngram_speculation=K`): for greedy, unguided,
+  unpenalised requests the host proposes K tokens from the request's own
+  history and one forward over 1 + K tokens verifies them (greedy prefix
+  acceptance); it steps synchronously and backs off after 8 steps
+  without a proposal. The verify step's attention takes the page-gather
+  route on the paged cache (only one-token steps take K3);
+* deadlines: a request whose `deadline_ts` passed is refused at submit
+  or shed at admission with DeadlineExceededError;
+* the watchdog (`watchdog_s`): a thread that declares the engine wedged
+  when its loop makes no progress while it has work; requests then fail
+  with EngineWedgedError;
+* `precompile()` warms every prefill bucket, the chunked and the prefix
+  paths before real traffic (the kernels' build and load, cuBLAS and the
+  allocator).
+
+Not ported: the reference's cluster events and registry metrics, which
+need the port's event and metrics planes.
 """
 from __future__ import annotations
 
@@ -69,8 +94,10 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ...exceptions import DeadlineExceededError, EngineWedgedError
 from ...ops.attention import PagedKV
 from ...util.device import DeviceLike, resolve_device
+from ...util.knobs import engine_watchdog_s
 
 
 @dataclass
@@ -106,25 +133,24 @@ class LLMEngineConfig:
     # Pool budget in KV tokens (rounded up to whole pages);
     # 0 = max_slots * max_seq_len.
     kv_pool_tokens: int = 0
-    # Fields of the JAX engine that are not ported yet; any other value
-    # than the default raises NotImplementedError.
+    # Fetch each sampled token's log-probability under the raw model
+    # distribution (stream_detailed); one fp32 log_softmax over (S, V)
+    # a step, fetched with the tokens.
     logprobs: bool = False
+    # Warm every prefill bucket, the chunked and the prefix paths in
+    # __init__ (blocking), so no first request pays a first-use cost.
     precompile: bool = False
+    # n-gram (prompt-lookup) speculation: propose this many tokens a
+    # step from the request's own history, verify them in one forward.
+    # Greedy, unguided, unpenalised requests only; 0 disables.
     ngram_speculation: int = 0
     ngram_order: int = 2
+    # tokens of trailing history searched for a proposal
     ngram_lookback: int = 256
+    # No-forward-progress window of the watchdog while requests are
+    # admitted or waiting; None reads RAY_TPU_ENGINE_WATCHDOG_S
+    # (default 30); <= 0 disables.
     watchdog_s: Optional[float] = None
-
-    _NOT_PORTED = ("logprobs", "precompile", "ngram_speculation",
-                   "ngram_order", "ngram_lookback", "watchdog_s")
-
-    def __post_init__(self):
-        for name in self._NOT_PORTED:
-            default = self.__dataclass_fields__[name].default
-            if getattr(self, name) != default:
-                raise NotImplementedError(
-                    f"LLMEngineConfig.{name}={getattr(self, name)!r}: not "
-                    f"ported yet (only the default {default!r} is served)")
 
 
 @dataclass
@@ -146,6 +172,21 @@ class _Request:
     admit_ts: Optional[float] = None       # slot assigned
     prefill_dispatch_ms: float = 0.0       # host time issuing the prefill
     first_token_ts: Optional[float] = None
+    # guided decoding: host-side token FSM and its state (advanced at
+    # emit)
+    fsm: Optional[object] = None
+    fsm_state: int = 0
+    # n-gram speculation: prompt + generated tokens (the proposal
+    # source); None when the request is not eligible
+    hist: Optional[list] = None
+    # OpenAI penalties on generated tokens, and a static
+    # {token_id: bias}
+    presence_penalty: float = 0.0
+    frequency_penalty: float = 0.0
+    logit_bias: Optional[dict] = None
+    # absolute deadline (epoch seconds); a request still queued past it
+    # is shed at admission
+    deadline_ts: Optional[float] = None
 
 
 _END = ("__end__", None)
@@ -178,24 +219,40 @@ def _next_pow2(n: int) -> int:
 
 
 class _Fetch:
-    """A device tensor on its way to the host: a non-blocking copy into
-    pinned memory, recorded with a CUDA event. On the CPU the values are
-    copied at once (later in-place writes must not reach them)."""
+    """Device tensors on their way to the host in one copy: int32 parts
+    and fp32 parts (viewed as int32) are flattened into one tensor, and
+    on CUDA copied without blocking into pinned memory, recorded with a
+    CUDA event. On the CPU the values are copied at once (later in-place
+    writes must not reach them). `result()` gives the parts back as
+    numpy arrays."""
 
-    def __init__(self, t: torch.Tensor):
-        if t.is_cuda:
-            self.host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-            self.host.copy_(t, non_blocking=True)
+    def __init__(self, *parts: torch.Tensor):
+        self._meta = [(tuple(p.shape), p.dtype) for p in parts]
+        flat = [(p.view(torch.int32) if p.dtype == torch.float32
+                 else p).reshape(-1) for p in parts]
+        flat = flat[0] if len(flat) == 1 else torch.cat(flat)
+        if flat.is_cuda:
+            self.host = torch.empty(flat.shape, dtype=flat.dtype,
+                                    pin_memory=True)
+            self.host.copy_(flat, non_blocking=True)
             self.event = torch.cuda.Event()
             self.event.record()
         else:
-            self.host = t.clone()
+            self.host = flat.clone()
             self.event = None
 
-    def result(self) -> np.ndarray:
+    def result(self) -> List[np.ndarray]:
         if self.event is not None:
             self.event.synchronize()
-        return self.host.numpy()
+        host = self.host.numpy()
+        out, off = [], 0
+        for shape, dtype in self._meta:
+            n = int(np.prod(shape, dtype=np.int64))
+            part = host[off:off + n].reshape(shape)
+            out.append(part.view(np.float32) if dtype == torch.float32
+                       else part)
+            off += n
+        return out
 
 
 class LLMEngine:
@@ -272,8 +329,10 @@ class LLMEngine:
         self._prefix_counter = itertools.count()
         self._prefix_cache = None
         if cfg.max_prefixes > 0 and not self._paged:
-            self._prefix_cache = [(zeros(cfg.max_prefixes, L, *kv),
-                                   zeros(cfg.max_prefixes, L, *kv))
+            # + 1 row: precompile's scratch prefix (pid max_prefixes,
+            # never handed out)
+            self._prefix_cache = [(zeros(cfg.max_prefixes + 1, L, *kv),
+                                   zeros(cfg.max_prefixes + 1, L, *kv))
                                   for _ in range(mcfg.n_layers)]
 
         self._free_slots = list(range(S))
@@ -288,15 +347,52 @@ class LLMEngine:
         self._gen = torch.Generator(device=dev).manual_seed(seed)
         self._mask_state = None
         self._mask_dirty = True
+        # guided decoding: the (slots, V) host mask kept across steps,
+        # and each slot's (request_id, fsm_state) it was built for
+        self._guided_allow_buf: Optional[np.ndarray] = None
+        self._guided_prev: Optional[Dict[int, tuple]] = None
+        # n-gram speculation backoff (steps without a proposal; re-probe
+        # counter)
+        self._spec_idle = 0
+        self._spec_retry = 0
+        # penalties: per-slot token counts (S, V) int32 and static bias
+        # (S, V) fp32 on the device, made on first use; a slot's rows are
+        # seeded once per request (slot -> request_id)
+        self._pen_counts: Optional[torch.Tensor] = None
+        self._pen_static: Optional[torch.Tensor] = None
+        self._pen_seeded: Dict[int, str] = {}
+        self._pen_coef = None
+        self._pen_coef_dirty = True
         self._shutdown = threading.Event()
         self.stats = {"prefills": 0, "decode_steps": 0,
-                      "tokens_generated": 0, "prefix_tokens_saved": 0}
+                      "tokens_generated": 0, "prefix_tokens_saved": 0,
+                      "spec_steps": 0, "spec_accepted": 0}
         self._ttft_samples: collections.deque = collections.deque(maxlen=512)
         self._tpot_samples: collections.deque = collections.deque(maxlen=512)
         self._prefill_first_ms: Dict[int, float] = {}  # bucket -> ms
+        # watchdog: _progress_ts advances on every admission, chunk and
+        # emitted token; a thread of its own reads it, since the loop
+        # thread may be the one that is stuck
+        self._watchdog_s = (float(cfg.watchdog_s) if cfg.watchdog_s
+                            is not None else engine_watchdog_s())
+        self._progress_ts = time.time()
+        self._wedged_since: Optional[float] = None
+        # True while the loop thread admits, dispatches, drains or runs a
+        # command: a stall there may be a first use (the kernels' nvcc
+        # build, CUDA's lazy init), so it gets _DISPATCH_GRACE x the
+        # window
+        self._in_dispatch = False
         self._loop_thread = threading.Thread(
             target=self._engine_loop, daemon=True, name="llm-engine")
         self._loop_thread.start()
+        self._watchdog_thread = None
+        if self._watchdog_s > 0:
+            self._watchdog_thread = threading.Thread(
+                target=self._watchdog_loop, daemon=True,
+                name="llm-engine-watchdog")
+            self._watchdog_thread.start()
+        if cfg.precompile:
+            self.precompile()
 
     # ---- device work --------------------------------------------------
     def _to_dev(self, a: np.ndarray) -> torch.Tensor:
@@ -306,12 +402,19 @@ class LLMEngine:
         return t.clone()
 
     def _sample_tokens(self, logits, temps, top_ps, any_temp: bool,
-                       any_top_p: bool):
+                       any_top_p: bool, allow=None, bias=None):
         """Sample per row of logits (N, V): greedy where temp == 0, else
         temperature + optional global top-k + per-row nucleus top-p.
         `any_temp` / `any_top_p` are the host's knowledge of whether any
         row samples / asks for top_p < 1; without them the draw (and the
-        full-vocab sort) is skipped. Returns (N,) int32."""
+        full-vocab sort) is skipped. `bias` (N, V) is added to the logits
+        (logit_bias and penalties), then tokens outside `allow` (N, V)
+        bool (guided decoding) are made impossible, in the reference's
+        order. Returns (N,) int32."""
+        if bias is not None:
+            logits = logits + bias.to(logits.dtype)
+        if allow is not None:
+            logits = logits.masked_fill(~allow, float("-inf"))
         if self.cfg.top_k and self.cfg.top_k > 0:
             kth = torch.topk(logits, self.cfg.top_k, dim=-1).values[:, -1:]
             logits = torch.where(logits < kth,
@@ -340,6 +443,36 @@ class LLMEngine:
         sampled = torch.argmax(probs / noise, dim=-1)
         return torch.where(temps > 0, sampled, greedy).to(torch.int32)
 
+    def _sample(self, logits, temps, top_ps, any_temp: bool,
+                any_top_p: bool, allow=None, bias=None):
+        """`_sample_tokens` and, with cfg.logprobs, each token's
+        log-probability under the raw model distribution (before the
+        bias and the mask): (tokens (N,) int32, logprobs (N,) fp32 or
+        None)."""
+        toks = self._sample_tokens(logits, temps, top_ps, any_temp,
+                                   any_top_p, allow=allow, bias=bias)
+        if not self.cfg.logprobs:
+            return toks, None
+        raw_logp = torch.log_softmax(logits.float(), dim=-1)
+        return toks, raw_logp.gather(1, toks.long()[:, None])[:, 0]
+
+    @staticmethod
+    def _pen_bias(pen, last_tokens, active_mask):
+        """Penalty bias of one decode step. pen = (counts (S, V) int32,
+        static_bias (S, V) fp32, presence (S,), frequency (S,)), all on
+        the device. The token fed to this step (the previous emission,
+        the prefill's first token included) is counted first, in place,
+        so each generated token penalises from the next step on without
+        a trip to the host. Returns bias (S, V) fp32, or None."""
+        if pen is None:
+            return None
+        counts, static_bias, presence, freq = pen
+        rows = torch.arange(counts.shape[0], device=counts.device)
+        counts.index_put_((rows, last_tokens.long()),
+                          active_mask.to(counts.dtype), accumulate=True)
+        return (static_bias - presence[:, None] * (counts > 0)
+                - freq[:, None] * counts)
+
     def _small_cache(self, g: int, width: int):
         """A fresh per-layer (g, width) contiguous cache at length 0."""
         mcfg = self.model.cfg
@@ -351,10 +484,11 @@ class LLMEngine:
 
     def _prefill(self, tokens, slots, true_lens, temps, top_ps,
                  pad_len: int, any_temp: bool, any_top_p: bool,
-                 single_slot: Optional[int] = None):
+                 single_slot: Optional[int] = None, allow=None, bias=None):
         """Prefill G prompts: tokens (G, pad_len); slots / true_lens /
         temps / top_ps (G,). Padding rows target the scratch slot.
-        Returns the sampled first tokens (G,) int32.
+        Returns the sampled first tokens (G,) int32 and their logprobs
+        (or None); `allow` / `bias` (G, V) constrain that sample.
 
         Paged: KV streams straight into each slot's pages (K1 for the
         attention); the scratch slot's page row is all trash. Contiguous
@@ -390,17 +524,19 @@ class LLMEngine:
         self._lengths[idx] = true_lens
         last = logits[torch.arange(g, device=self.device),
                       true_lens.long() - 1]
-        return self._sample_tokens(last, temps, top_ps, any_temp, any_top_p)
+        return self._sample(last, temps, top_ps, any_temp, any_top_p,
+                            allow=allow, bias=bias)
 
     def _prefill_chunk(self, tokens, slot: int, start: int, temp: float,
-                       top_p: float, sample: bool):
+                       top_p: float, sample: bool, allow=None, bias=None):
         """One chunk of a long prompt through the cached path: tokens
         (1, n) written at positions [start, start + n); the slot's length
         becomes start + n. The slot's current length IS `start`: a reused
         slot's stored length would be stale from the previous occupant
         (`_prefill_chunk_impl`). The paged cache gathers the slot's page
         row (`_chunk_paged_impl`). sample=True (the final chunk) samples
-        the first token, (1,) int32; else returns None."""
+        the first token under `allow` / `bias` (1, V) and returns it
+        (1,) int32 with its logprob (or None); else returns None."""
         n = tokens.shape[1]
         l1 = torch.full((1,), start, dtype=torch.int32, device=self.device)
         if self._paged:
@@ -415,37 +551,96 @@ class LLMEngine:
         self._lengths[slot] = start + n
         if not sample:
             return None
-        return self._sample_tokens(
+        return self._sample(
             logits[0, -1:], self._to_dev(np.array([temp], np.float32)),
             self._to_dev(np.array([top_p], np.float32)), temp > 0,
-            top_p < 1.0)
+            top_p < 1.0, allow=allow, bias=bias)
+
+    def _cache_entries(self, window_pages: int):
+        """Per-layer cache entries of a decode or verify step over every
+        slot. window_pages > 0 narrows the page table to its first
+        columns (a power-of-2 bucket covering the longest slot)."""
+        if not self._paged:
+            return [(ck, cv, self._lengths) for (ck, cv) in self._cache]
+        pt = self._page_table
+        if window_pages and window_pages < pt.shape[1]:
+            pt = pt[:, :window_pages].contiguous()
+        return [PagedKV(k, v, pt, self._lengths, self.cfg.kv_page_size)
+                for (k, v) in self._pools]
 
     def _decode(self, mask, temps, top_ps, window_pages: int,
-                any_temp: bool, any_top_p: bool):
+                any_temp: bool, any_top_p: bool, allow=None, pen=None):
         """One decode step for every slot. Inactive slots keep their
         lengths; released paged slots' rows point at the trash page, so
-        their writes are inert. window_pages > 0 narrows the page table
-        to its first columns (a power-of-2 bucket covering the longest
-        slot). Returns (next tokens, new lengths)."""
+        their writes are inert. `allow` (S, V) is the guided mask and
+        `pen` the penalty state (`_pen_args`). Returns (next tokens,
+        logprobs or None, new lengths)."""
         # a lagged step of a request that filled max_seq_len writes at
         # the last position instead of past it; its token is discarded
         positions = self._lengths.clamp(max=self.cfg.max_seq_len - 1)[:, None]
-        if self._paged:
-            pt = self._page_table
-            if window_pages and window_pages < pt.shape[1]:
-                pt = pt[:, :window_pages].contiguous()
-            entries = [PagedKV(k, v, pt, self._lengths, self.cfg.kv_page_size)
-                       for (k, v) in self._pools]
-        else:
-            entries = [(ck, cv, self._lengths) for (ck, cv) in self._cache]
         logits, new_entries = self.model(self._last_tokens[:, None],
-                                         cache=entries, positions=positions)
+                                         cache=self._cache_entries(
+                                             window_pages),
+                                         positions=positions)
         new = new_entries[0]
         new_len = new.lengths if self._paged else new[2]
         new_lengths = torch.where(mask, new_len, self._lengths)
-        nxt = self._sample_tokens(logits[:, 0], temps, top_ps, any_temp,
-                                  any_top_p)
-        return torch.where(mask, nxt, self._last_tokens), new_lengths
+        bias = self._pen_bias(pen, self._last_tokens, mask)
+        nxt, logps = self._sample(logits[:, 0], temps, top_ps, any_temp,
+                                  any_top_p, allow=allow, bias=bias)
+        return torch.where(mask, nxt, self._last_tokens), logps, new_lengths
+
+    def _verify(self, proposals, mask, temps, top_ps, window_pages: int,
+                any_temp: bool, any_top_p: bool):
+        """n-gram speculation verify (`_verify_impl` /
+        `_verify_paged_impl`): one forward of [last, p1..pK] for every
+        slot, then greedy prefix acceptance. proposals (S, K) int32, -1 =
+        no proposal at that offset. Rejected positions' KV stays past
+        the new length, masked, and is overwritten by later writes.
+        Positions clamp to max_seq_len - 1 for slots that are not active
+        (`_spec_plan` vetoes a step that would take an active slot past
+        it). Returns (out (S, K+1), n_emit (S,), logprobs (S, K+1) or
+        None); emit out[s, :n_emit[s]]."""
+        k = proposals.shape[1]
+        toks_in = torch.cat([self._last_tokens[:, None],
+                             proposals.clamp(min=0)], dim=1)
+        positions = (self._lengths[:, None]
+                     + torch.arange(k + 1, device=self.device)[None, :]
+                     ).clamp(max=self.cfg.max_seq_len - 1)
+        logits, _ = self.model(toks_in,
+                               cache=self._cache_entries(window_pages),
+                               positions=positions)       # (S, K+1, V)
+        out, n_emit, logps, last = self._verify_accept(
+            logits, proposals, mask, temps, top_ps, any_temp, any_top_p)
+        self._lengths = self._lengths + n_emit
+        self._last_tokens = last
+        return out, n_emit, logps
+
+    def _verify_accept(self, logits, proposals, mask, temps, top_ps,
+                       any_temp: bool, any_top_p: bool):
+        """Acceptance of a verify step: a greedy chain for speculating
+        rows (the proposals that equal the argmax in order, and the
+        argmax after them); a sampled row takes position 0 only, sampled
+        as in a decode step."""
+        k = proposals.shape[1]
+        s = logits.shape[0]
+        greedy = torch.argmax(logits, dim=-1).to(torch.int32)   # (S, K+1)
+        match = (proposals == greedy[:, :k]) & (proposals >= 0)
+        m = torch.cumprod(match.to(torch.int32), dim=1).sum(dim=1)
+        out0, lp0 = self._sample(logits[:, 0], temps, top_ps, any_temp,
+                                 any_top_p)
+        out = torch.cat([out0[:, None], greedy[:, 1:]], dim=1)
+        logps = None
+        if self.cfg.logprobs:
+            lsm = torch.log_softmax(logits.float(), dim=-1)
+            logps = lsm.gather(2, out.long()[..., None])[..., 0]
+            logps[:, 0] = lp0
+        n_emit = torch.where(temps > 0, 1, m + 1)
+        n_emit = torch.where(mask, n_emit, 0).to(torch.int32)
+        rows = torch.arange(s, device=self.device)
+        last = out[rows, (n_emit - 1).clamp(min=0).long()]
+        last = torch.where(mask, last, self._last_tokens)
+        return out, n_emit, logps, last
 
     # ---- public API -----------------------------------------------------
     def register_prefix(self, prefix_ids) -> int:
@@ -541,15 +736,54 @@ class LLMEngine:
 
     def submit(self, prompt_ids, max_new_tokens: Optional[int] = None,
                temperature: float = 0.0, top_p: float = 1.0,
-               stop_token_ids=None, prefix_id: Optional[int] = None) -> str:
-        """prefix_id: a registered prefix; `prompt_ids` is then the
+               stop_token_ids=None, prefix_id: Optional[int] = None,
+               guided_fsm=None, presence_penalty: float = 0.0,
+               frequency_penalty: float = 0.0,
+               logit_bias: Optional[dict] = None,
+               deadline_ts: Optional[float] = None) -> str:
+        """Queue one request; returns its id for stream().
+
+        prefix_id: a registered prefix; `prompt_ids` is then the
         suffix. The engine re-attaches the prefix's tokens but adopts its
-        KV instead of prefilling it."""
+        KV instead of prefilling it.
+        guided_fsm: a serve.llm.guided.TokenFSM constraining the output
+        (per-step vocab masks; EOS only at accepting states). Guided
+        traffic steps synchronously.
+        presence_penalty / frequency_penalty (in [-2, 2]) and logit_bias
+        ({token_id: bias}): OpenAI semantics over the generated tokens.
+        deadline_ts: absolute deadline (epoch seconds). One already past
+        is refused here, one that passes while the request is queued
+        sheds it at admission, both with DeadlineExceededError."""
+        if self.wedged:
+            raise EngineWedgedError(
+                "engine is wedged; replica awaiting replacement")
+        if deadline_ts is not None and time.time() >= deadline_ts:
+            raise DeadlineExceededError(
+                "deadline already expired at submit; request rejected "
+                "at admission")
         prompt = np.asarray(prompt_ids, dtype=np.int32).reshape(-1)
         if prompt.size == 0:
             raise ValueError("empty prompt")
         if not 0.0 < top_p <= 1.0:
             raise ValueError(f"top_p must be in (0, 1], got {top_p}")
+        if not -2.0 <= presence_penalty <= 2.0 \
+                or not -2.0 <= frequency_penalty <= 2.0:
+            raise ValueError("presence/frequency penalties must be in "
+                             "[-2, 2] (OpenAI semantics)")
+        if guided_fsm is not None:
+            vs = self.model.cfg.vocab_size
+            if guided_fsm.vocab_size != vs:
+                raise ValueError(
+                    f"guided_fsm.vocab_size {guided_fsm.vocab_size} != "
+                    f"model vocab_size {vs}")
+            if (self.cfg.eos_token_id is not None
+                    and guided_fsm.eos_id != self.cfg.eos_token_id):
+                raise ValueError(
+                    f"guided_fsm.eos_id {guided_fsm.eos_id} != engine "
+                    f"eos_token_id {self.cfg.eos_token_id}")
+            if not guided_fsm.allowed(guided_fsm.start).any():
+                raise ValueError("guided_fsm allows no token at its "
+                                 "start state (empty language)")
         if prefix_id is not None:
             prefix = self._prefixes.get(prefix_id)
             if prefix is None:
@@ -571,11 +805,23 @@ class LLMEngine:
                 raise ValueError(
                     f"request needs {need} KV pages; pool has "
                     f"{self._n_pages} total — it could never be admitted")
+        speculates = (self.cfg.ngram_speculation > 0 and temperature == 0.0
+                      and guided_fsm is None
+                      and not (presence_penalty or frequency_penalty
+                               or logit_bias))
         req = _Request(request_id=f"req-{next(self._req_counter)}",
                        prompt=prompt, max_new_tokens=budget,
                        temperature=float(temperature), top_p=float(top_p),
                        stop_ids=frozenset(stop_token_ids or ()),
-                       prefix_id=-1 if prefix_id is None else prefix_id)
+                       prefix_id=-1 if prefix_id is None else prefix_id,
+                       fsm=guided_fsm,
+                       fsm_state=(guided_fsm.start
+                                  if guided_fsm is not None else 0),
+                       hist=list(map(int, prompt)) if speculates else None,
+                       presence_penalty=float(presence_penalty),
+                       frequency_penalty=float(frequency_penalty),
+                       logit_bias=dict(logit_bias) if logit_bias else None,
+                       deadline_ts=deadline_ts)
         with self._lock:
             self._requests[req.request_id] = req
         self._waiting.put(req)
@@ -587,21 +833,25 @@ class LLMEngine:
             yield tok
 
     def stream_detailed(self, request_id: str):
-        """Like stream() but yields (token_id, logprob); logprob is
-        always None (logprobs are not ported yet)."""
+        """Like stream() but yields (token_id, logprob); logprob is None
+        unless the engine was built with logprobs=True. Raises the
+        request's error (DeadlineExceededError when it was shed,
+        EngineWedgedError when the watchdog aborted it)."""
         req = self._requests.get(request_id)
         if req is None:
             raise KeyError(request_id)
-        while True:
-            kind, payload = req.out_queue.get()
-            if kind == "token":
-                yield payload, None
-            elif kind == "error":
-                raise payload
-            else:  # end
-                break
-        with self._lock:
-            self._requests.pop(request_id, None)
+        try:
+            while True:
+                kind, payload = req.out_queue.get()
+                if kind == "token":
+                    yield payload
+                elif kind == "error":
+                    raise payload
+                else:  # end
+                    break
+        finally:
+            with self._lock:
+                self._requests.pop(request_id, None)
 
     def abort(self, request_id: str) -> None:
         """Best-effort early termination. A decoding request's budget
@@ -618,13 +868,76 @@ class LLMEngine:
         elif req.generated > 0:
             req.max_new_tokens = min(req.max_new_tokens, req.generated)
 
+    def precompile(self) -> None:
+        """Warm every path before real traffic: one request of 2 tokens
+        per prefill bucket (a prompt that takes the bucket's unchunked
+        path), one chunked prompt when chunking is on, and with
+        prefixes, the fill, adopt and chunk paths through a scratch
+        prefix (pid max_prefixes, never handed out), one suffix length
+        per reachable chunk width. On the GPU the first use of a path
+        builds and loads the kernels and warms cuBLAS and the allocator.
+        Blocks until the requests finish; every slot is free afterwards
+        and prefix_tokens_saved is reset (the other stats count the
+        warm-up)."""
+        cfg = self.cfg
+        rids = []
+        prev = 0
+        for b in sorted(cfg.prefill_buckets):
+            if b > cfg.max_seq_len:
+                continue
+            n = min(b, cfg.max_seq_len - 2)
+            if cfg.prefill_chunk > 0:
+                n = min(n, cfg.prefill_chunk)
+            n = max(1, n)
+            if n <= prev:
+                prev = b
+                continue  # no unchunked prompt can reach this bucket
+            rids.append(self.submit(np.ones((n,), np.int32),
+                                    max_new_tokens=2))
+            prev = b
+        if cfg.prefill_chunk > 0:
+            n = max(1, min(cfg.prefill_chunk + 1, cfg.max_seq_len - 2))
+            rids.append(self.submit(np.ones((n,), np.int32),
+                                    max_new_tokens=2))
+        for rid in rids:
+            for _ in self.stream(rid):
+                pass
+        if cfg.max_prefixes <= 0:
+            return
+        scratch = cfg.max_prefixes
+        fill = (self._register_prefix_paged if self._paged
+                else self._fill_prefix_row)
+        self._run_on_loop(lambda: fill(scratch, np.ones((2,), np.int32)))
+        widths = ({cfg.prefill_chunk} if cfg.prefill_chunk > 0 else
+                  {b for b in cfg.prefill_buckets if b <= cfg.max_seq_len})
+        lens = {max(1, min(w, cfg.max_seq_len - 4)) for w in widths}
+        if cfg.prefill_chunk <= 0 and widths:
+            # a suffix longer than the largest bucket takes several
+            # chunks, the first not sampling
+            lens.add(max(1, min(max(widths) + 1, cfg.max_seq_len - 4)))
+        warm = [self.submit(np.ones((n,), np.int32), max_new_tokens=2,
+                            prefix_id=scratch) for n in sorted(lens)]
+        for rid in warm:
+            for _ in self.stream(rid):
+                pass
+        if self._paged:
+            self._run_on_loop(lambda: self._unregister_prefix_paged(scratch))
+        else:
+            self._prefixes.pop(scratch, None)
+        self.stats["prefix_tokens_saved"] = 0   # the warm-up's adoptions
+
     def generate_sync(self, prompt_ids, max_new_tokens=None,
                       temperature: float = 0.0, top_p: float = 1.0,
-                      stop_token_ids=None,
-                      prefix_id: Optional[int] = None) -> List[int]:
+                      stop_token_ids=None, prefix_id: Optional[int] = None,
+                      guided_fsm=None, presence_penalty: float = 0.0,
+                      frequency_penalty: float = 0.0,
+                      logit_bias: Optional[dict] = None) -> List[int]:
         rid = self.submit(prompt_ids, max_new_tokens, temperature,
                           top_p=top_p, stop_token_ids=stop_token_ids,
-                          prefix_id=prefix_id)
+                          prefix_id=prefix_id, guided_fsm=guided_fsm,
+                          presence_penalty=presence_penalty,
+                          frequency_penalty=frequency_penalty,
+                          logit_bias=logit_bias)
         return list(self.stream(rid))
 
     def get_stats(self) -> Dict[str, Any]:
@@ -657,10 +970,67 @@ class LLMEngine:
         return out
 
     def shutdown(self, timeout: float = 30.0) -> None:
-        """Stop the engine loop and wait for its thread."""
+        """Stop the engine loop and the watchdog and wait for their
+        threads."""
         self._shutdown.set()
-        if threading.current_thread() is not self._loop_thread:
-            self._loop_thread.join(timeout)
+        for t in (self._loop_thread, self._watchdog_thread):
+            if t is not None and t is not threading.current_thread():
+                t.join(timeout)
+
+    # ---- watchdog ---------------------------------------------------------
+    @property
+    def wedged(self) -> bool:
+        """True once the watchdog declared the engine wedged (sticky: the
+        replica is to be replaced)."""
+        return self._wedged_since is not None
+
+    def _note_progress(self) -> None:
+        self._progress_ts = time.time()
+
+    def _has_work(self) -> bool:
+        return bool(self._active or self._prefilling
+                    or not self._waiting.empty())
+
+    # A stall inside a dispatch may be a first use (the kernels' build,
+    # CUDA's lazy init): it gets this many times the window.
+    _DISPATCH_GRACE = 10.0
+
+    def _watchdog_loop(self) -> None:
+        period = max(0.05, min(1.0, self._watchdog_s / 4.0))
+        while not self._shutdown.is_set():
+            self._shutdown.wait(period)
+            if self._wedged_since is not None:
+                continue
+            if not self._has_work():
+                # idle is not wedged; keep the clock fresh so the first
+                # request after a quiet spell is not blamed at once
+                self._note_progress()
+                continue
+            budget = self._watchdog_s * (
+                self._DISPATCH_GRACE if self._in_dispatch else 1.0)
+            stall = time.time() - self._progress_ts
+            if stall > budget:
+                self._declare_wedged(stall)
+
+    def _declare_wedged(self, stall_s: float) -> None:
+        self._wedged_since = time.time()
+        err = EngineWedgedError(
+            f"engine wedged: no forward progress for {stall_s:.1f}s "
+            f"(> RAY_TPU_ENGINE_WATCHDOG_S={self._watchdog_s}); "
+            "request aborted for failover")
+        # lock-free: the loop may have wedged while holding the lock; a
+        # snapshot of the dict's values is safe to iterate
+        for req in list(self._requests.values()):
+            req.aborted = True
+            # an error, not _END, so consumers raise; a full queue must
+            # not swallow it
+            _put_dropping_one(req.out_queue, ("error", err))
+
+    def _chaos_stall(self, seconds: float) -> None:
+        """Park the engine loop thread for `seconds` through the control
+        queue (fault injection for tests): the watchdog then sees the
+        stall as it would a hung device call. Returns at once."""
+        self._control_q.put((lambda: time.sleep(seconds), Future()))
 
     # ---- engine loop ----------------------------------------------------
     def _bucket(self, n: int) -> int:
@@ -801,6 +1171,13 @@ class LLMEngine:
                 # the consumer
                 self._requests.pop(req.request_id, None)
                 continue
+            if (req.deadline_ts is not None
+                    and time.time() >= req.deadline_ts):
+                # expired while queued: shed instead of spending prefill
+                # and decode on an answer nobody waits for
+                self._shed_expired(req)
+                continue
+            self._note_progress()   # watchdog: admission
             if self._paged:
                 outcome = self._admit_paged(req)
                 if outcome == "nopages":
@@ -845,14 +1222,18 @@ class LLMEngine:
             temps[i] = req.temperature
             top_ps[i] = req.top_p
         single = (not self._paged and self.cfg.max_prefill_batch <= 1)
+        reqs = [r for r, _ in members]
         try:
-            toks = self._prefill(
+            toks, lps = self._prefill(
                 self._to_dev(tokens), self._to_dev(slots),
                 self._to_dev(lens), self._to_dev(temps),
                 self._to_dev(top_ps), pad_len,
                 any_temp=bool((temps > 0).any()),
                 any_top_p=bool((top_ps < 1.0).any()),
-                single_slot=int(slots[0]) if single else None)[:g_real]
+                single_slot=int(slots[0]) if single else None,
+                allow=self._guided_prefill_allow(reqs, g),
+                bias=self._pen_prefill_bias(reqs, g))
+            toks = toks[:g_real]
             real_slots = self._to_dev(slots[:g_real]).long()
             self._last_tokens[real_slots] = toks
         except Exception as e:  # noqa: BLE001  per-request containment
@@ -871,8 +1252,9 @@ class LLMEngine:
             self._disp_len[slot] = req.prompt.size
             self._active[slot] = req
         self._mask_dirty = True
-        inflight.append(("prefill_batch", [r for r, _ in members],
-                         _Fetch(toks)))
+        self._pen_coef_dirty = True
+        inflight.append(("prefill_batch", reqs, _Fetch(
+            toks, *(() if lps is None else (lps[:g_real],)))))
 
     def _dispatch_chunk(self, inflight) -> None:
         """Advance the oldest chunk-prefilling request by one chunk. The
@@ -890,9 +1272,14 @@ class LLMEngine:
         is_last = start + n >= req.prompt.size
         t_dispatch = time.time()
         try:
-            tok = self._prefill_chunk(
+            kw = {}
+            if is_last and req.fsm is not None:
+                kw["allow"] = self._guided_prefill_allow([req], 1)
+            if is_last and req.logit_bias:
+                kw["bias"] = self._pen_prefill_bias([req], 1)
+            sampled = self._prefill_chunk(
                 self._to_dev(req.prompt[None, start:start + n]), req.slot,
-                start, req.temperature, req.top_p, sample=is_last)
+                start, req.temperature, req.top_p, sample=is_last, **kw)
         except Exception as e:  # noqa: BLE001  per-request containment
             self._prefilling.popleft()
             self._free_slot_pages(req.slot)
@@ -904,17 +1291,23 @@ class LLMEngine:
         req.prefill_pos = start + n
         self._disp_len[req.slot] = req.prefill_pos
         req.prefill_dispatch_ms += (time.time() - t_dispatch) * 1000
+        self._note_progress()   # watchdog: a chunk advanced
         if is_last:
+            tok, lp = sampled
             self._prefilling.popleft()
             self.stats["prefills"] += 1
             self._last_tokens[req.slot:req.slot + 1] = tok
             self._active[req.slot] = req
             self._mask_dirty = True
-            inflight.append(("prefill_batch", [req], _Fetch(tok)))
+            self._pen_coef_dirty = True
+            inflight.append(("prefill_batch", [req], _Fetch(
+                tok, *(() if lp is None else (lp,)))))
 
-    def _emit(self, req: _Request, tok: int) -> None:
+    def _emit(self, req: _Request, tok: int,
+              logp: Optional[float] = None) -> None:
         req.generated += 1
         self.stats["tokens_generated"] += 1
+        self._note_progress()   # watchdog: forward progress
         if req.first_token_ts is None:
             now = time.time()
             req.first_token_ts = now
@@ -925,13 +1318,17 @@ class LLMEngine:
                 "emit_ms": max(0.0, (now - admit) * 1000
                                - req.prefill_dispatch_ms),
                 "total_ms": (now - req.submit_ts) * 1000})
+        if req.hist is not None:
+            req.hist.append(tok)
         # Bounded-wait put: a full out_queue means the consumer is slow
-        # or gone; one silent past _CONSUMER_STALL_TTL_S gets its request
-        # aborted so a dead reader cannot stall the shared loop forever.
+        # or gone, not that the engine is wedged, so the watchdog clock
+        # is refreshed while parked; one silent past
+        # _CONSUMER_STALL_TTL_S gets its request aborted so a dead reader
+        # cannot stall the shared loop forever.
         parked_since = None
         while True:
             try:
-                req.out_queue.put(("token", tok), timeout=1.0)
+                req.out_queue.put(("token", (tok, logp)), timeout=1.0)
                 break
             except queue_mod.Full:
                 if req.aborted:
@@ -944,9 +1341,16 @@ class LLMEngine:
                     req.max_new_tokens = min(req.max_new_tokens,
                                              req.generated)
                     break
+                self._note_progress()
         if ((self.cfg.eos_token_id is not None
              and tok == self.cfg.eos_token_id) or tok in req.stop_ids):
             req.max_new_tokens = req.generated  # finish after EOS/stop
+        if req.fsm is not None:
+            # guided: advance the automaton; a dead state (impossible
+            # under the mask) or a completed match ends the request
+            req.fsm_state = req.fsm.advance(req.fsm_state, tok)
+            if req.fsm_state < 0 or req.fsm.is_complete(req.fsm_state):
+                req.max_new_tokens = min(req.max_new_tokens, req.generated)
 
     _CONSUMER_STALL_TTL_S = 60.0
 
@@ -996,6 +1400,7 @@ class LLMEngine:
                 self._free_slots.append(req.slot)
                 self._active.pop(req.slot, None)
                 self._mask_dirty = True
+                self._pen_coef_dirty = True
                 req.slot = -1
             if req.first_token_ts is not None and req.generated > 1:
                 self._tpot_samples.append(
@@ -1004,17 +1409,188 @@ class LLMEngine:
         finally:
             _put_dropping_one(req.out_queue, _END)
 
-    def _decode_window_pages(self) -> int:
+    def _shed_expired(self, req: _Request) -> None:
+        """A queued request whose deadline passed: error its stream
+        without taking a slot (load shedding)."""
+        req.out_queue.put(("error", DeadlineExceededError(
+            f"deadline expired {time.time() - req.deadline_ts:.3f}s "
+            f"before engine admission of {req.request_id}")))
+
+    def _decode_window_pages(self, new_tokens: int) -> int:
         """Power-of-2 page window covering every slot that holds KV
         (decoding and chunk-prefilling: a narrower window would let the
-        clamped write index of `PagedKV.flat_rows` reach a prefilling
-        slot's pages) plus this dispatch's new tokens; 0 = the full
-        table."""
+        clamped write index of `PagedKV.flat_rows` land a write on a
+        live page of the slot instead of the trash page) plus the
+        `new_tokens` this dispatch writes (decode_block, or 1 + K for a
+        verify step); 0 = the full table."""
         ps = self.cfg.kv_page_size
-        need = (max(self._disp_len.values(), default=0)
-                + max(1, self.cfg.decode_block))
+        need = max(self._disp_len.values(), default=0) + new_tokens
         w = _next_pow2(-(-need // ps))
         return 0 if w >= self._pages_per_slot else w
+
+    # ---- n-gram speculation (host side) -----------------------------------
+    def _propose_ngram(self, req: _Request) -> Optional[List[int]]:
+        """Prompt lookup: the K tokens that followed the latest earlier
+        occurrence of the trailing `ngram_order`-gram in the request's
+        own history. None = no match (plain decode)."""
+        k = self.cfg.ngram_speculation
+        g = max(1, self.cfg.ngram_order)
+        h = req.hist
+        if h is None or len(h) < g + 1:
+            return None
+        key = h[-g:]
+        lo = max(0, len(h) - g - 1 - max(g + 1, self.cfg.ngram_lookback))
+        for i in range(len(h) - g - 1, lo - 1, -1):
+            if h[i:i + g] == key:
+                return h[i + g:i + g + k] or None
+        return None
+
+    def _spec_plan(self) -> Optional[torch.Tensor]:
+        """Proposals (S, K) int32 on the device for one verify step, or
+        None when no active slot proposes anything or any active slot is
+        within K + 1 of max_seq_len (the verify step writes K + 1
+        positions)."""
+        k = self.cfg.ngram_speculation
+        if not k:
+            return None
+        eligible = [(slot, r) for slot, r in self._active.items()
+                    if r.hist is not None]
+        if not eligible:
+            return None
+        for r in self._active.values():
+            if r.prompt.size + r.generated + k + 1 > self.cfg.max_seq_len:
+                return None  # one slot near the end vetoes the step
+        props = np.full((self._n_slots, k), -1, np.int32)
+        any_prop = False
+        for slot, r in eligible:
+            p = self._propose_ngram(r)
+            if p:
+                props[slot, :len(p)] = p
+                any_prop = True
+        if not any_prop:
+            self._spec_idle += 1
+            return None
+        self._spec_idle = 0
+        return self._to_dev(props)
+
+    def _spec_sync_active(self) -> bool:
+        """True when speculation wants synchronous stepping (an eligible
+        request is active): proposals come from tokens the host has
+        seen. After 8 steps in a row without a proposal it backs off to
+        pipelined plain decode, and re-probes every 64 calls."""
+        if not self.cfg.ngram_speculation or not any(
+                r.hist is not None for r in self._active.values()):
+            return False
+        self._spec_retry = (self._spec_retry + 1) % 64
+        if self._spec_retry == 0:
+            self._spec_idle = 0
+        return self._spec_idle < 8
+
+    # ---- guided masks and penalties (host side) ---------------------------
+    def _guided_prefill_allow(self, reqs, g: int):
+        """(g, V) bool mask rows on the device for a prefill group
+        (padding rows all True); None when no member is guided."""
+        fsms = [r.fsm for r in reqs if r.fsm is not None]
+        if not fsms:
+            return None
+        allow = np.ones((g, fsms[0].vocab_size), dtype=bool)
+        for i, r in enumerate(reqs):
+            if r.fsm is not None:
+                allow[i] = r.fsm.allowed(r.fsm_state)
+        return self._to_dev(allow)
+
+    def _guided_decode_allow(self):
+        """(slots, V) bool mask on the device for one decode step; None
+        when no active request is guided. The host buffer is kept across
+        steps and a slot's row is rewritten only when its (request_id,
+        fsm_state) moved; `_to_dev` uploads it from a fresh pinned copy,
+        so the buffer may be rewritten while that copy is in flight."""
+        guided = {slot: r for slot, r in self._active.items()
+                  if r.fsm is not None}
+        if not guided:
+            self._guided_prev = None
+            return None
+        V = next(iter(guided.values())).fsm.vocab_size
+        buf = self._guided_allow_buf
+        prev = self._guided_prev
+        if buf is None or buf.shape != (self._n_slots, V) or prev is None:
+            buf = self._guided_allow_buf = np.ones((self._n_slots, V),
+                                                   dtype=bool)
+            prev = {}
+        for slot in [sl for sl in prev if sl not in guided]:
+            buf[slot] = True
+            del prev[slot]
+        for slot, r in guided.items():
+            # keyed on the request id: a freed request's id() can be
+            # reused by a new one, which would inherit a stale row
+            key = (r.request_id, r.fsm_state)
+            if prev.get(slot) != key:
+                buf[slot] = r.fsm.allowed(r.fsm_state)
+                prev[slot] = key
+        self._guided_prev = prev
+        return self._to_dev(buf)
+
+    @staticmethod
+    def _bias_row(r: _Request, V: int) -> np.ndarray:
+        row = np.zeros((V,), np.float32)
+        for tid, b in (r.logit_bias or {}).items():
+            tid = int(tid)
+            if 0 <= tid < V:
+                row[tid] = float(b)
+        return row
+
+    @staticmethod
+    def _req_has_pen(r: _Request) -> bool:
+        return bool(r.presence_penalty or r.frequency_penalty
+                    or r.logit_bias)
+
+    def _pen_active(self) -> bool:
+        return any(self._req_has_pen(r) for r in self._active.values())
+
+    def _pen_args(self):
+        """(counts, static_bias, presence, frequency) on the device for
+        one decode step, or None when no active request is penalised.
+        Seeds a slot's count and static rows once per request that owns
+        it, so nothing leaks across slot reuse; the coefficients are
+        uploaded again only when the active set changed."""
+        if not self._pen_active():
+            return None
+        V = int(self.model.cfg.vocab_size)
+        S = self._n_slots
+        if self._pen_counts is None:
+            self._pen_counts = torch.zeros((S, V), dtype=torch.int32,
+                                           device=self.device)
+            self._pen_static = torch.zeros((S, V), dtype=torch.float32,
+                                           device=self.device)
+        for slot, r in self._active.items():
+            if self._pen_seeded.get(slot) == r.request_id:
+                continue
+            self._pen_seeded[slot] = r.request_id
+            self._pen_counts[slot].zero_()
+            self._pen_static[slot] = self._to_dev(self._bias_row(r, V))
+        for slot in [sl for sl in self._pen_seeded if sl not in self._active]:
+            del self._pen_seeded[slot]
+        if self._pen_coef_dirty or self._pen_coef is None:
+            pres = np.zeros((S,), np.float32)
+            freq = np.zeros((S,), np.float32)
+            for slot, r in self._active.items():
+                pres[slot] = r.presence_penalty
+                freq[slot] = r.frequency_penalty
+            self._pen_coef = (self._to_dev(pres), self._to_dev(freq))
+            self._pen_coef_dirty = False
+        return (self._pen_counts, self._pen_static) + self._pen_coef
+
+    def _pen_prefill_bias(self, reqs, g: int):
+        """(g, V) static logit_bias rows on the device for a prefill
+        group's first tokens (presence and frequency have nothing to
+        count yet); None when no member has a logit_bias."""
+        if not any(r.logit_bias for r in reqs):
+            return None
+        V = int(self.model.cfg.vocab_size)
+        bias = np.zeros((g, V), np.float32)
+        for i, r in enumerate(reqs):
+            bias[i] = self._bias_row(r, V)
+        return self._to_dev(bias)
 
     def _device_mask_temps(self):
         """(active_mask, temps, top_ps, any_temp, any_top_p), rebuilt
@@ -1035,6 +1611,11 @@ class LLMEngine:
             self._mask_dirty = False
         return self._mask_state
 
+    # ---- draining ---------------------------------------------------------
+    def _finished(self, req: _Request) -> bool:
+        return (req.generated >= req.max_new_tokens
+                or req.prompt.size + req.generated >= self.cfg.max_seq_len)
+
     def _drain_one(self, inflight) -> None:
         """Read the oldest in-flight result and emit its tokens in step
         order. Termination checks happen here, `pipeline_depth`
@@ -1042,7 +1623,7 @@ class LLMEngine:
         discarded by the (req.slot == slot, generated < budget) guards."""
         kind, payload, fetch = inflight.popleft()
         try:
-            host = fetch.result()
+            parts = fetch.result()
         except Exception as e:  # noqa: BLE001  device-side failure
             targets = (list(payload) if kind == "prefill_batch"
                        else [r for _, r in payload])
@@ -1051,6 +1632,11 @@ class LLMEngine:
                     req.out_queue.put(("error", e))
                     self._release(req)
             return
+        if kind == "verify":
+            self._drain_verify(payload, *parts)
+            return
+        host = parts[0]
+        lps = parts[1] if len(parts) > 1 else None
         if kind == "prefill_batch":
             for i, req in enumerate(payload):
                 if req.slot < 0:
@@ -1059,15 +1645,17 @@ class LLMEngine:
                     # aborted while its prefill was in flight
                     self._release(req)
                     continue
-                self._emit(req, int(host[i]))
-                if (req.generated >= req.max_new_tokens
-                        or req.prompt.size + req.generated
-                        >= self.cfg.max_seq_len):
+                self._emit(req, int(host[i]),
+                           None if lps is None else float(lps[i]))
+                if self._finished(req):
                     self._release(req)
             return
         rows = host if host.ndim == 2 else host[None, :]   # (block, S)
+        lp_rows = None
+        if lps is not None:
+            lp_rows = lps if lps.ndim == 2 else lps[None, :]
         self.stats["decode_steps"] += rows.shape[0]
-        for row in rows:
+        for ri, row in enumerate(rows):
             for slot, req in payload:
                 if req.slot != slot:
                     continue  # released/reused slot: lagged, discard
@@ -1075,12 +1663,38 @@ class LLMEngine:
                     # budget shrank out of band (abort())
                     self._release(req)
                     continue
-                self._emit(req, int(row[slot]))
-                if (req.generated >= req.max_new_tokens
-                        or req.prompt.size + req.generated
-                        >= self.cfg.max_seq_len):
+                self._emit(req, int(row[slot]),
+                           None if lp_rows is None
+                           else float(lp_rows[ri][slot]))
+                if self._finished(req):
                     self._release(req)
 
+    def _drain_verify(self, snapshot, out, n_emit, lps=None) -> None:
+        """Emit a verify step's 1 .. K+1 tokens per slot. Emission may
+        stop early (EOS, stop ids, budget): the request is released at
+        once, so the device length running ahead does not matter."""
+        self.stats["decode_steps"] += 1
+        for slot, req in snapshot:
+            if req.slot != slot:
+                continue  # released/reused slot
+            if req.generated >= req.max_new_tokens:
+                self._release(req)
+                continue
+            emitted = 0
+            for j in range(int(n_emit[slot])):
+                if req.generated >= req.max_new_tokens:
+                    break
+                self._emit(req, int(out[slot, j]),
+                           None if lps is None else float(lps[slot, j]))
+                emitted += 1
+            self.stats["spec_accepted"] += max(0, emitted - 1)
+            if req.slot == slot and slot in self._disp_len:
+                # the dispatch bumped the window mirror by K + 1
+                self._disp_len[slot] = req.prompt.size + req.generated
+            if self._finished(req):
+                self._release(req)
+
+    # ---- engine loop ------------------------------------------------------
     def _engine_loop(self) -> None:
         with torch.no_grad():
             inflight: collections.deque = collections.deque()
@@ -1089,6 +1703,7 @@ class LLMEngine:
                     self._step(inflight)
                 except Exception as e:  # noqa: BLE001  loop must survive
                     traceback.print_exc()
+                    self._in_dispatch = False
                     for req in list(self._active.values()):
                         req.out_queue.put(("error", e))
                         self._release(req)
@@ -1096,44 +1711,89 @@ class LLMEngine:
 
     def _run_commands(self) -> None:
         """Run queued cache mutations (prefix registration) between
-        dispatches."""
+        dispatches. A command is engine work for the watchdog: a first
+        prefix prefill may build kernels, so it gets the dispatch
+        grace."""
         while True:
             try:
                 fn, done = self._control_q.get_nowait()
             except queue_mod.Empty:
                 return
+            self._in_dispatch = True
             try:
                 fn()
                 done.set_result(None)
             except Exception as e:  # noqa: BLE001  raised in the caller
                 done.set_exception(e)
+            finally:
+                self._in_dispatch = False
 
     def _step(self, inflight) -> None:
         self._run_commands()
+        self._in_dispatch = True   # watchdog: first-use grace
         self._admit_all(inflight)
         if self._prefilling:
             self._dispatch_chunk(inflight)
-        if self._active:
-            mask, temps, top_ps, any_temp, any_top_p = \
-                self._device_mask_temps()
-            snapshot = list(self._active.items())
-            block = max(1, self.cfg.decode_block)
-            window = self._decode_window_pages() if self._paged else 0
-            steps = []
-            for _ in range(block):
-                toks, self._lengths = self._decode(
-                    mask, temps, top_ps, window, any_temp, any_top_p)
-                self._last_tokens = toks
-                steps.append(toks)
-            for slot in self._active:
-                self._disp_len[slot] += block
-            out = steps[0] if block == 1 else torch.stack(steps)
-            inflight.append(("decode", snapshot, _Fetch(out)))
+        allow = self._guided_decode_allow() if self._active else None
+        pen = self._pen_args() if self._active else None
+        # the verify step threads no penalties: speculation (and its
+        # synchronous stepping) is off while a penalised request is
+        # active
+        spec_sync = bool(self._active) and pen is None \
+            and self._spec_sync_active()
+        # guided masks and n-gram proposals depend on the tokens of the
+        # step before: such traffic waits for the drain below
+        need_sync = allow is not None or spec_sync
+        if self._active and (not need_sync or not inflight):
+            self._dispatch_decode(inflight, allow, pen, spec_sync)
         if not inflight:
+            self._in_dispatch = False
             time.sleep(0.002)
             return
         # stay `pipeline_depth` dispatches ahead while decoding; drain
-        # fully once nothing is active
+        # fully once nothing is active, or when the next step needs this
+        # one's tokens
         target = self.cfg.pipeline_depth if self._active else 0
+        if need_sync:
+            target = 0
         while len(inflight) > target:
             self._drain_one(inflight)
+        self._in_dispatch = False
+
+    def _dispatch_decode(self, inflight, allow, pen, spec_sync: bool) -> None:
+        """Dispatch the next step for every active slot: a verify step when
+        speculation has proposals; decode_block one-token steps when no
+        mask and no penalty is active; else one step under them."""
+        mask, temps, top_ps, any_temp, any_top_p = self._device_mask_temps()
+        snapshot = list(self._active.items())
+        props = self._spec_plan() if spec_sync and allow is None else None
+        if props is not None:
+            k = self.cfg.ngram_speculation
+            window = self._decode_window_pages(k + 1) if self._paged else 0
+            out, n_emit, lps = self._verify(props, mask, temps, top_ps,
+                                            window, any_temp, any_top_p)
+            for slot in self._active:
+                self._disp_len[slot] += k + 1
+            self.stats["spec_steps"] += 1
+            inflight.append(("verify", snapshot, _Fetch(
+                out, n_emit, *(() if lps is None else (lps,)))))
+            return
+        block = (max(1, self.cfg.decode_block)
+                 if allow is None and pen is None else 1)
+        window = (self._decode_window_pages(max(1, self.cfg.decode_block))
+                  if self._paged else 0)
+        steps, step_lps = [], []
+        for _ in range(block):
+            toks, lps, self._lengths = self._decode(
+                mask, temps, top_ps, window, any_temp, any_top_p,
+                allow=allow, pen=pen)
+            self._last_tokens = toks
+            steps.append(toks)
+            step_lps.append(lps)
+        for slot in self._active:
+            self._disp_len[slot] += block
+        out = steps[0] if block == 1 else torch.stack(steps)
+        parts = [out]
+        if self.cfg.logprobs:
+            parts.append(step_lps[0] if block == 1 else torch.stack(step_lps))
+        inflight.append(("decode", snapshot, _Fetch(*parts)))

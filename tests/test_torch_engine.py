@@ -144,9 +144,34 @@ def test_abort_ends_streams(state):
 @pytest.mark.parametrize("name,value", [
     ("logprobs", True), ("precompile", True), ("ngram_speculation", 2),
     ("ngram_order", 3), ("ngram_lookback", 64), ("watchdog_s", 5.0)])
-def test_unported_configurations_raise(name, value):
-    with pytest.raises(NotImplementedError, match=name):
-        LLMEngineConfig(**{name: value})
+def test_every_reference_field_is_served(jax_llm, state, name, value):
+    """Each field of the JAX engine's config that the port once refused
+    is served: an engine with it set gives the JAX engine's tokens (and
+    logprobs, within 1e-4) for the same field; the n-gram fields run
+    with speculation on."""
+    kw = {name: value}
+    if name.startswith("ngram_") and name != "ngram_speculation":
+        kw["ngram_speculation"] = 2
+    prompt = np.tile(np.arange(5, 9), 4)
+    jeng = JEngine(jax_llm[0], jax_llm[1], JEngineConfig(**BASE, **kw))
+    try:
+        want = list(jeng.stream_detailed(jeng.submit(prompt,
+                                                     max_new_tokens=12)))
+    finally:
+        jeng.shutdown()
+    eng = _engine(state, **kw)
+    try:
+        assert getattr(eng.cfg, name) == value
+        got = list(eng.stream_detailed(eng.submit(prompt,
+                                                  max_new_tokens=12)))
+    finally:
+        eng.shutdown()
+    assert [t for t, _ in got] == [t for t, _ in want]
+    if name == "logprobs":
+        np.testing.assert_allclose([lp for _, lp in got],
+                                   [lp for _, lp in want], rtol=0, atol=1e-4)
+    else:
+        assert [lp for _, lp in got] == [None] * 12
 
 
 def test_default_cache_is_contiguous_as_in_jax():

@@ -486,6 +486,10 @@ def test_port_imports_no_jax_and_no_ray_tpu():
     assert int(n_modules) >= 15
     assert _leaks(mods.split()) == []
     for name in ("ray_tpu_torch.serve.llm.engine",
+                 "ray_tpu_torch.serve.llm.guided",
+                 "ray_tpu_torch.serve.llm.openai_api",
+                 "ray_tpu_torch.serve.context", "ray_tpu_torch.exceptions",
+                 "ray_tpu_torch.util.knobs",
                  "ray_tpu_torch.ops.kernels.rmsnorm", "ray_tpu_torch.train.spmd",
                  "ray_tpu_torch.train.optim", "ray_tpu_torch.train.checkpoint",
                  "ray_tpu_torch.parallel.precision"):
