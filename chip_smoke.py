@@ -5,15 +5,17 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
-It builds every CUDA kernel from `ray_tpu_torch/csrc/`, then runs eight
+It builds every CUDA kernel from `ray_tpu_torch/csrc/`, then runs nine
 phases and fails (non-zero exit, no result line) if any of them fails:
 
 1. kernels: each kernel against its plain PyTorch version at
    Llama-3-8B attention shapes (Hq 32, Hkv 8, D 128, bf16; K1 and
    K2a/K2b also at the flagship's D 64 in bf16 and fp32, D 32 and 16,
    ragged lengths and Hq = Hkv, and two launches compared bit for bit;
-   K3 also at the edges of its key splits, rep 1 and 16, D 64, page 8
-   and fp32) and, for K4 (RMSNorm), at the
+   K1 also at the zoo's bf16 shapes: ViT-base's non-causal S 197 and
+   GPT-2 small's prefills, 12/12 heads of D 64; K3 also at the edges of
+   its key splits, rep 1 and 16, D 64, page 8, fp32 and GPT-2 small's
+   decode) and, for K4 (RMSNorm), at the
    shapes its callers use (1 to 2 x 2048 rows of 4096, bf16 with an
    fp32 weight) and at the edges of each of its routes, with the
    tolerance printed; K4's backward against plain autograd; kernel,
@@ -65,23 +67,44 @@ phases and fails (non-zero exit, no result line) if any of them fails:
    Llama-3-8B widths with in-vocab tokens: K3 is launched in none of
    them (K1 only on the MQA prefills), as the routes by shape and type
    say.
-6. train: `make_train_step` with adamw and warmup_cosine on Llama-3-8B
+6. zoo: every model family the engine serves. (a) Mixtral-8x7B widths
+   (d 4096, 32/8 heads, 8 experts top-2, capacity factor 1.25) with the
+   depth cut from 32 to 8 layers (23.7 GB in bf16; 32 layers are 93 GB),
+   bf16 random weights: a paged burst of 8 requests (prompts of 20-500
+   tokens), K1 and K3 launched, in-vocab tokens, TTFT, TPOT, decode
+   tokens/s and peak memory printed; then 2 fp32 layers at the no-drop
+   capacity (capacity_factor = n_experts / experts_per_token: the
+   capacity is the call's token count) on the paged and the contiguous
+   engine, token-identical to the einsum loop. (b) int8: the serve
+   phase's Llama-3-8B quantized on the card (`quantize_llama_params`):
+   weight bytes below 0.6x the bf16 model's, one down_proj's device time
+   int8 against bf16, the serve phase's paged burst on the int8 model;
+   then 4 fp32 int8 layers, the paged engine token-identical to the
+   einsum loop. (c) GPT-2 small at full width and depth, bf16: a paged
+   burst (prompts of 20-900, max_seq_len 1024; K1 and K3 at D 64, rep
+   1), then fp32 parity of the paged engine with the einsum loop. (d)
+   ViT-base on 8 images of 224^2: bf16 images/s with K1 once a layer,
+   fp32 logits through K1 against the einsum path within VIT_ATOL; CLIP
+   debug and ResNetLite in fp32 on the card against the CPU on the same
+   weights; `entry()`'s forward with finite logits. Each model is freed
+   before the next.
+7. train: `make_train_step` with adamw and warmup_cosine on Llama-3-8B
    widths cut to 8 layers (bf16 compute, fp32 master weights, remat),
    5 steps on one fixed batch of 2 x 2048 tokens: finite losses and
    grad norms, the last loss below the first, and K1/K2a/K2b launched
    exactly as the path implies (counters zeroed just before); then one
    more step under the profiler.
-7. train-parity: 3 fp32 train steps (TF32 off) of the flagship widths
+8. train-parity: 3 fp32 train steps (TF32 off) of the flagship widths
    on the GPU (K1/K2a/K2b) give the CPU's loss and grad_norm, and so
    does one GPU step under remat "dots" (selective checkpointing; K1
    runs twice per layer).
-8. north-star: pretrain the flagship widths on a repeating corpus,
+9. north-star: pretrain the flagship widths on a repeating corpus,
    checkpoint through CheckpointManager, restore, and serve the restored
    weights through LLMServer: the greedy continuation must match the
    corpus at least once in 6 tokens.
 
 The last three lines are a JSON object listing each kernel (with its
-launches on each path), the card's name and power limit as nvidia-smi
+launches on each path, the zoo's bursts and ViT's forward among them), the card's name and power limit as nvidia-smi
 gives them, and {"ok": true, "device": {...}}. Imports nothing of JAX
 or ray_tpu.
 """
@@ -122,9 +145,11 @@ K1_ATOL_FP32 = 1e-4     # fp32 (out and lse): exact products, sums in
 # tiles): causal Llama-3-8B heads at three lengths (timed; (1, 2048) is
 # the shape written to the JSON), non-causal, S 1000 (ends inside a
 # tile) both ways, Hq = Hkv, and the flagship's D 64 at S 32 (the
-# north-star phase's shape, shorter than one tile) and S 130. bf16 D 32
-# and 16 take the mma.sync kernel, fp32 the scalar one (the train-parity
-# phase's head shape).
+# north-star phase's shape, shorter than one tile) and S 130; the zoo's
+# D 64 shapes: ViT-base's non-causal forward (8 images, S 197, 12/12
+# heads) and GPT-2 small's largest prefill groups (4 x 512 and 1 x 1024,
+# causal, 12/12 heads). bf16 D 32 and 16 take the mma.sync kernel, fp32
+# the scalar one (the train-parity phase's head shape).
 K1_SHAPES = [(1, 128, True, 32, 8, 128, "bfloat16"),
              (4, 512, True, 32, 8, 128, "bfloat16"),
              (1, 2048, True, 32, 8, 128, "bfloat16"),
@@ -135,6 +160,9 @@ K1_SHAPES = [(1, 128, True, 32, 8, 128, "bfloat16"),
              (4, 32, True, 8, 4, 64, "bfloat16"),
              (1, 130, True, 8, 4, 64, "bfloat16"),
              (2, 130, False, 8, 8, 64, "bfloat16"),
+             (8, 197, False, 12, 12, 64, "bfloat16"),
+             (4, 512, True, 12, 12, 64, "bfloat16"),
+             (1, 1024, True, 12, 12, 64, "bfloat16"),
              (1, 130, True, 8, 4, 32, "bfloat16"),
              (2, 40, False, 8, 2, 16, "bfloat16"),
              (2, 256, True, 8, 4, 64, "float32")]
@@ -178,7 +206,8 @@ K3_ATOL_FP32 = 1e-4     # fp32: exact products, sums in another order
 # whole width; rep 1 and 16 (MAX_REP); D 64; page 8; a table of one split
 # (the kernel writes O itself, no merge); a table whose last split is
 # short (63 pages of 16); page 48 (splits of 240 keys); fp32 (the parity
-# phase's heads).
+# phase's heads); GPT-2 small's decode (12/12 heads, rep 1, D 64, page
+# 16, its 1024-key table).
 K3_CASES = [
     ("split edges", 32, 8, 128, 16, 2048, "bfloat16",
      [256, 257, 255, 0, 2048, 47, 1, 512], {7: 300}),
@@ -194,6 +223,8 @@ K3_CASES = [
      {}),
     ("fp32", 32, 8, 128, 16, 2048, "float32", [256, 257, 0, 2048, 1000],
      {4: 10}),
+    ("GPT-2 small", 12, 12, 64, 16, 1024, "bfloat16",
+     [1024, 921, 257, 256, 0, 20, 500, 1023], {}),
 ]
 # K4 vs rms_norm_plain: (x shape, x type, weight type). fp32 sums in
 # another order: atol = rtol = 1e-5. bf16 and fp16: both round y once
@@ -1111,10 +1142,12 @@ PARITY_CASES = [
 ]
 
 
-def plain_greedy(torch, model, prompts):
+def plain_greedy(torch, model, prompts, module=None):
     """PARITY_NEW greedy tokens of each prompt from a full-recompute loop
     through `model` with no cache and its attention held to the einsum
-    path, so the reference shares no kernel with the engine."""
+    path (`multi_head_attention` of `module`, default models/llama.py,
+    which Mixtral's attention shares), so the reference shares no kernel
+    with the engine."""
     from unittest import mock
 
     from ray_tpu_torch.models import llama as llama_module
@@ -1123,11 +1156,13 @@ def plain_greedy(torch, model, prompts):
     want = []
     zero_counters(fa)
     with torch.no_grad(), mock.patch.object(
-            llama_module, "multi_head_attention", einsum_attention):
+            module or llama_module, "multi_head_attention",
+            einsum_attention):
         for p in prompts:
             seq = list(p)
             for _ in range(PARITY_NEW):
-                logits, _ = model(torch.tensor([seq], device="cuda"))
+                out = model(torch.tensor([seq], device="cuda"))
+                logits = out[0] if isinstance(out, tuple) else out
                 seq.append(int(torch.argmax(logits[0, -1])))
             want.append(seq[len(p):])
     check(fa.flash_attention_fwd.launches == 0,
@@ -1143,9 +1178,6 @@ def phase_parity(torch):
     submits the rest with its prefix_id, beside the full prompt."""
     import numpy as np
     from ray_tpu_torch.models import Llama, LlamaConfig
-    from ray_tpu_torch.ops.kernels import flash_attention as fa
-    from ray_tpu_torch.ops.kernels import paged_attention as pa
-    from ray_tpu_torch.serve.llm import LLMEngine, LLMEngineConfig
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1160,47 +1192,10 @@ def phase_parity(torch):
         print(f"parity: prompt {i} ({len(prompts[i])} tokens) plain {w}",
               flush=True)
 
-    base = dict(max_slots=4, max_seq_len=2048,
-                prefill_buckets=(32, 64, 128, 256, 512))
-    for label, kw in PARITY_CASES:
-        engine = LLMEngine(model, None, LLMEngineConfig(**base, **kw),
-                           device="cuda")
-        zero_counters(fa)
-        pa.paged_decode_attention.launches = 0
-        try:
-            if "max_prefixes" in kw:
-                full = prompts[-1]
-                pid = engine.register_prefix(full[:PARITY_PREFIX])
-                rids = [engine.submit(full[PARITY_PREFIX:],
-                                      max_new_tokens=PARITY_NEW,
-                                      prefix_id=pid),
-                        engine.submit(full, max_new_tokens=PARITY_NEW)]
-                expect = [want[-1], want[-1]]
-            else:
-                rids = [engine.submit(p, max_new_tokens=PARITY_NEW)
-                        for p in prompts]
-                expect = want
-            got = [list(engine.stream(r)) for r in rids]
-            saved = engine.get_stats()["prefix_tokens_saved"]
-        finally:
-            engine.shutdown()
-        k1 = fa.flash_attention_fwd.launches
-        k3 = pa.paged_decode_attention.launches
-        for i, (g, w) in enumerate(zip(got, expect)):
-            if g != w:
-                print(f"parity: {label}: request {i} engine {g} plain {w}",
-                      flush=True)
-        check(got == expect, f"parity: {label}: engine greedy tokens differ "
-                             f"from the plain full-recompute loop")
-        if kw["kv_page_size"]:
-            check(k1 > 0 and k3 > 0,
-                  f"parity: {label}: the engine did not run K1/K3: {k1}, "
-                  f"{k3}")
-        if "max_prefixes" in kw:
-            check(saved == PARITY_PREFIX,
-                  f"parity: {label}: prefix_tokens_saved {saved}")
-        print(f"parity: {label}: ok ({len(got)} requests equal to the plain "
-              f"loop; K1 {k1}, K3 {k3} launches)", flush=True)
+    engine_parity(torch, model, prompts, want, "parity", PARITY_CASES,
+                  dict(max_slots=4, max_seq_len=2048,
+                       prefill_buckets=(32, 64, 128, 256, 512)),
+                  prefix=PARITY_PREFIX)
     print(f"parity: ok (fp32, TF32 off, 4 layers of Llama-3-8B widths, "
           f"{len(PARITY_CASES)} engine configurations; reference einsum "
           f"attention, 0 kernel launches)", flush=True)
@@ -1562,6 +1557,444 @@ def phase_routes(torch):
         torch.cuda.empty_cache()
 
 
+# zoo phase: every model family the engine serves, and int8
+ZOO_BASE = dict(max_slots=8, max_seq_len=2048, prefill_buckets=SERVE_BUCKETS,
+                max_prefill_batch=4, kv_page_size=16)
+# Mixtral-8x7B widths with the depth cut from 32 to 8 layers: 8 layers
+# hold 11.6 B params (23.7 GB in bf16); 32 hold 46.7 B (93 GB), more
+# than one 80 GB card
+MIXTRAL_LAYERS = 8
+MIXTRAL_PLENS = [20, 40, 80, 120, 200, 300, 400, 500]
+# no-drop parity: capacity_factor = n_experts / experts_per_token makes
+# the capacity equal to the call's token count, so a request's output
+# does not depend on its batch; prompts stay short, the (G, E, C)
+# dispatch tensors grow as G**2
+MIXTRAL_PARITY_LAYERS = 2
+MIXTRAL_PARITY_PLENS = (9, 24, 40, 64)
+INT8_PARITY_LAYERS = 4
+INT8_BYTES_RATIO = 0.6      # int8 weights + bf16 embedding and head
+GPT2_PLENS = [20, 50, 100, 200, 350, 500, 700, 900]
+GPT2_BUCKETS = (32, 64, 128, 256, 512, 1024)
+VIT_IMAGES = 8
+VIT_ITERS = 10
+# ViT-base fp32 (TF32 off) through K1's fp32 kernel against the einsum
+# path: both sum the scores in fp32 in other orders (K1 4.8e-7 apart at
+# the kernel), carried through 12 blocks and the head to logits of
+# order 1
+VIT_ATOL = 1e-3
+# CLIP and ResNetLite, fp32 with TF32 off, on the card against the same
+# weights on the CPU: cuDNN/cuBLAS and oneDNN sum in other orders
+ZOO_CPU_ATOL = 1e-4
+
+
+def release(torch):
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def built(torch, label, model, t0):
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in model.parameters())
+    print(f"{label}: {n / 1e9:.3f}B params, built in {time.time() - t0:.1f}"
+          f" s", flush=True)
+
+
+def peak(torch, label, gpu_line):
+    gib = torch.cuda.max_memory_allocated() / 2**30
+    print(f"{label}: peak memory {gib:.2f} GiB (max_memory_allocated) "
+          f"[{gpu_line}]", flush=True)
+
+
+def zoo_bodies(vocab, plens, seed):
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    return [{"prompt": rng.randint(0, vocab, n).tolist(),
+             "max_tokens": SERVE_NEW} for n in plens]
+
+
+def zoo_burst(torch, model, engine_config, bodies, label, gpu_line,
+              profile=False):
+    """A paged LLMServer burst of `bodies` on `model`; K1 and K3 must
+    both have run. With `profile`, the same burst again under the
+    profiler (after the counters were read). Returns the burst's
+    launches."""
+    from ray_tpu_torch.serve.llm import LLMServer
+    server = LLMServer(lambda: (model, None), engine_config=engine_config,
+                       device="cuda")
+    _, launches = serve_burst(torch, server, bodies, label, gpu_line,
+                              model.cfg.vocab_size)
+    if profile:
+        gpu_profile(torch, lambda: burst(server, bodies), label + "-profile",
+                    gpu_line)
+    close_server(torch, server)
+    k1, k3 = launches.values()
+    check(k1 > 0 and k3 > 0, f"{label}: K1 {k1}, K3 {k3}")
+    return launches
+
+
+def engine_parity(torch, model, prompts, want, label, configs, base,
+                  prefix=0):
+    """Greedy tokens of a fresh engine in each (name, config) against
+    `want`; on the paged cache K1 and K3 must have run. A config with
+    max_prefixes registers the last prompt's first `prefix` tokens and
+    submits the rest with its prefix_id, beside the full prompt."""
+    from ray_tpu_torch.ops.kernels import flash_attention as fa
+    from ray_tpu_torch.ops.kernels import paged_attention as pa
+    from ray_tpu_torch.serve.llm import LLMEngine, LLMEngineConfig
+    for name, kw in configs:
+        engine = LLMEngine(model, None, LLMEngineConfig(**base, **kw),
+                           device="cuda")
+        zero_counters(fa)
+        pa.paged_decode_attention.launches = 0
+        try:
+            if "max_prefixes" in kw:
+                full = prompts[-1]
+                pid = engine.register_prefix(full[:prefix])
+                rids = [engine.submit(full[prefix:],
+                                      max_new_tokens=PARITY_NEW,
+                                      prefix_id=pid),
+                        engine.submit(full, max_new_tokens=PARITY_NEW)]
+                expect = [want[-1], want[-1]]
+            else:
+                rids = [engine.submit(p, max_new_tokens=PARITY_NEW)
+                        for p in prompts]
+                expect = want
+            got = [list(engine.stream(r)) for r in rids]
+            saved = engine.get_stats()["prefix_tokens_saved"]
+        finally:
+            engine.shutdown()
+        k1 = fa.flash_attention_fwd.launches
+        k3 = pa.paged_decode_attention.launches
+        for i, (g, w) in enumerate(zip(got, expect)):
+            if g != w:
+                print(f"{label}: {name}: request {i} engine {g} plain {w}",
+                      flush=True)
+        check(got == expect, f"{label}: {name}: engine greedy tokens differ "
+                             f"from the plain full-recompute loop")
+        if kw.get("kv_page_size"):
+            check(k1 > 0 and k3 > 0, f"{label}: {name}: K1 {k1}, K3 {k3}")
+        if "max_prefixes" in kw:
+            check(saved == prefix,
+                  f"{label}: {name}: prefix_tokens_saved {saved}")
+        print(f"{label}: {name}: ok ({len(got)} requests equal to the plain "
+              f"loop; K1 {k1}, K3 {k3} launches)", flush=True)
+
+
+# (label, rows): a prefill group of 4 prompts in the 512 bucket, and a
+# decode step of the 8 slots and the scratch slot
+MOE_SHAPES = (("prefill 4 x 512", 2048), ("decode 9 x 1", 9))
+
+
+def moe_times(torch, moe, gpu_line):
+    """Device time of one MoE layer at MOE_SHAPES, whole and in its two
+    parts: routing with dispatch and combine (the experts replaced by
+    the identity) and the expert products alone on (E, C, d)."""
+    from ray_tpu_torch.ops.moe import expert_capacity, moe_dispatch_combine
+    cfg = moe.cfg
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    for label, g in MOE_SHAPES:
+        x = torch.randn(1, g, cfg.d_model, device="cuda", generator=gen) \
+            .to(cfg.dtype)
+        tokens = x[0]
+        logits = tokens.float() @ moe.router_kernel.float()
+        cap = expert_capacity(g, cfg.n_experts, cfg.experts_per_token,
+                              cfg.capacity_factor)
+        batch = torch.randn(cfg.n_experts, cap, cfg.d_model, device="cuda",
+                            generator=gen).to(cfg.dtype)
+        wg, wu, wd = (moe.experts_gate_kernel, moe.experts_up_kernel,
+                      moe.experts_down_kernel)
+
+        def experts():
+            return torch.bmm(torch.nn.functional.silu(torch.bmm(batch, wg))
+                             * torch.bmm(batch, wu), wd)
+
+        with torch.no_grad():
+            whole = time_ms(lambda: moe(x))
+            route = time_ms(lambda: moe_dispatch_combine(
+                tokens, logits, lambda b: b, k=cfg.experts_per_token,
+                capacity=cap))
+            expert = time_ms(experts)
+        flops = 6 * cfg.n_experts * cap * cfg.d_model * cfg.d_ff
+        print(f"zoo-mixtral: MoE layer at {label} (G {g}, C {cap}): whole "
+              f"{whole:.4f} ms, routing + dispatch/combine {route:.4f} ms, "
+              f"experts {expert:.4f} ms ({flops / expert / 1e9:.1f} TFLOP/s "
+              f"on E x C rows) [{gpu_line}]", flush=True)
+
+
+def zoo_mixtral(torch, gpu_line):
+    """Mixtral-8x7B widths, MIXTRAL_LAYERS layers, bf16: the paged
+    burst; then 2 fp32 layers at no-drop capacity held to the einsum
+    loop on both caches."""
+    import numpy as np
+    from ray_tpu_torch.models import Mixtral, MixtralConfig
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    cfg = MixtralConfig.mixtral_8x7b(n_layers=MIXTRAL_LAYERS,
+                                     dtype=torch.bfloat16,
+                                     param_dtype=torch.bfloat16)
+    model = Mixtral(cfg, device="cuda", seed=0)
+    built(torch, f"zoo-mixtral: Mixtral-8x7B widths, {cfg.n_layers} layers "
+                 f"bf16, {cfg.n_experts} experts top-{cfg.experts_per_token}"
+                 f", capacity factor {cfg.capacity_factor}", model, t0)
+    launches = zoo_burst(torch, model, ZOO_BASE, zoo_bodies(
+        cfg.vocab_size, MIXTRAL_PLENS, 4), "zoo-mixtral", gpu_line,
+        profile=True)
+    peak(torch, "zoo-mixtral", gpu_line)
+    moe_times(torch, model.layer_0.moe, gpu_line)
+    del model
+    release(torch)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    no_drop = cfg.n_experts / cfg.experts_per_token
+    cfg = MixtralConfig.mixtral_8x7b(
+        n_layers=MIXTRAL_PARITY_LAYERS, dtype=torch.float32,
+        param_dtype=torch.float32, remat=False, capacity_factor=no_drop)
+    model = Mixtral(cfg, device="cuda", seed=5)
+    rng = np.random.RandomState(5)
+    prompts = [rng.randint(0, cfg.vocab_size, n).tolist()
+               for n in MIXTRAL_PARITY_PLENS]
+    want = plain_greedy(torch, model, prompts)
+    engine_parity(torch, model, prompts, want, "zoo-mixtral-parity",
+                  [("paged", dict(kv_page_size=16)),
+                   ("contiguous", dict(kv_page_size=0))],
+                  dict(max_slots=4, max_seq_len=256,
+                       prefill_buckets=(32, 64, 128)))
+    del model
+    release(torch)
+    return launches
+
+
+def zoo_int8(torch, gpu_line):
+    """Llama-3-8B (32 layers, bf16) quantized on the card: weight bytes,
+    one down_proj's device time int8 against bf16, the paged burst; then
+    4 fp32 int8 layers held to the einsum loop on the paged engine."""
+    import numpy as np
+    import torch.nn.functional as F
+    from ray_tpu_torch.models import Llama, LlamaConfig
+    from ray_tpu_torch.ops.quant import quantize_llama_params, quantized_bytes
+    torch.cuda.reset_peak_memory_stats()
+    cfg = LlamaConfig.llama3_8b(dtype=torch.bfloat16,
+                                param_dtype=torch.bfloat16)
+    model = Llama(cfg, device="cuda", seed=0)
+    bf16_bytes = quantized_bytes(model)
+    t0 = time.time()
+    qstate = quantize_llama_params(model.state_dict())
+    torch.cuda.synchronize()
+    t_quant = time.time() - t0
+    qmodel = Llama(dataclasses.replace(cfg, quant="int8"), device="cuda",
+                   seed=0)
+    qmodel.load_state_dict(qstate)
+    del qstate
+    int8_bytes = quantized_bytes(qmodel)
+    print(f"zoo-int8: Llama-3-8B quantized on the card in {t_quant:.2f} s: "
+          f"{int8_bytes / 1e9:.3f} GB against bf16 {bf16_bytes / 1e9:.3f} GB"
+          f" ({int8_bytes / bf16_bytes:.3f}x; want < {INT8_BYTES_RATIO})",
+          flush=True)
+    check(int8_bytes < INT8_BYTES_RATIO * bf16_bytes,
+          f"int8 weights {int8_bytes} B, bf16 {bf16_bytes} B")
+
+    # one down_proj at a decode step's 8 rows: the int8 product (a
+    # transient bf16 copy of the weight, then cuBLAS) against the bf16
+    # product on the same activations
+    w = model.layer_0.mlp.down_proj.weight
+    qd = qmodel.layer_0.mlp.down_proj
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn(8, cfg.d_ff, device="cuda", generator=gen) \
+        .to(torch.bfloat16)
+    with torch.no_grad():
+        err = (qd(x).float() - F.linear(x, w).float()).abs().max().item()
+        ms_q = time_ms(lambda: qd(x))
+        ms_b = time_ms(lambda: F.linear(x, w))
+    n_w = w.numel()
+    print(f"zoo-int8: down_proj x (8, {cfg.d_ff}) bf16: int8 {ms_q:.4f} ms "
+          f"against bf16 {ms_b:.4f} ms (weight {n_w / 1e6:.1f} M; bytes "
+          f"bound bf16 {2 * n_w / PEAK_BYTES * 1e3:.4f} ms, int8 read once "
+          f"{n_w / PEAK_BYTES * 1e3:.4f} ms); max |int8 - bf16| {err:.4f} "
+          f"[{gpu_line}]", flush=True)
+    del model, w
+    release(torch)
+    bodies = zoo_bodies(cfg.vocab_size, SERVE_PLENS, 0)
+    launches = zoo_burst(torch, qmodel, ZOO_BASE, bodies, "zoo-int8",
+                         gpu_line, profile=True)
+    peak(torch, "zoo-int8", gpu_line)
+    del qmodel
+    release(torch)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = LlamaConfig.llama3_8b(n_layers=INT8_PARITY_LAYERS,
+                                dtype=torch.float32,
+                                param_dtype=torch.float32, remat=False)
+    fp = Llama(cfg, device="cuda", seed=6)
+    qstate = quantize_llama_params(fp.state_dict())
+    del fp
+    model = Llama(dataclasses.replace(cfg, quant="int8"), device="cuda",
+                  seed=6)
+    model.load_state_dict(qstate)
+    del qstate
+    rng = np.random.RandomState(6)
+    prompts = [rng.randint(0, cfg.vocab_size, n).tolist()
+               for n in PARITY_PLENS]
+    want = plain_greedy(torch, model, prompts)
+    engine_parity(torch, model, prompts, want, "zoo-int8-parity",
+                  [("paged", dict(kv_page_size=16))],
+                  dict(max_slots=4, max_seq_len=2048,
+                       prefill_buckets=(32, 64, 128, 256, 512)))
+    del model
+    release(torch)
+    return launches
+
+
+def zoo_gpt2(torch, gpu_line):
+    """GPT-2 small at full width and depth, bf16: the paged burst; then
+    the same widths in fp32 held to the einsum loop on the paged
+    engine."""
+    import numpy as np
+    from ray_tpu_torch.models import GPT2, GPT2Config
+    from ray_tpu_torch.models import gpt2 as gpt2_module
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    cfg = GPT2Config.small(dtype=torch.bfloat16, param_dtype=torch.bfloat16)
+    model = GPT2(cfg, device="cuda", seed=0)
+    built(torch, f"zoo-gpt2: GPT-2 small, {cfg.n_layers} layers bf16, D "
+                 f"{cfg.head_dim}", model, t0)
+    launches = zoo_burst(
+        torch, model, dict(ZOO_BASE, max_seq_len=1024,
+                           prefill_buckets=GPT2_BUCKETS),
+        zoo_bodies(cfg.vocab_size, GPT2_PLENS, 7), "zoo-gpt2",
+        gpu_line)
+    peak(torch, "zoo-gpt2", gpu_line)
+    del model
+    release(torch)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = GPT2Config.small(dtype=torch.float32)
+    model = GPT2(cfg, device="cuda", seed=7)
+    rng = np.random.RandomState(7)
+    prompts = [rng.randint(0, cfg.vocab_size, n).tolist()
+               for n in PARITY_PLENS]
+    want = plain_greedy(torch, model, prompts, gpt2_module)
+    engine_parity(torch, model, prompts, want, "zoo-gpt2-parity",
+                  [("paged", dict(kv_page_size=16))],
+                  dict(max_slots=4, max_seq_len=1024,
+                       prefill_buckets=(32, 64, 128, 256, 512)))
+    del model
+    release(torch)
+    return launches
+
+
+def zoo_vision(torch, gpu_line):
+    """ViT-base on 8 images of 224^2: bf16 images/s with K1 once a
+    layer, fp32 logits through K1 against the einsum path; CLIP debug,
+    ResNetLite and entry() once each on the card (CLIP and ResNetLite
+    against the CPU on the same weights)."""
+    from unittest import mock
+
+    from ray_tpu_torch.entry import entry
+    from ray_tpu_torch.models import CLIP, CLIPConfig, ViT, ViTConfig
+    from ray_tpu_torch.models import get_model
+    from ray_tpu_torch.models import vit as vit_module
+    from ray_tpu_torch.ops import einsum_attention
+    from ray_tpu_torch.ops.kernels import flash_attention as fa
+    torch.cuda.reset_peak_memory_stats()
+    cfg = ViTConfig.base(dtype=torch.bfloat16, param_dtype=torch.bfloat16)
+    model = ViT(cfg, device="cuda", seed=0)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    images = torch.randn(VIT_IMAGES, cfg.image_size, cfg.image_size,
+                         cfg.channels, device="cuda", generator=gen)
+    with torch.no_grad():
+        model(images)                                   # warm
+        torch.cuda.synchronize()
+        zero_counters(fa)
+        logits = model(images)
+        torch.cuda.synchronize()
+        k1 = fa.flash_attention_fwd.launches
+        t0 = time.time()
+        for _ in range(VIT_ITERS):
+            model(images)
+        torch.cuda.synchronize()
+        dt = (time.time() - t0) / VIT_ITERS
+    check(k1 == cfg.n_layers, f"zoo-vit: K1 {k1}, want {cfg.n_layers}")
+    launches = {"flash_fwd (K1)": k1}
+    check(tuple(logits.shape) == (VIT_IMAGES, cfg.num_classes)
+          and bool(torch.isfinite(logits).all()), "zoo-vit: bad logits")
+    print(f"zoo-vit: ViT-base bf16, {VIT_IMAGES} images of "
+          f"{cfg.image_size}^2 (S {cfg.n_patches + 1}, D {cfg.head_dim}): "
+          f"{dt * 1e3:.2f} ms a forward, {VIT_IMAGES / dt:.1f} images/s, "
+          f"K1 {k1} launches a forward; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+          f"[{gpu_line}]", flush=True)
+    with torch.no_grad():
+        gpu_profile(torch, lambda: model(images), "zoo-vit-profile",
+                    gpu_line, top=5)
+    del model
+    release(torch)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model = ViT(ViTConfig.base(dtype=torch.float32), device="cuda", seed=1)
+    with torch.no_grad():
+        zero_counters(fa)
+        got = model(images)
+        k1 = fa.flash_attention_fwd.launches
+        with mock.patch.object(vit_module, "multi_head_attention",
+                               einsum_attention):
+            want = model(images)
+    err = (got - want).abs().max().item()
+    print(f"zoo-vit-parity: fp32 logits through K1 ({k1} launches) against "
+          f"the einsum path: max abs err {err:.3e} (tolerance {VIT_ATOL}, "
+          f"logits up to {want.abs().max().item():.3f})", flush=True)
+    check(k1 == cfg.n_layers and err <= VIT_ATOL, "zoo-vit-parity failed")
+    del model
+    release(torch)
+
+    # CLIP debug and ResNetLite: the card against the CPU
+    rng = torch.Generator().manual_seed(2)
+    for label, build, args in (
+            ("zoo-clip", lambda dev: CLIP(CLIPConfig.debug(
+                dtype=torch.float32), device=dev, seed=2),
+             (torch.randn(4, 32, 32, 3, generator=rng),
+              torch.randint(0, 256, (4, 16), generator=rng,
+                            dtype=torch.int32))),
+            ("zoo-resnet", lambda dev: get_model(
+                "resnet-lite", device=dev, seed=3),
+             (torch.randn(4, 32, 32, 3, generator=rng),))):
+        cpu, gpu = build("cpu"), build("cuda")
+        gpu.load_state_dict(cpu.state_dict())
+        with torch.no_grad():
+            want = cpu(*args)
+            got = gpu(*[a.to("cuda") for a in args])
+        want = want if isinstance(want, tuple) else (want,)
+        got = got if isinstance(got, tuple) else (got,)
+        err = max((g.cpu() - w).abs().max().item()
+                  for g, w in zip(got, want))
+        shapes = [tuple(g.shape) for g in got]
+        print(f"{label}: outputs {shapes} on the card against the CPU: max "
+              f"abs err {err:.3e} (tolerance {ZOO_CPU_ATOL})", flush=True)
+        check(err <= ZOO_CPU_ATOL, f"{label}: the card differs from the CPU")
+        del cpu, gpu
+
+    forward, (params, tokens) = entry()
+    with torch.no_grad():
+        logits = forward(params, tokens)
+    check(tuple(logits.shape) == (2, 128, 2048)
+          and bool(torch.isfinite(logits).all()), "entry(): bad logits")
+    print(f"zoo-entry: entry() on the card: logits {tuple(logits.shape)} "
+          f"{logits.dtype}, finite", flush=True)
+    del forward, params, tokens, logits
+    release(torch)
+    return launches
+
+
+def phase_zoo(torch, gpu_line):
+    """The model zoo the engine serves: Mixtral, int8 Llama, GPT-2,
+    ViT/CLIP/ResNetLite and entry(). Returns each burst's launches."""
+    return {"zoo-mixtral": zoo_mixtral(torch, gpu_line),
+            "zoo-int8": zoo_int8(torch, gpu_line),
+            "zoo-gpt2": zoo_gpt2(torch, gpu_line),
+            "zoo-vit": zoo_vision(torch, gpu_line)}
+
+
 TRAIN_LAYERS = 8          # depth cut of the train phase (widths: full 8B)
 TRAIN_STEPS = 5
 TRAIN_BATCH, TRAIN_SEQ = 2, 2048
@@ -1858,6 +2291,7 @@ def main() -> None:
     phase_parity(torch)
     phase_controls(torch)
     phase_routes(torch)
+    launches.update(phase_zoo(torch, gpu_line))
     launches["train"] = phase_train(torch, gpu_line)
     phase_train_parity(torch)
     phase_north_star(torch)

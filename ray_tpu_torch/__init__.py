@@ -17,5 +17,8 @@ guided decoding, logprobs, deadlines, the watchdog, precompile) behind
 training slice: the flash-attention backward behind a
 `torch.autograd.Function`, activation checkpointing (`remat`),
 `parallel/precision.py`, and `train/` (single-device train step,
-optimizers, atomic checkpoints).
+optimizers, atomic checkpoints) — and the model zoo the engine serves:
+`models/{mixtral,gpt2,vit,clip,mlp}.py` on `ops/{moe,quant,linear}.py`,
+int8 Llama, the `get_model` registry, flax converters for every family,
+HF weight import (`train/adapters.py`) and `entry.py`.
 """

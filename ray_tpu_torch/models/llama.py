@@ -10,7 +10,9 @@ Weights are made on the target device from a seeded `torch.Generator`,
 following flax's distributions (normal(0.02) for the embedding,
 lecun-normal for the dense layers, ones for the norms) but not its
 values. Logits are fp32 with the head's operands in the compute type
-and fp32 accumulation; they are never rounded to bf16.
+and fp32 accumulation; they are never rounded to bf16. Under
+quant="int8" each projection is a `QuantDense` (`kernel_q`, `scale`),
+loaded from `ops.quant.quantize_llama_params`.
 """
 from __future__ import annotations
 
@@ -26,6 +28,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from ..ops import (apply_rotary, cached_attention, multi_head_attention,
                    rms_norm, rope_frequencies, swiglu)
+from ..ops.linear import Dense, logits_fp32
+from ..ops.quant import QuantDense
 from ..util.device import DeviceLike, resolve_device
 
 
@@ -56,7 +60,8 @@ class LlamaConfig:
     # The port routes attention by device (kernels on CUDA, plain
     # versions on the CPU); only "auto" exists.
     attn_impl: str = "auto"
-    # weight-only int8 projections: not ported yet
+    # None = fp projections; "int8" = weight-only int8 projections
+    # (ops/quant.py QuantDense; weights from quantize_llama_params)
     quant: Optional[str] = None
 
     def __post_init__(self):
@@ -74,8 +79,6 @@ class LlamaConfig:
                 f"n_kv_heads={self.n_kv_heads} (GQA groups)")
         if self.quant not in (None, "int8"):
             raise ValueError(f"quant={self.quant!r}; valid: None, 'int8'")
-        if self.quant is not None:
-            raise NotImplementedError("quant='int8' is not ported yet")
         if self.remat_policy not in ("full", "dots"):
             raise ValueError(f"remat_policy={self.remat_policy!r}; "
                              f"valid: 'full', 'dots'")
@@ -109,48 +112,13 @@ class LlamaConfig:
                            max_seq_len=128, **kw)
 
 
-def _dense(cfg: LlamaConfig, d_in: int, d_out: int) -> nn.Linear:
-    return nn.Linear(d_in, d_out, bias=False, dtype=cfg.param_dtype)
-
-
-def _apply_dense(layer: nn.Linear, x: torch.Tensor,
-                 dtype: torch.dtype) -> torch.Tensor:
-    """flax nn.Dense(dtype=...): operands cast to the compute type."""
-    return F.linear(x.to(dtype), layer.weight.to(dtype))
-
-
-class _MatmulFp32Out(torch.autograd.Function):
-    """x (N, d) @ w (V, d)^T on CUDA with low-precision operands and an
-    fp32 result (`torch.mm(out_dtype=float32)`, which has no derivative
-    of its own). The backward rounds the fp32 output gradient to the
-    operands' type and runs the two products on the tensor cores, as
-    autocast does for a bf16 matmul; dx and dw come back in that type."""
-
-    @staticmethod
-    def forward(ctx, x, w):
-        ctx.save_for_backward(x, w)
-        return torch.mm(x, w.t(), out_dtype=torch.float32)
-
-    @staticmethod
-    def backward(ctx, g):
-        x, w = ctx.saved_tensors
-        g = g.to(x.dtype)
-        dx = torch.mm(g, w) if ctx.needs_input_grad[0] else None
-        dw = torch.mm(g.t(), x) if ctx.needs_input_grad[1] else None
-        return dx, dw
-
-
-def logits_fp32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x (..., d) @ w (V, d)^T with w cast to x's type and fp32
-    accumulation, returned in fp32 (never rounded to x's type)."""
-    w = w.to(x.dtype)
-    if x.dtype == torch.float32:
-        return x @ w.t()
-    if x.is_cuda:
-        out = _MatmulFp32Out.apply(x.reshape(-1, x.shape[-1]), w)
-        return out.reshape(*x.shape[:-1], w.shape[0])
-    # a bf16 value is exact in fp32, so this is the same product
-    return x.float() @ w.float().t()
+def _dense(cfg: LlamaConfig, d_in: int, d_out: int) -> nn.Module:
+    """A projection: `Dense`, or `QuantDense` under quant='int8' (same
+    place in the state_dict; `weight` becomes `kernel_q` and `scale`)."""
+    if cfg.quant == "int8":
+        return QuantDense(d_in, d_out, dtype=cfg.dtype)
+    return Dense(d_in, d_out, bias=False, dtype=cfg.dtype,
+                 param_dtype=cfg.param_dtype)
 
 
 class LlamaAttention(nn.Module):
@@ -167,12 +135,9 @@ class LlamaAttention(nn.Module):
         cfg = self.cfg
         hd = cfg.head_dim
         b, s, _ = x.shape
-        q = _apply_dense(self.q_proj, x, cfg.dtype).view(b, s, cfg.n_heads,
-                                                         hd)
-        k = _apply_dense(self.k_proj, x, cfg.dtype).view(b, s,
-                                                         cfg.n_kv_heads, hd)
-        v = _apply_dense(self.v_proj, x, cfg.dtype).view(b, s,
-                                                         cfg.n_kv_heads, hd)
+        q = self.q_proj(x).view(b, s, cfg.n_heads, hd)
+        k = self.k_proj(x).view(b, s, cfg.n_kv_heads, hd)
+        v = self.v_proj(x).view(b, s, cfg.n_kv_heads, hd)
         q = apply_rotary(q, cos, sin, positions)
         k = apply_rotary(k, cos, sin, positions)
         new_cache = None
@@ -181,7 +146,7 @@ class LlamaAttention(nn.Module):
         else:
             out, new_cache = cached_attention(q, k, v, cache, positions)
         out = out.reshape(b, s, cfg.n_heads * hd)
-        return _apply_dense(self.o_proj, out, cfg.dtype), new_cache
+        return self.o_proj(out), new_cache
 
 
 class LlamaMLP(nn.Module):
@@ -193,10 +158,7 @@ class LlamaMLP(nn.Module):
         self.down_proj = _dense(cfg, cfg.d_ff, cfg.d_model)
 
     def forward(self, x):
-        dt = self.cfg.dtype
-        gate = _apply_dense(self.gate_proj, x, dt)
-        up = _apply_dense(self.up_proj, x, dt)
-        return _apply_dense(self.down_proj, swiglu(gate, up), dt)
+        return self.down_proj(swiglu(self.gate_proj(x), self.up_proj(x)))
 
 
 class LlamaBlock(nn.Module):
@@ -241,24 +203,33 @@ def _save_dots(ctx, op, *args, **kwargs):
     return CheckpointPolicy.PREFER_RECOMPUTE
 
 
-def _remat_block(block: "LlamaBlock", policy: str, x, cos, sin):
-    """block(x, cos, sin) under activation checkpointing."""
+def _remat_block(block: nn.Module, policy: str, *args):
+    """block(*args) under activation checkpointing."""
     kw = {}
     if policy == "dots":
         kw["context_fn"] = lambda: create_selective_checkpoint_contexts(
             _save_dots)
-    return checkpoint(block, x, cos, sin, use_reentrant=False, **kw)
+    return checkpoint(block, *args, use_reentrant=False, **kw)
 
 
-def _lecun_normal_(w: torch.Tensor, gen: torch.Generator) -> None:
+def _lecun_normal_(w: torch.Tensor, gen: torch.Generator,
+                   fan_in: Optional[int] = None) -> None:
     """flax lecun_normal: truncated normal (+-2 std) with variance
-    1/fan_in; fan_in is the input width, dim 1 of a (out, in) weight.
-    Drawn in fp32, then stored in the weight's type."""
-    fan_in = w.shape[1]
+    1/fan_in; fan_in is the input width, dim 1 of a (out, in) weight,
+    unless given (flax counts a stacked (E, in, out) kernel's fan-in as
+    E * in). Drawn in fp32, then stored in the weight's type."""
+    fan_in = fan_in or w.shape[1]
     std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
     tmp = torch.empty(w.shape, dtype=torch.float32, device=w.device)
     nn.init.trunc_normal_(tmp, 0.0, std, -2.0 * std, 2.0 * std,
                           generator=gen)
+    w.copy_(tmp)
+
+
+def _normal_(w: torch.Tensor, std: float, gen: torch.Generator) -> None:
+    """flax normal(std), drawn in fp32, stored in the weight's type."""
+    tmp = torch.empty(w.shape, dtype=torch.float32, device=w.device)
+    tmp.normal_(0.0, std, generator=gen)
     w.copy_(tmp)
 
 
@@ -296,12 +267,12 @@ class Llama(nn.Module):
             if name.endswith("norm"):
                 p.fill_(1.0)
             elif name == "token_embed.weight":
-                tmp = torch.empty(p.shape, dtype=torch.float32,
-                                  device=p.device)
-                tmp.normal_(0.0, 0.02, generator=gen)
-                p.copy_(tmp)
+                _normal_(p, 0.02, gen)
             else:
                 _lecun_normal_(p, gen)
+        for m in self.modules():
+            if isinstance(m, QuantDense):
+                m.reset_parameters()
 
     @property
     def blocks(self) -> List[LlamaBlock]:

@@ -1,10 +1,13 @@
 """Tensor ops of the port (counterpart of ray_tpu/ops/)."""
-from .activations import swiglu
+from .activations import geglu, gelu, swiglu
 from .attention import (PagedKV, cached_attention, einsum_attention,
                         multi_head_attention, paged_cached_attention)
-from .norms import rms_norm
+from .moe import MoEAux, expert_capacity, moe_dispatch_combine, top_k_routing
+from .norms import layer_norm, rms_norm
 from .rotary import apply_rotary, rope_frequencies
 
-__all__ = ["swiglu", "PagedKV", "cached_attention", "einsum_attention",
-           "multi_head_attention", "paged_cached_attention", "rms_norm",
-           "apply_rotary", "rope_frequencies"]
+__all__ = ["swiglu", "geglu", "gelu", "PagedKV", "cached_attention",
+           "einsum_attention", "multi_head_attention",
+           "paged_cached_attention", "rms_norm", "layer_norm",
+           "apply_rotary", "rope_frequencies", "moe_dispatch_combine",
+           "top_k_routing", "expert_capacity", "MoEAux"]

@@ -102,6 +102,22 @@ def test_flash_plain_matches_pallas_d64_ragged(causal):
                                rtol=0)
 
 
+def test_flash_plain_matches_pallas_vit_shape():
+    """ViT-base's attention (the zoo's non-causal K1 route): 197 tokens
+    (196 patches and the class token), Hq = Hkv = 12, D 64, against the
+    Pallas forward."""
+    rng = np.random.RandomState(4)
+    b, s, h, d = 1, 197, 12, 64
+    q, k, v = (rng.randn(b, s, h, d).astype(np.float32) for _ in range(3))
+    want = j_flash.flash_attention(jnp.asarray(q), jnp.asarray(k),
+                                   jnp.asarray(v), causal=False,
+                                   block_q=16, block_k=16, interpret=True)
+    out, _ = t_flash.flash_attention_plain(_t(q), _t(k), _t(v),
+                                           causal=False)
+    np.testing.assert_allclose(out.numpy(), np.asarray(want), atol=ATOL,
+                               rtol=0)
+
+
 def _bwd_case(causal, hq, hkv, s, d=16, b=2):
     return pytest.param(causal, hq, hkv, s, d, b,
                         id="-".join(map(str, (causal, hq, hkv, s)))
@@ -457,7 +473,7 @@ def test_kernel_modules_import_without_nvcc_or_triton():
     assert res.stdout.strip() == "ok"
 
 
-_FOREIGN = ("jax", "ray_tpu", "optax", "flax", "orbax")
+_FOREIGN = ("jax", "ray_tpu", "optax", "flax", "orbax", "transformers")
 
 
 def _leaks(module_list):
@@ -468,8 +484,9 @@ def _leaks(module_list):
 
 def test_port_imports_no_jax_and_no_ray_tpu():
     """Importing every module of ray_tpu_torch, and chip_smoke.py, leaves
-    jax, ray_tpu / ray_tpu.*, optax, flax and orbax out of sys.modules
-    (ray_tpu_torch itself shares the prefix, hence the exact match)."""
+    jax, ray_tpu / ray_tpu.*, optax, flax, orbax and transformers out of
+    sys.modules (ray_tpu_torch itself shares the prefix, hence the exact
+    match)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import ray_tpu_torch\n"
@@ -492,7 +509,12 @@ def test_port_imports_no_jax_and_no_ray_tpu():
                  "ray_tpu_torch.util.knobs",
                  "ray_tpu_torch.ops.kernels.rmsnorm", "ray_tpu_torch.train.spmd",
                  "ray_tpu_torch.train.optim", "ray_tpu_torch.train.checkpoint",
-                 "ray_tpu_torch.parallel.precision"):
+                 "ray_tpu_torch.parallel.precision",
+                 "ray_tpu_torch.models.mixtral", "ray_tpu_torch.models.gpt2",
+                 "ray_tpu_torch.models.vit", "ray_tpu_torch.models.clip",
+                 "ray_tpu_torch.models.mlp", "ray_tpu_torch.ops.moe",
+                 "ray_tpu_torch.ops.quant", "ray_tpu_torch.ops.linear",
+                 "ray_tpu_torch.train.adapters", "ray_tpu_torch.entry"):
         assert name in mods.split()
 
 

@@ -186,10 +186,16 @@ def test_bf16_config_gives_fp32_logits():
 
 
 def test_unported_options_raise():
-    """int8 and attn_impl are not ported; remat is (its gradients are
-    checked in tests/test_torch_train.py)."""
-    with pytest.raises(NotImplementedError):
-        LlamaConfig.debug(quant="int8")
+    """attn_impl is not ported; int8 is (it builds QuantDense
+    projections, held against the JAX int8 Llama in
+    tests/test_torch_zoo.py) and so is remat (its gradients are checked
+    in tests/test_torch_train.py)."""
+    m = Llama(LlamaConfig.debug(quant="int8", dtype=torch.float32),
+              device="cpu")
+    q = m.state_dict()["layer_0.attention.q_proj.kernel_q"]
+    assert q.dtype == torch.int8 and q.shape == (64, 64)
+    with pytest.raises(ValueError):
+        LlamaConfig.debug(quant="int4")
     with pytest.raises(NotImplementedError):
         LlamaConfig.debug(attn_impl="pallas")
     with pytest.raises(ValueError):
