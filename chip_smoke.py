@@ -5,7 +5,7 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
-It builds every CUDA kernel from `ray_tpu_torch/csrc/`, then runs nine
+It builds every CUDA kernel from `ray_tpu_torch/csrc/`, then runs ten
 phases and fails (non-zero exit, no result line) if any of them fails:
 
 1. kernels: each kernel against its plain PyTorch version at
@@ -98,10 +98,27 @@ phases and fails (non-zero exit, no result line) if any of them fails:
    on the GPU (K1/K2a/K2b) give the CPU's loss and grad_norm, and so
    does one GPU step under remat "dots" (selective checkpointing; K1
    runs twice per layer).
-9. north-star: pretrain the flagship widths on a repeating corpus,
+9. grpo: post-training through the engine, 2 prompts a step of 64-224
+   random tokens, groups of 8, 32 new tokens at temperature 1, 2 steps,
+   the paged engine sampling (K1 on prefill, K3 on decode). (a)
+   Full-parameter GRPO on the train phase's model (8 of 32 layers at 8B
+   widths, fp32 params, bf16 compute, remat); the engine shares the
+   learner's module, so its weights are the learner's after each step.
+   (b) LoRA GRPO over Llama-3-8B at full depth, a frozen bf16 base and
+   rank-8 adapters on the default targets; the engine's own copy holds
+   merge_lora(base, adapters) after each step, bit for bit, and the base
+   stays bit-identical. Each: in-vocab completions, finite stats, kl > 0
+   after the first update (the reference is frozen), K1/K2a/K2b launched
+   by the learner exactly as the path implies, the step's sample,
+   log-prob and update times and peak memory. (c) fp32 parity at the
+   flagship widths: one GRPOLearner.update, full and over LoRA adapters,
+   on the GPU against the CPU (stats, gradients, updated params).
+10. north-star: pretrain the flagship widths on a repeating corpus,
    checkpoint through CheckpointManager, restore, and serve the restored
    weights through LLMServer: the greedy continuation must match the
-   corpus at least once in 6 tokens.
+   corpus at least once in 6 tokens; then GRPO post-train the restored
+   model through the engine sampler for 6 steps: the reward must not
+   fall by more than 0.5 and every loss is finite.
 
 The last three lines are a JSON object listing each kernel (with its
 launches on each path, the zoo's bursts and ViT's forward among them), the card's name and power limit as nvidia-smi
@@ -149,7 +166,9 @@ K1_ATOL_FP32 = 1e-4     # fp32 (out and lse): exact products, sums in
 # D 64 shapes: ViT-base's non-causal forward (8 images, S 197, 12/12
 # heads) and GPT-2 small's largest prefill groups (4 x 512 and 1 x 1024,
 # causal, 12/12 heads). bf16 D 32 and 16 take the mma.sync kernel, fp32
-# the scalar one (the train-parity phase's head shape).
+# the scalar one (the train-parity phase's head shape). Last, the GRPO
+# update's batch: 16 completions (2 prompts x 8) of a ragged 287 tokens,
+# Llama-3-8B heads.
 K1_SHAPES = [(1, 128, True, 32, 8, 128, "bfloat16"),
              (4, 512, True, 32, 8, 128, "bfloat16"),
              (1, 2048, True, 32, 8, 128, "bfloat16"),
@@ -165,7 +184,8 @@ K1_SHAPES = [(1, 128, True, 32, 8, 128, "bfloat16"),
              (1, 1024, True, 12, 12, 64, "bfloat16"),
              (1, 130, True, 8, 4, 32, "bfloat16"),
              (2, 40, False, 8, 2, 16, "bfloat16"),
-             (2, 256, True, 8, 4, 64, "float32")]
+             (2, 256, True, 8, 4, 64, "float32"),
+             (16, 287, True, 32, 8, 128, "bfloat16")]
 K1_TIMED = [(1, 128), (4, 512), (1, 2048)]   # causal D 128 bf16 shapes
 K1_RECORD = (1, 2048)                         # shape written to the JSON
 # K2a/K2b vs their plain versions, bf16. Both round dS (and K2b P) to
@@ -183,14 +203,15 @@ K2_ATOL_FP32 = 1e-4     # fp32: exact products, sums in another order
 # streamed tiles): S 32 is the north-star phase's shape (FLAGSHIP
 # heads), shorter than one tile; S 130 and 1000 end inside a tile; Hq =
 # Hkv has no GQA group. D 32 and 16 take the mma.sync kernels, at ragged
-# S and a GQA group of 2 and 4.
+# S and a GQA group of 2 and 4. Last, the GRPO update's batch (16 x 287,
+# Llama-3-8B heads).
 K2_SHAPES = [(1, 128, True, 32, 8, 128), (4, 512, True, 32, 8, 128),
              (1, 2048, True, 32, 8, 128), (2, 2048, True, 32, 8, 128),
              (1, 1024, False, 32, 8, 128), (1, 1000, True, 32, 8, 128),
              (1, 1000, False, 32, 8, 128), (1, 512, True, 8, 8, 128),
              (4, 32, True, 8, 4, 64), (1, 130, True, 8, 4, 64),
              (2, 130, False, 8, 8, 64), (1, 130, True, 8, 4, 32),
-             (2, 40, False, 8, 2, 16)]
+             (2, 40, False, 8, 2, 16), (16, 287, True, 32, 8, 128)]
 K2_RECORD = (2, 2048, True, 32, 8, 128)
 # fp32 at the train-parity phase's head shape (Hq 8, Hkv 4, D 64)
 K2_FP32_SHAPES = [(2, 256, True), (1, 300, False)]
@@ -2154,16 +2175,379 @@ def phase_train_parity(torch):
     torch.cuda.empty_cache()
 
 
+GRPO_LAYERS = 8           # depth cut of (a): full-parameter, 8B widths
+GRPO_PROMPTS = 2          # prompts a step ...
+GRPO_PLENS = (64, 224)    # ... of this many random tokens (inclusive)
+GRPO_GROUP = 8
+GRPO_NEW = 32
+GRPO_STEPS = 2
+GRPO_RANK = 8
+# (a) takes GRPOConfig's default lr; (b) 1e-4, since a merge rounds the
+# delta into the bf16 base: at 1e-5 the first step's delta (~7e-6) is
+# below half a bf16 ulp of most base weights, the merged policy would not
+# move and its KL would read 0
+GRPO_LR_FULL, GRPO_LR_LORA = 1e-5, 1e-4
+GRPO_PARITY_RTOL = 1e-4
+# parity of the update's params: Adam steps an element by lr * g / (|g| +
+# 1e-8), so an element whose gradient is at rounding level (below this,
+# where the GPU's and the CPU's sums may differ in sign) may step by a
+# different fraction of lr on each; those are counted and printed, every
+# other element is held to rtol 1e-4 plus lr / 10
+GRPO_GRAD_FLOOR = 1e-7
+
+
+def grpo_reward(prompt_ids, completion_ids):
+    """Counts target tokens, the ids divisible by 7: one target id would
+    almost never come up in 32 draws over 128256 ids, every reward would
+    be 0, and so would every advantage."""
+    return float(sum(1 for t in completion_ids if int(t) % 7 == 0))
+
+
+def grpo_engine_cfg(gcfg):
+    """EngineSampler's default engine config plus kv_page_size=16: the
+    paged engine, whose prefill runs K1 and decode K3."""
+    from ray_tpu_torch.serve.llm import LLMEngineConfig
+    return LLMEngineConfig(
+        max_slots=min(16, max(2, gcfg.group_size)), max_seq_len=512,
+        prefill_buckets=(16, 32, 64, 128, 256),
+        max_new_tokens_default=gcfg.max_new_tokens,
+        eos_token_id=CONTROLS_EOS, kv_page_size=16)
+
+
+class CountingSampler:
+    """A sampler that counts the K1 and K3 launches made while it samples
+    and keeps every completion it returned."""
+
+    def __init__(self, sampler):
+        from ray_tpu_torch.ops.kernels import flash_attention as fa
+        from ray_tpu_torch.ops.kernels import paged_attention as pa
+        self.sampler, self.fa, self.pa = sampler, fa, pa
+        self.k1 = self.k3 = 0
+        self.tokens = []
+
+    def __call__(self, prompt_ids, group):
+        k1 = self.fa.flash_attention_fwd.launches
+        k3 = self.pa.paged_decode_attention.launches
+        toks = self.sampler(prompt_ids, group)
+        self.k1 += self.fa.flash_attention_fwd.launches - k1
+        self.k3 += self.pa.paged_decode_attention.launches - k3
+        self.tokens.append(toks)
+        return toks
+
+    def set_params(self, params):
+        self.sampler.set_params(params)
+
+    def shutdown(self):
+        self.sampler.shutdown()
+
+
+def grpo_run(torch, trainer, label, n_layers, vocab, gpu_line,
+             after_step):
+    """GRPO_STEPS steps of `trainer` on GRPO_PROMPTS random prompts.
+
+    Launch counts, read over the steps (counters zeroed just before):
+    sampling launches K1 (each prefill dispatch, a launch a layer) and K3
+    (each decode step, a launch a layer), counted apart by
+    CountingSampler; the learner launches, per layer and step, K1 2 for
+    the old and the reference log-probs (no grad, no remat) plus 2 per
+    epoch (the update's forward and its remat recompute), and K2a 1 and
+    K2b 1 per epoch."""
+    import numpy as np
+    from ray_tpu_torch.ops.kernels import flash_attention as fa
+    from ray_tpu_torch.ops.kernels import paged_attention as pa
+    rng = np.random.RandomState(7)
+    prompts = [rng.randint(0, vocab, rng.randint(GRPO_PLENS[0],
+                                                 GRPO_PLENS[1] + 1)).tolist()
+               for _ in range(GRPO_PROMPTS)]
+    counting = CountingSampler(trainer.sampler)
+    trainer.sampler = counting
+    zero_counters(fa)
+    pa.paged_decode_attention.launches = 0
+    stats = []
+    for i in range(GRPO_STEPS):
+        st = trainer.step(prompts)
+        torch.cuda.synchronize()
+        t = trainer.timings
+        print(f"{label}: step {i} prompts {[len(p) for p in prompts]} "
+              f"sample {t['sample_s'] * 1e3:.1f} ms, log-probs "
+              f"{t['logps_s'] * 1e3:.1f} ms, update {t['update_s'] * 1e3:.1f}"
+              f" ms; " + ", ".join(f"{k} {v:.6g}" for k, v in st.items())
+              + f" [{gpu_line}]", flush=True)
+        after_step(i)
+        stats.append(st)
+    launches = read_counters(fa)
+    launches["paged_decode (K3)"] = pa.paged_decode_attention.launches
+    epochs, steps = trainer.cfg.num_epochs, GRPO_STEPS
+    learner_k1 = launches["flash_fwd (K1)"] - counting.k1
+    want_k1 = (2 + 2 * epochs) * n_layers * steps
+    want_k2 = epochs * n_layers * steps
+    print(f"{label}: launches {json.dumps(launches)}; sampling K1 "
+          f"{counting.k1}, K3 {counting.k3}; learner K1 {learner_k1} "
+          f"(expected (2 + 2 x {epochs}) x {n_layers} x {steps} = "
+          f"{want_k1}), K2a/K2b expected {epochs} x {n_layers} x {steps} = "
+          f"{want_k2}", flush=True)
+    toks = np.concatenate([t.reshape(-1) for t in counting.tokens])
+    check(((toks >= 0) & (toks < vocab)).all(),
+          f"{label}: a sampled token is out of vocab")
+    for st in stats:
+        for k in ("total_loss", "pg_loss", "kl", "reward_mean"):
+            check(math.isfinite(st[k]), f"{label}: non-finite {k}: {st}")
+    check(stats[1]["kl"] > 0, f"{label}: kl is {stats[1]['kl']} after the "
+                              f"first update: is the reference frozen?")
+    check(counting.k1 > 0 and counting.k3 > 0
+          and launches["paged_decode (K3)"] == counting.k3,
+          f"{label}: sampling launched K1 {counting.k1}, K3 {counting.k3}")
+    check(learner_k1 == want_k1
+          and launches["flash_bwd_dq (K2a)"] == want_k2
+          and launches["flash_bwd_dkv (K2b)"] == want_k2,
+          f"{label}: unexpected learner launches {launches}")
+    return launches
+
+
+def grpo_full(torch, gpu_line):
+    """(a) Full-parameter GRPO on the train phase's model (Llama-3-8B
+    widths, GRPO_LAYERS layers, bf16 compute, fp32 params, remat): the
+    engine sampler shares the learner's module, so after each step its
+    weights are the learner's, the same tensors."""
+    from ray_tpu_torch.models import Llama, LlamaConfig
+    from ray_tpu_torch.rllib import EngineSampler, GRPOConfig, GRPOTrainer
+    cfg = LlamaConfig.llama3_8b(n_layers=GRPO_LAYERS, dtype=torch.bfloat16,
+                                param_dtype=torch.float32)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    model = Llama(cfg, device="cuda", seed=0)
+    gcfg = GRPOConfig(group_size=GRPO_GROUP, max_new_tokens=GRPO_NEW,
+                      lr=GRPO_LR_FULL, temperature=1.0, seed=0)
+    sampler = EngineSampler(model, None, gcfg, eos_id=CONTROLS_EOS,
+                            engine_cfg=grpo_engine_cfg(gcfg))
+    trainer = GRPOTrainer(model=model, reward_fn=grpo_reward, cfg=gcfg,
+                          eos_id=CONTROLS_EOS, sampler=sampler,
+                          device="cuda")
+    engine = sampler.engine
+    n = sum(p.numel() for p in model.parameters())
+    print(f"grpo-full: Llama-3-8B widths, {cfg.n_layers} layers, "
+          f"{n / 1e9:.3f}B params fp32 / bf16 compute, remat={cfg.remat}, "
+          f"group {GRPO_GROUP}, {GRPO_NEW} new tokens, lr {GRPO_LR_FULL}, "
+          f"paged engine; built in {time.time() - t0:.1f} s", flush=True)
+
+    def same_weights(step):
+        shared = all(engine.params[k].data_ptr() == p.data_ptr()
+                     and torch.equal(engine.params[k], p)
+                     for k, p in trainer.params.items())
+        print(f"grpo-full: step {step}: engine weights are the learner's "
+              f"(shared, bit for bit): {shared}", flush=True)
+        check(shared, "the engine's weights differ from the learner's")
+
+    try:
+        launches = grpo_run(torch, trainer, "grpo-full", cfg.n_layers,
+                            cfg.vocab_size, gpu_line, same_weights)
+    finally:
+        trainer.shutdown()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"grpo-full: peak memory {peak / 2**30:.2f} GiB "
+          f"(max_memory_allocated) [{gpu_line}]", flush=True)
+    del trainer, sampler, engine, model
+    release(torch)
+    return launches
+
+
+def grpo_lora(torch, gpu_line):
+    """(b) LoRA GRPO over Llama-3-8B at full depth: a frozen bf16 base,
+    rank GRPO_RANK adapters on DEFAULT_TARGETS; the engine samples on its
+    own copy of the module, which holds merge_lora(base, adapters) after
+    each step; the base stays bit-identical."""
+    from ray_tpu_torch.models import Llama, LlamaConfig
+    from ray_tpu_torch.rllib import GRPOConfig, make_lora_grpo_trainer
+    from ray_tpu_torch.train import init_lora, lora_param_count
+    from ray_tpu_torch.train.lora import lora_delta, unflatten_adapters
+    cfg = LlamaConfig.llama3_8b(dtype=torch.bfloat16,
+                                param_dtype=torch.bfloat16)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    model = Llama(cfg, device="cuda", seed=0)
+    base = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    lora = init_lora(model, 1, rank=GRPO_RANK)
+    gcfg = GRPOConfig(group_size=GRPO_GROUP, max_new_tokens=GRPO_NEW,
+                      lr=GRPO_LR_LORA, temperature=1.0, seed=0)
+    trainer = make_lora_grpo_trainer(
+        model, None, lora, grpo_reward, cfg=gcfg, eos_id=CONTROLS_EOS,
+        engine_cfg=grpo_engine_cfg(gcfg), device="cuda")
+    engine = trainer.sampler.engine
+    scaling = lora["alpha"] / lora["rank"]
+    print(f"grpo-lora: Llama-3-8B, {cfg.n_layers} layers, frozen bf16 base, "
+          f"rank {GRPO_RANK} on {len(lora['adapters'])} weights "
+          f"({lora_param_count(lora) / 1e6:.2f} M adapter params), lr "
+          f"{GRPO_LR_LORA}, paged engine on its own copy; built in "
+          f"{time.time() - t0:.1f} s", flush=True)
+
+    def merged_weights(step):
+        adapters = unflatten_adapters(trainer.params)
+        ok = True
+        with torch.no_grad():
+            for name, p in model.named_parameters():
+                want = p
+                if name in adapters:
+                    want = p + lora_delta(adapters[name], scaling, p.dtype)
+                ok = ok and torch.equal(engine.params[name], want)
+        print(f"grpo-lora: step {step}: engine weights equal merge_lora(base,"
+              f" adapters) bit for bit: {ok}", flush=True)
+        check(ok, "the engine's weights differ from the merge")
+
+    try:
+        launches = grpo_run(torch, trainer, "grpo-lora", cfg.n_layers,
+                            cfg.vocab_size, gpu_line, merged_weights)
+    finally:
+        trainer.shutdown()
+    peak = torch.cuda.max_memory_allocated()
+    same = all(torch.equal(v.cpu(), base[k])
+               for k, v in model.state_dict().items())
+    print(f"grpo-lora: base bit-identical after {GRPO_STEPS} steps: {same}; "
+          f"peak memory {peak / 2**30:.2f} GiB (max_memory_allocated) "
+          f"[{gpu_line}]", flush=True)
+    check(same, "the frozen base moved")
+    del trainer, engine, model, base, lora
+    release(torch)
+    return launches
+
+
+def grpo_parity_batch(np, vocab):
+    """A fixed GRPO batch: 8 rows of a ragged 40 tokens, prompts of 8-20
+    tokens, completions cut by EOS at random places and EOS-padded, the
+    masks the trainer builds for them, right padding with 0."""
+    rng = np.random.RandomState(11)
+    rows, width = 8, 40
+    tokens = np.zeros((rows, width), np.int64)
+    mask = np.zeros((rows, width - 1), np.float32)
+    eos = vocab - 1
+    for r in range(rows):
+        plen = rng.randint(8, 21)
+        total = rng.randint(plen + 4, width + 1)
+        tokens[r, :total] = rng.randint(0, vocab - 1, total)
+        end = rng.randint(1, total - plen + 1)
+        tokens[r, plen + end - 1:total] = eos
+        mask[r, plen - 1:plen - 1 + end] = 1.0
+    return {"tokens": tokens, "mask": mask,
+            "advantages": rng.standard_normal(rows).astype(np.float32)}
+
+
+def grpo_parity(torch):
+    """(c) fp32 (TF32 off) at FLAGSHIP widths: one GRPOLearner.update,
+    full-parameter and over LoRA adapters, on the GPU (K1/K2a/K2b fp32)
+    against the same on the CPU, from the same weights and batch: the
+    stats, the gradients, and the updated params."""
+    import numpy as np
+    from ray_tpu_torch.models import Llama, LlamaConfig
+    from ray_tpu_torch.ops.kernels import flash_attention as fa
+    from ray_tpu_torch.rllib import GRPOConfig, make_lora_grpo_trainer
+    from ray_tpu_torch.rllib.grpo import GRPOLearner, module_apply
+    from ray_tpu_torch.train import init_lora
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = LlamaConfig(**FLAGSHIP, dtype=torch.float32,
+                      param_dtype=torch.float32)
+    gcfg = GRPOConfig(lr=1e-4, kl_coeff=0.1, grad_clip=1.0)
+    cpu_model = Llama(cfg, device="cpu", seed=3)
+    weights = {k: v.clone() for k, v in cpu_model.state_dict().items()}
+    batch = grpo_parity_batch(np, cfg.vocab_size)
+    with torch.no_grad():
+        start = GRPOLearner(module_apply(cpu_model), dict(
+            cpu_model.named_parameters()), gcfg).token_logps(
+            dict(cpu_model.named_parameters()), batch["tokens"])
+    rng = np.random.RandomState(12)
+    batch["old_logps"] = (start + 0.2 * rng.standard_normal(start.shape)
+                          ).astype(np.float32)
+    batch["ref_logps"] = (start + 0.1 * rng.standard_normal(start.shape)
+                          ).astype(np.float32)
+    lora = init_lora(cpu_model, 4, rank=8)
+    gen = torch.Generator().manual_seed(5)
+    for pair in lora["adapters"].values():
+        pair["B"] = torch.randn(pair["B"].shape, generator=gen) * 0.01
+
+    def learner_for(kind, dev):
+        model = Llama(cfg, device=dev, seed=3)
+        model.load_state_dict(weights)
+        if kind == "full":
+            return GRPOLearner(module_apply(model), dict(
+                model.named_parameters()), gcfg), None
+        dl = {**lora, "adapters": {k: {n: t.to(dev) for n, t in p.items()}
+                                   for k, p in lora["adapters"].items()}}
+        tr = make_lora_grpo_trainer(model, None, dl, None, cfg=gcfg,
+                                    max_seq_len=64, device=dev)
+        return tr.learner, tr.sampler
+
+    for kind in ("full", "lora"):
+        res = {}
+        for dev in ("cuda", "cpu"):
+            learner, sampler = learner_for(kind, dev)
+            zero_counters(fa)
+            loss, _ = learner.loss(learner._tensors(batch))
+            loss.backward()
+            grads = {k: p.grad.detach().cpu().clone()
+                     for k, p in learner.params.items()}
+            for p in learner.params.values():
+                p.grad = None
+            stats = learner.update(batch)
+            params = {k: p.detach().cpu().clone()
+                      for k, p in learner.params.items()}
+            res[dev] = (stats, grads, params, read_counters(fa))
+            if sampler is not None:
+                sampler.shutdown()
+            del learner, sampler
+        (gs, gg, gp, launches), (cs, cg, cp, _) = res["cuda"], res["cpu"]
+        for k in cs:
+            print(f"grpo-parity: {kind} {k} gpu {gs[k]:.8g} cpu {cs[k]:.8g}",
+                  flush=True)
+        ok_stats = all(abs(gs[k] - cs[k]) <= GRPO_PARITY_RTOL * abs(cs[k])
+                       for k in cs)
+        ok_grads = all(bool(((gg[k] - cg[k]).abs() <= GRPO_PARITY_RTOL
+                             * cg[k].abs() + 1e-5 * cg[k].abs().max()).all())
+                       for k in cg)
+        bad = low = 0
+        for k in cp:
+            off = (gp[k] - cp[k]).abs() > (GRPO_PARITY_RTOL * cp[k].abs()
+                                           + gcfg.lr / 10)
+            floor = (cg[k].abs() <= GRPO_GRAD_FLOOR) & (cg[k] != 0)
+            bad += int((off & ~floor).sum())
+            low += int(floor.sum())
+        n = sum(v.numel() for v in cp.values())
+        print(f"grpo-parity: {kind}: stats rtol {GRPO_PARITY_RTOL}: "
+              f"{ok_stats}; gradients rtol {GRPO_PARITY_RTOL} (+1e-5 of each tensor's "
+              f"largest): {ok_grads}; updated params rtol "
+              f"{GRPO_PARITY_RTOL} + lr/10: {bad} of {n} off ({low} with "
+              f"0 < |grad| <= {GRPO_GRAD_FLOOR} not held); GPU launches "
+              f"{json.dumps(launches)}", flush=True)
+        check(ok_stats and ok_grads and bad == 0,
+              f"the GPU's {kind} GRPO update differs from the CPU's")
+        check(all(v > 0 for v in launches.values()),
+              f"the GPU's {kind} update did not run K1/K2a/K2b: {launches}")
+    release(torch)
+
+
+def phase_grpo(torch, gpu_line):
+    """Post-training: (a) full-parameter GRPO at 8B widths, (b) LoRA GRPO
+    over the full-depth 8B, (c) the update's fp32 parity with the CPU."""
+    launches = {"grpo-full": grpo_full(torch, gpu_line),
+                "grpo-lora": grpo_lora(torch, gpu_line)}
+    grpo_parity(torch)
+    return launches
+
+
 def phase_north_star(torch):
     """Pretrain the flagship widths on a repeating corpus, checkpoint
-    through CheckpointManager, restore, and serve the restored weights
-    through LLMServer on the paged engine (tests/test_north_star.py
-    stages 1-3)."""
+    through CheckpointManager, restore, serve the restored weights
+    through LLMServer on the paged engine, then GRPO post-train the
+    restored model through the engine sampler (tests/test_north_star.py
+    stages 1-4; stage 4 with the reference test's reward and settings, on
+    EngineSampler's default contiguous engine). Returns stage 4's
+    K1/K2a/K2b launches."""
     import shutil
     import tempfile
 
     import numpy as np
     from ray_tpu_torch.models import Llama, LlamaConfig
+    from ray_tpu_torch.ops.kernels import flash_attention as fa
+    from ray_tpu_torch.rllib import GRPOConfig, GRPOTrainer
     from ray_tpu_torch.serve.llm import LLMServer
     from ray_tpu_torch.train import (CheckpointManager, make_optimizer,
                                      make_train_step, restore_pytree)
@@ -2208,9 +2592,41 @@ def phase_north_star(torch):
           f"{truth}, {hits}/6 match", flush=True)
     check(len(toks) == 6 and hits >= 1,
           "the served checkpoint does not continue the corpus")
-    del server, restored
+    del server
+
+    target = int(corpus[0, 0])
+
+    def reward(prompt_ids, completion_ids):
+        return float(sum(1 for t in completion_ids if t == target))
+
+    zero_counters(fa)
+    trainer = GRPOTrainer(params=restored, reward_fn=reward,
+                          model=Llama(cfg, device="cuda", seed=98),
+                          max_seq_len=64,
+                          cfg=GRPOConfig(group_size=4, max_new_tokens=8,
+                                         lr=5e-3, temperature=1.0),
+                          device="cuda")
+    try:
+        stats = [trainer.step([corpus[0, :8].tolist()]) for _ in range(6)]
+    finally:
+        trainer.shutdown()
+    launches = read_counters(fa)
+    early = statistics.mean(s["reward_mean"] for s in stats[:2])
+    late = statistics.mean(s["reward_mean"] for s in stats[-2:])
+    print(f"north-star: GRPO through the engine sampler, 6 steps: reward "
+          f"{[s['reward_mean'] for s in stats]}, total_loss "
+          f"{[round(s['total_loss'], 5) for s in stats]}; early {early:.3f}"
+          f" late {late:.3f}; launches {json.dumps(launches)}", flush=True)
+    check(late >= early - 0.5, f"GRPO moved the reward the wrong way: "
+                               f"{early} -> {late}")
+    check(all(math.isfinite(s["total_loss"]) for s in stats),
+          "non-finite GRPO loss")
+    check(launches["flash_bwd_dq (K2a)"] > 0,
+          f"the GRPO update did not run K1/K2a/K2b: {launches}")
+    del trainer, restored
     gc.collect()
     torch.cuda.empty_cache()
+    return launches
 
 
 def check_spills(build) -> None:
@@ -2294,10 +2710,12 @@ def main() -> None:
     launches.update(phase_zoo(torch, gpu_line))
     launches["train"] = phase_train(torch, gpu_line)
     phase_train_parity(torch)
-    phase_north_star(torch)
+    launches.update(phase_grpo(torch, gpu_line))
+    launches["north-star-grpo"] = phase_north_star(torch)
 
-    # each kernel's launches on the main paths (the serve bursts, train);
-    # K4 is on none: no model calls it, as in the reference
+    # each kernel's launches on the main paths (the serve bursts, train,
+    # GRPO full, LoRA and the north star's); K4 is on none: no model
+    # calls it, as in the reference
     for r in rows:
         by_path = {p: n[r["name"]] for p, n in launches.items()
                    if r["name"] in n}

@@ -6,7 +6,8 @@ port's `device=` (default "cuda") and `seed=`.
 """
 from .clip import CLIP, CLIPConfig, contrastive_loss
 from .convert import (clip_params_from_flax, gpt2_params_from_flax,
-                      llama_params_from_flax, mixtral_params_from_flax,
+                      llama_params_from_flax, lora_from_flax,
+                      mixtral_params_from_flax,
                       mlp_params_from_flax, resnet_params_from_flax,
                       vit_params_from_flax)
 from .gpt2 import GPT2, GPT2Config
@@ -53,6 +54,7 @@ __all__ = ["Llama", "LlamaConfig", "GPT2", "GPT2Config", "Mixtral",
            "MixtralConfig", "ViT", "ViTConfig", "CLIP", "CLIPConfig",
            "contrastive_loss", "MLP", "MLPConfig", "ResNetLite",
            "get_model", "register_model", "llama_params_from_flax",
+           "lora_from_flax",
            "mixtral_params_from_flax", "gpt2_params_from_flax",
            "vit_params_from_flax", "clip_params_from_flax",
            "mlp_params_from_flax", "resnet_params_from_flax"]

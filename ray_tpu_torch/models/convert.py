@@ -116,3 +116,24 @@ def resnet_params_from_flax(tree: Mapping[str, Any]
                             ) -> Dict[str, torch.Tensor]:
     """ResNetLite: convs and the head, GroupNorm `scale` and `bias`."""
     return _from_flax(tree, frozenset({"bias", "scale"}))
+
+
+def lora_from_flax(lora: Mapping[str, Any]) -> Dict[str, Any]:
+    """The reference's LoRA tree (`init_lora`'s {"rank", "alpha",
+    "adapters"}, adapters as numpy, None where a kernel has no adapter)
+    -> the port's (train/lora.py): keyed by the weight's name, A
+    (in, rank) -> A (rank, in) and B (rank, out) -> B (out, rank)."""
+    adapters = {}
+    for path, arr in _flatten(lora["adapters"]).items():
+        if arr is None:             # an untargeted position
+            continue
+        a = np.asarray(arr)
+        if len(path) < 3 or path[-2] != "kernel" or path[-1] not in "AB" \
+                or a.ndim != 2:
+            raise ValueError(f"unmapped flax LoRA leaf {'/'.join(path)} "
+                             f"{a.shape}")
+        name = ".".join(path[:-2]) + ".weight"
+        adapters.setdefault(name, {})[path[-1]] = torch.from_numpy(
+            np.array(a.T, order="C"))
+    return {"rank": int(lora["rank"]), "alpha": float(lora["alpha"]),
+            "adapters": adapters}

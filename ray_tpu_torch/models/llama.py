@@ -23,6 +23,7 @@ from typing import List, Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.func import functional_call
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
@@ -204,12 +205,23 @@ def _save_dots(ctx, op, *args, **kwargs):
 
 
 def _remat_block(block: nn.Module, policy: str, *args):
-    """block(*args) under activation checkpointing."""
+    """block(*args) under activation checkpointing.
+
+    The recompute in the backward runs with the tensors the block holds
+    now, not with those it holds when the backward runs: under
+    `torch.func.functional_call` (LoRA's merged weights, a frozen
+    reference's clone) the call has returned and restored the module's
+    own parameters by then."""
     kw = {}
     if policy == "dots":
         kw["context_fn"] = lambda: create_selective_checkpoint_contexts(
             _save_dots)
-    return checkpoint(block, *args, use_reentrant=False, **kw)
+    bound = dict(block.named_parameters())
+
+    def run(*a):
+        return functional_call(block, bound, a)
+
+    return checkpoint(run, *args, use_reentrant=False, **kw)
 
 
 def _lecun_normal_(w: torch.Tensor, gen: torch.Generator,

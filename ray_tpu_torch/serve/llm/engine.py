@@ -643,6 +643,50 @@ class LLMEngine:
         return out, n_emit, logps, last
 
     # ---- public API -----------------------------------------------------
+    @property
+    def params(self) -> Dict[str, torch.Tensor]:
+        """The weights every dispatch reads: the model's parameters, live
+        (the reference's `engine.params`)."""
+        return dict(self.model.named_parameters())
+
+    @params.setter
+    def params(self, state) -> None:
+        self.set_params(state)
+
+    def set_params(self, state) -> None:
+        """Put `state` (name -> tensor: some or all of the model's
+        parameters and buffers) into the model in place; the
+        reference's `engine.params = params`. The copy runs on the loop
+        thread between dispatches and under the engine's lock, so no
+        dispatch sees half the tree; steps already issued read the old
+        weights (they come before the copy on the stream). A tensor that
+        already is the model's own (a learner sharing the engine's
+        module) is not copied. Registered prefixes keep the KV they were
+        prefilled with, as in the reference, whose prefix caches also
+        outlive a swap."""
+        own = self.model.state_dict(keep_vars=True)
+        items = []
+        for name, src in state.items():
+            if name not in own:
+                raise KeyError(f"{name!r} is not a weight of the engine's "
+                               f"model")
+            dst = own[name]
+            if src.shape != dst.shape:
+                raise ValueError(f"{name}: shape {tuple(src.shape)} != the "
+                                 f"model's {tuple(dst.shape)}")
+            if (src.data_ptr() == dst.data_ptr() and src.dtype == dst.dtype
+                    and src.stride() == dst.stride()):
+                continue
+            items.append((dst, src))
+
+        def swap():
+            with self._lock, torch.no_grad():
+                for dst, src in items:
+                    dst.copy_(src)
+
+        if items:
+            self._run_on_loop(swap)
+
     def register_prefix(self, prefix_ids) -> int:
         """Prefill a shared prompt prefix (e.g. a system prompt) once;
         returns a prefix_id for submit(prefix_id=...). Needs

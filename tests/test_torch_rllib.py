@@ -1,0 +1,501 @@
+"""The port's rllib (ray_tpu_torch/rllib/) on the CPU: the non-slow tests
+of tests/test_rllib.py on the port, and the port against the JAX package
+on the same inputs: the action distributions, the RLModule forward on
+carried MLP params, and one PPO, DQN and SAC update on a fixed batch.
+
+Tolerances (fp32): the distributions to 1e-6; the module forward to
+rtol 1e-5 (small MLPs, sums in another order); the updates' stats to
+rtol 1e-4 and their params to rtol 1e-4 with atol lr / 10, as
+tests/test_torch_train.py holds Adam steps (an element whose gradient
+is at rounding level may step by a different fraction of lr in each
+framework). The learning tests stay `slow`, as in the reference.
+"""
+import numpy as np
+import pytest
+
+import jax
+import jax.numpy as jnp
+import torch
+
+from ray_tpu import rllib as jr
+from ray_tpu_torch import rllib as tr
+from ray_tpu_torch.models import mlp_params_from_flax
+from ray_tpu_torch.rllib import sample_batch as sb
+from ray_tpu_torch.rllib.rl_module import tree_copy_, tree_leaves
+
+CPU = dict(device="cpu")
+
+
+# ---------- the reference's tests, on the port ----------
+
+def test_cartpole_contract():
+    env = tr.CartPole(seed=0)
+    obs, _ = env.reset(seed=0)
+    assert obs.shape == (4,)
+    total = 0
+    for _ in range(10):
+        obs, r, tm, trunc, _ = env.step(env.action_space.sample(
+            np.random.default_rng(0)))
+        total += r
+        if tm or trunc:
+            break
+    assert total > 0
+
+
+def test_gridworld_reaches_goal():
+    env = tr.GridWorld(n=3)
+    env.reset()
+    for a in (1, 1, 3, 3):
+        obs, r, tm, trunc, _ = env.step(a)
+    assert tm and r == 1.0
+
+
+def test_vector_env_autoreset():
+    vec = tr.VectorEnv([lambda: tr.GridWorld(n=3, max_steps=5)] * 4)
+    obs, _ = vec.reset(seed=0)
+    assert obs.shape == (4, 2)
+    for _ in range(7):   # beyond max_steps: auto-reset must keep shape
+        obs, r, tm, trunc, _ = vec.step(np.zeros(4, np.int64))
+    assert obs.shape == (4, 2)
+
+
+def test_sample_batch_ops():
+    b1 = tr.SampleBatch({"x": np.arange(4), "y": np.ones(4)})
+    b2 = tr.SampleBatch({"x": np.arange(4, 6), "y": np.zeros(2)})
+    cat = tr.concat_samples([b1, b2])
+    assert cat.count == 6
+    mbs = list(cat.minibatches(3))
+    assert len(mbs) == 2 and mbs[0].count == 3
+    shuf = cat.shuffle(seed=0)
+    assert sorted(shuf["x"].tolist()) == list(range(6))
+
+
+def test_gae_matches_manual_and_reference():
+    rewards = np.array([[1.0], [1.0]], np.float32)
+    values = np.array([[0.5], [0.5]], np.float32)
+    terms = np.zeros((2, 1), np.float32)
+    last_v = np.array([0.5], np.float32)
+    adv, ret = tr.compute_gae(rewards, values, terms, last_v,
+                              gamma=0.9, lam=1.0)
+    assert np.isclose(adv[1, 0], 0.95)
+    assert np.isclose(adv[0, 0], 1.805)
+    assert np.allclose(ret, adv + values)
+    rng = np.random.RandomState(0)
+    args = (rng.rand(7, 3).astype(np.float32),
+            rng.rand(7, 3).astype(np.float32), rng.rand(7, 3) > 0.7,
+            rng.rand(3).astype(np.float32))
+    for got, want in zip(tr.compute_gae(*args), jr.compute_gae(*args)):
+        np.testing.assert_array_equal(got, want)
+
+
+def test_gae_respects_termination():
+    rewards = np.array([[1.0], [1.0]], np.float32)
+    values = np.array([[0.0], [0.0]], np.float32)
+    terms = np.array([[1.0], [0.0]], np.float32)
+    last_v = np.array([10.0], np.float32)
+    adv, _ = tr.compute_gae(rewards, values, terms, last_v,
+                            gamma=0.9, lam=1.0)
+    assert np.isclose(adv[0, 0], 1.0)
+
+
+def test_replay_buffer_ring():
+    buf = tr.ReplayBuffer(capacity=10, seed=0)
+    buf.add(tr.SampleBatch({"x": np.arange(8)}))
+    assert len(buf) == 8
+    buf.add(tr.SampleBatch({"x": np.arange(8, 16)}))
+    assert len(buf) == 10          # capped
+    s = buf.sample(32)
+    assert s.count == 32
+    assert s["x"].max() >= 8       # newer data present
+
+
+def test_episode_replay():
+    buf = tr.EpisodeReplayBuffer(capacity_episodes=2)
+    for i in range(3):
+        buf.add_episode(tr.SampleBatch({"x": np.full(4, i)}))
+    assert len(buf) == 2           # oldest evicted
+    flat = buf.sample(16)
+    assert 0 not in flat["x"]
+
+
+def test_categorical_logp_entropy():
+    d = tr.Categorical(torch.log(torch.tensor([[0.25, 0.75]])))
+    assert np.isclose(float(d.logp(torch.tensor([1]))[0]), np.log(0.75),
+                      atol=1e-5)
+    expected_h = -(0.25 * np.log(0.25) + 0.75 * np.log(0.75))
+    assert np.isclose(float(d.entropy()[0]), expected_h, atol=1e-5)
+
+
+def test_diag_gaussian_kl_zero_same():
+    d = tr.DiagGaussian(torch.zeros((1, 3)), torch.zeros((1, 3)))
+    assert np.isclose(float(d.kl(d)[0]), 0.0, atol=1e-6)
+
+
+def test_env_runner_batch_shapes():
+    runner = tr.EnvRunner(tr.CartPole, num_envs=2, rollout_length=16,
+                          seed=0, **CPU)
+    params = runner.module.init(0)
+    batch = runner.sample(params)
+    assert batch.count == 32
+    for col in (sb.OBS, sb.ACTIONS, sb.ADVANTAGES, sb.RETURNS, sb.LOGPS):
+        assert col in batch
+    assert batch[sb.OBS].shape == (32, 4)
+
+
+def _ppo_config(env=tr.GridWorld, cls=tr.PPOConfig):
+    return (cls().environment(env)
+            .env_runners(num_envs_per_env_runner=2,
+                         rollout_fragment_length=8)
+            .training(num_epochs=1, minibatch_size=16).resources(**CPU))
+
+
+def test_ppo_save_restore(tmp_path):
+    config = _ppo_config()
+    algo = config.build()
+    algo.train()
+    path = algo.save(str(tmp_path / "ckpt"))
+    algo2 = config.copy().build()
+    algo2.restore(path)
+    assert algo2.iteration == algo.iteration
+    for (na, a), (nb, b) in zip(tree_leaves(algo.params),
+                                tree_leaves(algo2.params)):
+        assert na == nb
+        np.testing.assert_allclose(a.detach().numpy(), b.detach().numpy())
+    assert algo2.kl_coeff == algo.kl_coeff
+    # the optimizer's moments came back too: one more equal update
+    a_opt = algo.learner_group.learner.opt_state.state_dict()["state"]
+    b_opt = algo2.learner_group.learner.opt_state.state_dict()["state"]
+    for k in a_opt:
+        for m in ("exp_avg", "exp_avg_sq"):
+            assert torch.equal(a_opt[k][m], b_opt[k][m])
+
+
+def test_dqn_runs_and_updates():
+    config = (tr.DQNConfig().environment(tr.GridWorld)
+              .env_runners(num_envs_per_env_runner=2,
+                           rollout_fragment_length=32)
+              .training(learning_starts=100, train_batch_size=32,
+                        num_gradient_steps=4).resources(**CPU))
+    algo = config.build()
+    r1 = algo.train()                      # warmup, below learning_starts
+    assert r1["learner"]["td_loss"] is None
+    r2 = algo.train()
+    assert r2["learner"]["td_loss"] is not None
+    assert algo.params["pi"] is algo.q_params
+
+
+def test_group_relative_advantages():
+    r = np.array([1.0, 3.0, 2.0, 2.0], np.float32)   # 2 groups of 2
+    adv = tr.group_relative_advantages(r, 2)
+    assert adv[0] < 0 < adv[1]
+    assert np.allclose(adv[2:], 0.0)
+
+
+def test_sac_machinery_on_pendulum(tmp_path):
+    cfg = (tr.SACConfig()
+           .environment(env=tr.Pendulum)
+           .env_runners(num_envs_per_env_runner=4,
+                        rollout_fragment_length=64)
+           .training(learning_starts=256, train_batch_size=64,
+                     num_gradient_steps=4, buffer_size=5000)
+           .debugging(seed=0).resources(**CPU))
+    algo = cfg.build()
+    for _ in range(4):
+        res = algo.train()
+    st = res["learner"]
+    assert np.isfinite(st["q_loss"]) and np.isfinite(st["pi_loss"])
+    assert 0.0 < st["alpha"] < 10.0
+    a = algo.compute_single_action(np.zeros(3, np.float32))
+    assert a.shape == (1,) and abs(float(a[0])) <= 2.0
+    ev = algo.evaluate()
+    assert np.isfinite(ev["episode_return_mean"])
+    algo.save(str(tmp_path))
+    algo2 = cfg.copy().build()
+    algo2.restore(str(tmp_path))
+    obs = np.ones(3, np.float32)
+    np.testing.assert_allclose(algo.compute_single_action(obs),
+                               algo2.compute_single_action(obs), rtol=1e-5)
+
+
+# ---------- what the port does not have raises ----------
+
+def test_remote_env_runners_raise():
+    config = _ppo_config().env_runners(num_env_runners=2)
+    with pytest.raises(NotImplementedError, match="item 13"):
+        config.build()
+
+
+def test_learner_group_over_several_devices_raises():
+    algo = _ppo_config().build()
+    learner = algo.learner_group.learner
+    with pytest.raises(NotImplementedError, match="item 9"):
+        tr.LearnerGroup(learner, mesh=["cpu", "cpu"])
+    one = tr.LearnerGroup(learner, mesh=["cpu"])     # plain on one device
+    assert one.params is learner.params
+
+
+def test_algorithm_defaults_to_cuda():
+    assert tr.PPOConfig().device == "cuda"
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            tr.PPOConfig().environment(tr.GridWorld).build()
+
+
+# ---------- the port against the JAX package ----------
+
+def test_distributions_match_jax():
+    rng = np.random.RandomState(1)
+    logits = rng.standard_normal((5, 4)).astype(np.float32) * 2
+    other = rng.standard_normal((5, 4)).astype(np.float32)
+    acts = rng.randint(0, 4, 5)
+    jd, jo = jr.Categorical(jnp.asarray(logits)), jr.Categorical(
+        jnp.asarray(other))
+    td, to = tr.Categorical(torch.from_numpy(logits)), tr.Categorical(
+        torch.from_numpy(other))
+    pairs = [(td.logp(torch.from_numpy(acts)), jd.logp(jnp.asarray(acts))),
+             (td.entropy(), jd.entropy()), (td.kl(to), jd.kl(jo)),
+             (td.mode(), jd.mode())]
+    mean, ls = (rng.standard_normal((5, 3)).astype(np.float32),
+                0.3 * rng.standard_normal((5, 3)).astype(np.float32))
+    mean2, ls2 = (rng.standard_normal((5, 3)).astype(np.float32),
+                  0.3 * rng.standard_normal((5, 3)).astype(np.float32))
+    a = rng.standard_normal((5, 3)).astype(np.float32)
+    jg = jr.DiagGaussian(jnp.asarray(mean), jnp.asarray(ls))
+    jg2 = jr.DiagGaussian(jnp.asarray(mean2), jnp.asarray(ls2))
+    tg = tr.DiagGaussian(torch.from_numpy(mean), torch.from_numpy(ls))
+    tg2 = tr.DiagGaussian(torch.from_numpy(mean2), torch.from_numpy(ls2))
+    pairs += [(tg.logp(torch.from_numpy(a)), jg.logp(jnp.asarray(a))),
+              (tg.entropy(), jg.entropy()), (tg.kl(tg2), jg.kl(jg2))]
+    for got, want in pairs:
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
+                                   atol=1e-6)
+    gen = torch.Generator().manual_seed(0)
+    s = td.sample(gen)
+    assert s.shape == (5,) and ((s >= 0) & (s < 4)).all()
+    assert tg.sample(gen).shape == (5, 3)
+
+
+def _rl_params(jparams):
+    """A reference RLModule's params as the port's tree."""
+    out = {k: mlp_params_from_flax(jax.tree.map(np.asarray, jparams[k]))
+           for k in ("pi", "vf")}
+    if "log_std" in jparams:
+        out["log_std"] = torch.from_numpy(np.array(jparams["log_std"]))
+    return out
+
+
+@pytest.mark.parametrize("env", ["CartPole", "Pendulum"])
+def test_rl_module_forward_matches_jax(env):
+    jspec = jr.spec_for_env(jr.make_env(env))
+    jm = jr.RLModule(jspec)
+    jp = jm.init(jax.random.PRNGKey(3))
+    tm = tr.RLModule(tr.spec_for_env(tr.make_env(env)), **CPU)
+    tp = tm.init(0)
+    tree_copy_(tp, _rl_params(jp))
+    obs = np.random.RandomState(2).standard_normal(
+        (6, jspec.obs_dim)).astype(np.float32)
+    want_in, want_v = jm.forward(jp, jnp.asarray(obs))
+    got_in, got_v = tm.forward(tp, torch.from_numpy(obs))
+    np.testing.assert_allclose(got_in.detach().numpy(), np.asarray(want_in),
+                               rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(got_v.detach().numpy(), np.asarray(want_v),
+                               rtol=1e-5, atol=1e-6)
+    if env == "CartPole":
+        assert (tm.deterministic_action(tp, torch.from_numpy(obs)).numpy()
+                == np.asarray(jm.deterministic_action(jp, obs))).all()
+
+
+def _close_tree(got, want, lr):
+    got = dict(tree_leaves(got))
+    for name, w in tree_leaves(want):
+        np.testing.assert_allclose(got[name].detach().numpy(), w.numpy(),
+                                   rtol=1e-4, atol=lr / 10, err_msg=name)
+
+
+@pytest.mark.parametrize("env", ["CartPole", "Pendulum"])
+def test_ppo_update_matches_jax(env):
+    """Two PPO minibatch updates (adam behind the global-norm clip, the
+    adaptive-KL term) from the same params on the same rollout."""
+    def cfg(mod):
+        c = (mod.PPOConfig().environment(env)
+             .env_runners(num_envs_per_env_runner=2,
+                          rollout_fragment_length=16)
+             .training(lr=1e-3, entropy_coeff=0.01, grad_clip=0.5))
+        return c.resources(**CPU) if mod is tr else c
+    ja, ta = cfg(jr).build(), cfg(tr).build()
+    tree_copy_(ta.params, _rl_params(ja.params))
+    batch = ja.local_runner.sample(ja.params).as_numpy()
+    for _ in range(2):
+        want = ja.learner_group.update(batch, 0.2)
+        got = ta.learner_group.update(batch, 0.2)
+        assert set(got) == set(want)
+        for k in want:
+            # atol: the first update's kl is 0 up to rounding (ratio 1)
+            np.testing.assert_allclose(got[k], want[k], rtol=1e-4,
+                                       atol=1e-6, err_msg=k)
+    _close_tree(ta.params, _rl_params(ja.params), 1e-3)
+
+
+def _replay_batch(seed, obs_dim, n_act=None, act_dim=None, rows=32):
+    rng = np.random.RandomState(seed)
+    acts = (rng.randint(0, n_act, rows).astype(np.int32) if n_act
+            else rng.uniform(-2, 2, (rows, act_dim)).astype(np.float32))
+    return {sb.OBS: rng.standard_normal((rows, obs_dim)).astype(np.float32),
+            sb.ACTIONS: acts,
+            sb.REWARDS: rng.standard_normal(rows).astype(np.float32),
+            sb.TERMINATEDS: rng.rand(rows) < 0.2,
+            sb.NEXT_OBS: rng.standard_normal((rows, obs_dim)).astype(
+                np.float32)}
+
+
+@pytest.mark.parametrize("double_q", [True, False])
+def test_dqn_td_update_matches_jax(double_q):
+    """Two TD steps from the same Q and target nets on the same replay
+    batch: the losses and the Q net after."""
+    def cfg(mod):
+        c = (mod.DQNConfig().environment("CartPole")
+             .training(double_q=double_q, lr=1e-3))
+        return c.resources(**CPU) if mod is tr else c
+    ja, ta = cfg(jr).build(), cfg(tr).build()
+    tree_copy_(ta.q_params, _rl_params(ja.params)["pi"])
+    tree_copy_(ta.target_params, _rl_params(ja.params)["pi"])
+    batch = _replay_batch(4, 4, n_act=2)
+    for _ in range(2):
+        ja.q_params, ja.opt_state, want = ja._td_update(
+            ja.q_params, ja.target_params, ja.opt_state,
+            {k: jnp.asarray(v) for k, v in batch.items()})
+        got = ta.td_update(batch)
+        np.testing.assert_allclose(got, float(want), rtol=1e-4)
+    _close_tree(ta.q_params, mlp_params_from_flax(
+        jax.tree.map(np.asarray, ja.q_params)), 1e-3)
+
+
+def test_sac_update_matches_jax():
+    """One SAC update (critics, actor, alpha, polyak targets) from the
+    same nets on the same replay batch, with the reference's Gaussian
+    noise fed to the port. (A second update is not compared: Adam moves
+    an element with a rounding-level gradient by a different fraction of
+    lr in each framework, and the tanh-squashed log-prob turns such
+    moves into ~1e-3 of the next step's entropy.)"""
+    def cfg(mod):
+        c = mod.SACConfig().environment("Pendulum").debugging(seed=0)
+        return c.resources(**CPU) if mod is tr else c
+    ja, ta = cfg(jr).build(), cfg(tr).build()
+
+    def flax(tree):
+        return mlp_params_from_flax(jax.tree.map(np.asarray, tree))
+    tree_copy_(ta.pi_params, flax(ja.pi_params))
+    tree_copy_(ta.q_params, tuple(flax(q) for q in ja.q_params))
+    tree_copy_(ta.target_q_params, tuple(flax(q)
+                                         for q in ja.target_q_params))
+    batch = _replay_batch(5, 3, act_dim=1)
+    key = jax.random.PRNGKey(10)
+    k1, k2 = jax.random.split(key)
+    noise = tuple(torch.from_numpy(np.array(jax.random.normal(k, (32, 1))))
+                  for k in (k1, k2))
+    (ja.pi_params, ja.q_params, ja.target_q_params, ja.log_alpha,
+     ja.pi_opt, ja.q_opt, ja.a_opt, want) = ja._update(
+        ja.pi_params, ja.q_params, ja.target_q_params, ja.log_alpha,
+        ja.pi_opt, ja.q_opt, ja.a_opt,
+        {k: jnp.asarray(v) for k, v in batch.items()}, key)
+    got = ta.update(batch, noise=noise)
+    assert set(got) == set(want)
+    for k in want:
+        np.testing.assert_allclose(got[k], float(want[k]), rtol=1e-4,
+                                   err_msg=k)
+    _close_tree(ta.pi_params, flax(ja.pi_params), 3e-4)
+    _close_tree(ta.q_params, tuple(flax(q) for q in ja.q_params), 3e-4)
+    _close_tree(ta.target_q_params,
+                tuple(flax(q) for q in ja.target_q_params), 3e-4)
+    np.testing.assert_allclose(float(ta.log_alpha.detach()),
+                               float(ja.log_alpha),
+                               rtol=1e-4)
+
+
+# ---------- learning (slow, as in the reference) ----------
+
+@pytest.mark.slow
+def test_ppo_learns_cartpole():
+    config = (tr.PPOConfig()
+              .environment(tr.CartPole)
+              .env_runners(num_envs_per_env_runner=8,
+                           rollout_fragment_length=128)
+              .training(lr=3e-4, num_epochs=6, minibatch_size=256,
+                        entropy_coeff=0.01)
+              .evaluation(evaluation_num_episodes=5)
+              .debugging(seed=0).resources(**CPU))
+    algo = config.build()
+    before = algo.evaluate()["evaluation_return_mean"]
+    for _ in range(12):
+        result = algo.train()
+    after = algo.evaluate()["evaluation_return_mean"]
+    assert after > max(60.0, before + 30.0), (before, after)
+    assert result["timesteps_total"] == 12 * 8 * 128
+
+
+@pytest.mark.slow
+def test_sac_learns_pendulum_swingup():
+    """The reference's learning test, from the reference's initial nets
+    (carried over): its thresholds were set on the curve of that init
+    (-1697 -> -349 at 80 iterations here); from the port's own init
+    (other draws of the same distributions) the same 80 iterations end
+    near -1000 in both seeds tried, a curve the reference's thresholds
+    were not set on."""
+    def cfg(mod):
+        c = (mod.SACConfig()
+             .environment(env=mod.Pendulum)
+             .env_runners(num_envs_per_env_runner=8,
+                          rollout_fragment_length=64)
+             .training(learning_starts=1000, train_batch_size=128,
+                       num_gradient_steps=64, buffer_size=50_000)
+             .evaluation(evaluation_num_episodes=5)
+             .debugging(seed=0))
+        return c.resources(**CPU) if mod is tr else c
+    ja, algo = cfg(jr).build(), cfg(tr).build()
+
+    def flax(tree):
+        return mlp_params_from_flax(jax.tree.map(np.asarray, tree))
+    tree_copy_(algo.pi_params, flax(ja.pi_params))
+    tree_copy_(algo.q_params, tuple(flax(q) for q in ja.q_params))
+    tree_copy_(algo.target_q_params, tuple(flax(q)
+                                           for q in ja.target_q_params))
+    before = algo.evaluate()["episode_return_mean"]
+    for _ in range(80):                    # 80 * 512 env steps
+        algo.train()
+    after = algo.evaluate()["episode_return_mean"]
+    assert after > before + 800, (before, after)
+    assert after > -600, (before, after)
+
+
+@pytest.mark.slow
+def test_grpo_increases_rewarded_token():
+    """Toy LM: reward completions containing token 3; after a few steps
+    the policy emits token 3 more often."""
+    V = 8
+    gen = torch.Generator().manual_seed(0)
+    params = {"embed": torch.randn(V, 16, generator=gen),
+              "w1": torch.randn(16, 32, generator=gen) / 4,
+              "b1": torch.zeros(32),
+              "w2": torch.randn(32, V, generator=gen) / 6,
+              "b2": torch.zeros(V)}
+
+    def apply_fn(p, tokens):
+        h = torch.relu(p["embed"][tokens.long()] @ p["w1"] + p["b1"])
+        return h @ p["w2"] + p["b2"]
+
+    def reward(prompt, completion):
+        return float((np.asarray(completion) == 3).mean())
+
+    cfg = tr.GRPOConfig(group_size=8, max_new_tokens=6, lr=5e-2, seed=0,
+                        kl_coeff=0.0)
+    trainer = tr.GRPOTrainer(apply_fn, params, reward, cfg, **CPU)
+
+    def frac_token3():
+        toks = trainer._sample_group([1, 2], 16)
+        return (toks[:, 2:] == 3).mean()
+
+    before = frac_token3()
+    for _ in range(8):
+        stats = trainer.step([[1, 2], [4, 5]])
+    after = frac_token3()
+    assert after > before + 0.2, (before, after, stats)
