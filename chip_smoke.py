@@ -5,7 +5,7 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
-It builds every CUDA kernel from `ray_tpu_torch/csrc/`, then runs ten
+It builds every CUDA kernel from `ray_tpu_torch/csrc/`, then runs eleven
 phases and fails (non-zero exit, no result line) if any of them fails:
 
 1. kernels: each kernel against its plain PyTorch version at
@@ -119,6 +119,20 @@ phases and fails (non-zero exit, no result line) if any of them fails:
    corpus at least once in 6 tokens; then GRPO post-train the restored
    model through the engine sampler for 6 steps: the reward must not
    fall by more than 0.5 and every loss is finite.
+
+11. parallel: on the n = torch.cuda.device_count() cards (one rank a
+   card, launched by train.backend.launch; at n == 1 a world of one NCCL
+   rank in this process): (a) the train phase's model and schedule at
+   min(32, 8 n) layers under MeshSpec(fsdp=n) (FSDP2, fp32 master
+   weights and all-gather), 2 x 2048 tokens a rank: finite losses that
+   fall, K1 2 x layers x steps and K2a/K2b layers x steps on every rank,
+   the median step and peak memory beside the train phase's; (b) 2 fp32
+   sgd steps of the flagship widths on the mesh equal to one device's
+   (loss, grad_norm and params, rtol 1e-4); (c) ring_attention at sp =
+   n against multi_head_attention at Llama-3-8B attention shape, bf16
+   (K1 at n == 1); (d) (b)'s model saved sharded, restored onto one
+   device bit for bit and served by the paged engine token-identical to
+   the einsum loop; (e) entry.dryrun_multichip(n) on CUDA.
 
 The last three lines are a JSON object listing each kernel (with its
 launches on each path, the zoo's bursts and ViT's forward among them), the card's name and power limit as nvidia-smi
@@ -2101,7 +2115,8 @@ def phase_train(torch, gpu_line):
     del state, step, model, batch
     gc.collect()
     torch.cuda.empty_cache()
-    return launches
+    return launches, {"median_ms": med * 1e3, "peak_gib": peak / 2**30,
+                      "losses": losses}
 
 
 def phase_train_parity(torch):
@@ -2629,6 +2644,256 @@ def phase_north_star(torch):
     return launches
 
 
+PARALLEL_STEPS = 5        # (a): the train phase's steps and schedule
+PARALLEL_PARITY_STEPS = 2
+PARALLEL_ATOL = 1e-6      # (b): params near zero, beside rtol PARITY_RTOL
+RING_SHAPE = (1, 2048, 32, 8, 128)   # (c): B, S, Hq, Hkv, D, bf16, causal
+PARALLEL_PLENS = (17, 60, 100, 200)  # (d): the served burst's prompts
+
+
+def mesh_train_rank(n_layers, steps, rows, profile, gpu_line):
+    """(a) on this rank: the train phase's model and schedule under
+    MeshSpec(fsdp=world) (FSDP2, fp32 master weights and all-gather),
+    `rows` rows of TRAIN_SEQ + 1 tokens from seed 0, the same on every
+    rank (each trains on its share). Returns losses, grad norms, step
+    times, K1/K2a/K2b launches and peak memory."""
+    import torch
+    import torch.distributed as dist
+    from ray_tpu_torch.models import Llama, LlamaConfig
+    from ray_tpu_torch.ops.kernels import flash_attention as fa
+    from ray_tpu_torch.parallel import MeshSpec, build_mesh
+    from ray_tpu_torch.train import (make_optimizer, make_train_step,
+                                     warmup_cosine)
+    n = dist.get_world_size()
+    mesh = build_mesh(MeshSpec(fsdp=n), device="cuda")
+    cfg = LlamaConfig.llama3_8b(n_layers=n_layers, dtype=torch.bfloat16,
+                                param_dtype=torch.float32)
+    torch.cuda.reset_peak_memory_stats()
+    model = Llama(cfg, device="cuda", seed=0)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (rows, TRAIN_SEQ + 1),
+                                     device="cuda", generator=gen)}
+    tx = make_optimizer("adamw", schedule=warmup_cosine(3e-4, 1, steps))
+    state, step = make_train_step(model, tx, mesh)(batch)
+    torch.cuda.synchronize()
+    zero_counters(fa)
+    losses, norms, times = [], [], []
+    for _ in range(steps):
+        t1 = time.time()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        times.append(time.time() - t1)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    launches = read_counters(fa)
+    peak = torch.cuda.max_memory_allocated()
+    if profile:
+        gpu_profile(torch, lambda: step(state, batch),
+                    "parallel-train-profile", gpu_line, top=12)
+    del state, step, model, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"losses": losses, "norms": norms, "times": times,
+            "launches": launches, "peak_gib": peak / 2**30}
+
+
+def mesh_parity_rank(rows, path):
+    """(b) and (d) on this rank. (b) PARALLEL_PARITY_STEPS fp32 sgd steps
+    of the flagship widths under MeshSpec(fsdp=world) against the same
+    steps of the single-device make_train_step on rank 0's card (TF32
+    off): loss, grad_norm and params. (d) the mesh model's state saved
+    sharded to `path`, restored on rank 0 onto one device (shardings
+    None), equal to the trained params bit for bit, then served by the
+    paged engine: greedy tokens equal to the einsum loop's."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from ray_tpu_torch.models import Llama, LlamaConfig
+    from ray_tpu_torch.parallel import MeshSpec, build_mesh
+    from ray_tpu_torch.train import (make_optimizer, make_train_step,
+                                     restore_pytree, save_pytree)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    n = dist.get_world_size()
+    mesh = build_mesh(MeshSpec(fsdp=n), device="cuda")
+    cfg = LlamaConfig(**FLAGSHIP, dtype=torch.float32,
+                      param_dtype=torch.float32)
+    tokens = np.random.RandomState(2).randint(0, cfg.vocab_size, (rows, 257))
+    batch = {"tokens": torch.from_numpy(tokens).to("cuda")}
+    sharded = Llama(cfg, device="cuda", seed=2)
+    state, step = make_train_step(sharded, make_optimizer(
+        "sgd", learning_rate=0.1), mesh)(batch)
+    rows_mesh = []
+    for _ in range(PARALLEL_PARITY_STEPS):
+        state, m = step(state, batch)
+        rows_mesh.append((float(m["loss"]), float(m["grad_norm"])))
+    trained = {k: (v.full_tensor() if isinstance(v, DTensor) else v)
+               .detach().clone() for k, v in sharded.state_dict().items()}
+    save_pytree(sharded.state_dict(), path, step=PARALLEL_PARITY_STEPS)
+    if dist.get_rank() != 0:
+        return None
+    single = Llama(cfg, device="cuda", seed=2)
+    sstate, sstep = make_train_step(single, make_optimizer(
+        "sgd", learning_rate=0.1))(batch)
+    rows_single = []
+    for _ in range(PARALLEL_PARITY_STEPS):
+        sstate, m = sstep(sstate, batch)
+        rows_single.append((float(m["loss"]), float(m["grad_norm"])))
+    worst = 0.0
+    for k, v in single.state_dict().items():
+        err = (trained[k] - v).abs() - PARALLEL_ATOL
+        worst = max(worst, float((err / v.abs().clamp(min=1e-30)).max()))
+    restored = restore_pytree(path, map_location="cuda")
+    bitwise = all(torch.equal(restored[k], trained[k]) for k in trained)
+    served = Llama(cfg, device="cuda", seed=99)
+    served.load_state_dict(restored)
+    rng = np.random.RandomState(3)
+    prompts = [rng.randint(0, cfg.vocab_size, k).tolist()
+               for k in PARALLEL_PLENS]
+    want = plain_greedy(torch, served, prompts)
+    engine_parity(torch, served, prompts, want, "parallel-serve",
+                  [("paged", dict(kv_page_size=16))],
+                  dict(max_slots=4, max_seq_len=512,
+                       prefill_buckets=(32, 64, 128, 256)))
+    return {"mesh": rows_mesh, "single": rows_single, "worst_rel": worst,
+            "bitwise": bitwise, "n_tensors": len(trained)}
+
+
+def ring_rank():
+    """(c) on this rank: ring_attention over MeshSpec(sp=world) at
+    RING_SHAPE, bf16, causal, this rank's sequence chunk, against
+    multi_head_attention of the whole sequence on the card (K1 on
+    CUDA). Returns the largest error over the K1 tolerance's allowance
+    (<= 1 passes) and K1's launches in the ring call."""
+    import torch
+    import torch.distributed as dist
+    from ray_tpu_torch.ops import multi_head_attention, ring_attention
+    from ray_tpu_torch.ops.kernels import flash_attention as fa
+    from ray_tpu_torch.parallel import MeshSpec, build_mesh
+    n = dist.get_world_size()
+    mesh = build_mesh(MeshSpec(sp=n), device="cuda")
+    b, s, hq, hkv, d = RING_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    q, k, v = (torch.randn((b, s, h, d), device="cuda", generator=gen,
+                           dtype=torch.bfloat16) for h in (hq, hkv, hkv))
+    r, c = mesh.get_local_rank("sp"), s // n
+    chunk = slice(r * c, (r + 1) * c)
+    with torch.no_grad():
+        zero_counters(fa)
+        got = ring_attention(q[:, chunk].contiguous(),
+                             k[:, chunk].contiguous(),
+                             v[:, chunk].contiguous(), mesh=mesh)
+        torch.cuda.synchronize()
+        k1 = fa.flash_attention_fwd.launches
+        want = multi_head_attention(q, k, v, causal=True)[:, chunk]
+    err = (got.float() - want.float()).abs()
+    allowed = K1_ATOL_OUT + K1_RTOL_OUT * want.float().abs()
+    return {"ratio": float((err / allowed).max()),
+            "max_abs_err": float(err.max()), "k1": k1,
+            "equal": bool(torch.equal(got, want))}
+
+
+def phase_parallel(torch, gpu_line, train_stats):
+    """The parallelism slice on this machine's n = device_count cards
+    (one rank a card; at n == 1 a world of one NCCL rank in this
+    process): (a) the train phase's model on MeshSpec(fsdp=n) at
+    min(32, 8 n) layers, (b) fp32 mesh-vs-single parity, (c) ring
+    attention at sp = n, (d) a sharded checkpoint restored onto one
+    device and served, (e) dryrun_multichip(n). Returns (a)'s launches
+    (rank 0's; every rank's are checked)."""
+    import shutil
+    import tempfile
+
+    from ray_tpu_torch.entry import dryrun_multichip
+    from ray_tpu_torch.train.backend import launch
+    n = torch.cuda.device_count()
+    spawn = n > 1
+
+    def run(fn, *args):
+        return launch(fn, n, "cuda", *args, timeout_s=900, spawn=spawn)
+
+    layers = min(32, TRAIN_LAYERS * n)
+    out = run(mesh_train_rank, layers, PARALLEL_STEPS, TRAIN_BATCH * n,
+              not spawn, gpu_line)
+    r0 = out[0]
+    med = statistics.median(r0["times"][1:])
+    print(f"parallel: (a) Llama-3-8B widths, {layers} layers, MeshSpec(fsdp="
+          f"{n}) on {n} card(s), fp32 master weights and all-gather, bf16 "
+          f"compute, remat, adamw; {TRAIN_BATCH} x {TRAIN_SEQ} tokens a "
+          f"rank; losses {[round(x, 6) for x in r0['losses']]} (train "
+          f"phase: {[round(x, 6) for x in train_stats['losses']]})",
+          flush=True)
+    print(f"parallel: (a) median step {med * 1e3:.1f} ms (steps 1-"
+          f"{PARALLEL_STEPS - 1}), {TRAIN_BATCH * n * TRAIN_SEQ / med:.1f} "
+          f"tokens/s, peak memory rank 0 {r0['peak_gib']:.2f} GiB; the "
+          f"train phase (no mesh, {TRAIN_LAYERS} layers, same run): median "
+          f"{train_stats['median_ms']:.1f} ms, peak "
+          f"{train_stats['peak_gib']:.2f} GiB [{gpu_line}]", flush=True)
+    want = layers * PARALLEL_STEPS
+    for rank, o in enumerate(out):
+        check(all(map(math.isfinite, o["losses"] + o["norms"])),
+              f"parallel (a): rank {rank}: non-finite loss or grad_norm")
+        check(o["losses"][-1] < o["losses"][0],
+              f"parallel (a): rank {rank}: loss did not fall {o['losses']}")
+        check(o["launches"] == {"flash_fwd (K1)": 2 * want,
+                                "flash_bwd_dq (K2a)": want,
+                                "flash_bwd_dkv (K2b)": want},
+              f"parallel (a): rank {rank}: launches {o['launches']}")
+    print(f"parallel: (a) launches per rank {json.dumps(r0['launches'])} "
+          f"(expected K1 2 x {layers} x {PARALLEL_STEPS}, K2a and K2b "
+          f"{layers} x {PARALLEL_STEPS}) on all {n} rank(s)", flush=True)
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_parallel_")
+    try:
+        par = run(mesh_parity_rank, 2 * n,
+                  os.path.join(root, "sharded"))[0]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    for i, (g, c) in enumerate(zip(par["mesh"], par["single"])):
+        print(f"parallel: (b) step {i} loss mesh {g[0]:.7f} single "
+              f"{c[0]:.7f} grad_norm mesh {g[1]:.7f} single {c[1]:.7f}",
+              flush=True)
+    ok = all(abs(a - b) <= PARITY_RTOL * abs(b)
+             for g, c in zip(par["mesh"], par["single"])
+             for a, b in zip(g, c))
+    print(f"parallel: (b) flagship widths fp32 (TF32 off), MeshSpec(fsdp="
+          f"{n}) vs one device, {PARALLEL_PARITY_STEPS} sgd steps: metrics "
+          f"within rtol {PARITY_RTOL}: {ok}; params: worst |err| - "
+          f"{PARALLEL_ATOL} over |single| = {par['worst_rel']:.3g}",
+          flush=True)
+    check(ok, "parallel (b): the mesh step's metrics differ from one "
+              "device's")
+    check(par["worst_rel"] <= PARITY_RTOL,
+          "parallel (b): the mesh step's params differ from one device's")
+    print(f"parallel: (d) sharded checkpoint of {par['n_tensors']} tensors "
+          f"restored onto one device bit for bit: {par['bitwise']}; its "
+          f"paged burst equal to the einsum loop (above)", flush=True)
+    check(par["bitwise"], "parallel (d): the restored checkpoint differs "
+                          "from the trained params")
+
+    ring = run(ring_rank)
+    worst = max(r["ratio"] for r in ring)
+    print(f"parallel: (c) ring attention at sp={n}, B S Hq Hkv D = "
+          f"{RING_SHAPE} bf16 causal vs multi_head_attention: max abs err "
+          f"{max(r['max_abs_err'] for r in ring):.3g}, worst err / "
+          f"allowance {worst:.3f}, bit-identical {ring[0]['equal']}; K1 "
+          f"launches in the ring call {ring[0]['k1']}", flush=True)
+    check(worst <= 1.0, "parallel (c): ring attention differs from "
+                        "multi_head_attention")
+    if n == 1:
+        check(ring[0]["k1"] == 1 and ring[0]["equal"],
+              "parallel (c): at sp 1 ring attention must be "
+              "multi_head_attention (K1)")
+
+    t0 = time.time()
+    lines = dryrun_multichip(n, device="cuda")
+    check(len(lines) == 6, f"parallel (e): {len(lines)} dry-run stages")
+    print(f"parallel: (e) dryrun_multichip({n}) on CUDA: all 6 stages in "
+          f"{time.time() - t0:.1f} s", flush=True)
+    return r0["launches"]
+
+
 def check_spills(build) -> None:
     """Registers and spills of the wgmma kernels (K1's forward, K2a's and
     K2b's backward at D 64 and 128) and of every K4 kernel, from the
@@ -2708,14 +2973,15 @@ def main() -> None:
     phase_controls(torch)
     phase_routes(torch)
     launches.update(phase_zoo(torch, gpu_line))
-    launches["train"] = phase_train(torch, gpu_line)
+    launches["train"], train_stats = phase_train(torch, gpu_line)
     phase_train_parity(torch)
     launches.update(phase_grpo(torch, gpu_line))
     launches["north-star-grpo"] = phase_north_star(torch)
+    launches["parallel"] = phase_parallel(torch, gpu_line, train_stats)
 
     # each kernel's launches on the main paths (the serve bursts, train,
-    # GRPO full, LoRA and the north star's); K4 is on none: no model
-    # calls it, as in the reference
+    # GRPO full, LoRA, the north star's and the mesh train step); K4 is
+    # on none: no model calls it, as in the reference
     for r in rows:
         by_path = {p: n[r["name"]] for p, n in launches.items()
                    if r["name"] in n}

@@ -20,5 +20,10 @@ training slice: the flash-attention backward behind a
 optimizers, atomic checkpoints) — and the model zoo the engine serves:
 `models/{mixtral,gpt2,vit,clip,mlp}.py` on `ops/{moe,quant,linear}.py`,
 int8 Llama, the `get_model` registry, flax converters for every family,
-HF weight import (`train/adapters.py`) and `entry.py`.
+HF weight import (`train/adapters.py`) and `entry.py` — and
+parallelism: one process a rank (`train/backend.py`'s `launch`), the
+mesh and the rule table applied with FSDP2 and DTensor plans
+(`parallel/`), the train step, LoRA and checkpoints on a mesh, ring
+attention (`ops/ring_attention.py`), GPipe, Mixtral over ep and
+`entry.dryrun_multichip`.
 """

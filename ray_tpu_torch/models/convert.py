@@ -118,6 +118,29 @@ def resnet_params_from_flax(tree: Mapping[str, Any]
     return _from_flax(tree, frozenset({"bias", "scale"}))
 
 
+def pipelined_lm_params_from_flax(tree: Mapping[str, Any]
+                                  ) -> Dict[str, Any]:
+    """The reference's PipelinedLM params ({"embed": {"embedding"},
+    "stages": LlamaBlock leaves stacked (pp, L, ...), "final_norm"}) ->
+    the port's (parallel/pipeline_train.py): the embedding table, the
+    stage stacks under the port's block names (a kernel's last two dims
+    transposed to (out, in)) and the final norm."""
+    stages = {}
+    for path, arr in _flatten(tree["stages"]).items():
+        a = np.asarray(arr)
+        if path[-1] == "kernel":
+            name, a = ".".join(path[:-1]) + ".weight", np.swapaxes(a, -1, -2)
+        elif path[-1] in _LLAMA:
+            name = ".".join(path)
+        else:
+            raise ValueError(f"unmapped flax stage leaf {'/'.join(path)}")
+        stages[name] = torch.from_numpy(np.array(a, order="C"))
+    return {"embed": torch.from_numpy(np.array(
+                tree["embed"]["embedding"], order="C")),
+            "stages": stages,
+            "final_norm": torch.from_numpy(np.array(tree["final_norm"]))}
+
+
 def lora_from_flax(lora: Mapping[str, Any]) -> Dict[str, Any]:
     """The reference's LoRA tree (`init_lora`'s {"rank", "alpha",
     "adapters"}, adapters as numpy, None where a kernel has no adapter)

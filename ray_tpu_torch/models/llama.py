@@ -21,9 +21,8 @@ import math
 from typing import List, Optional
 
 import torch
-import torch.nn.functional as F
 from torch import nn
-from torch.func import functional_call
+from torch.nn.utils.stateless import _reparametrize_module
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
@@ -131,14 +130,24 @@ class LlamaAttention(nn.Module):
         self.k_proj = _dense(cfg, cfg.d_model, cfg.n_kv_heads * hd)
         self.v_proj = _dense(cfg, cfg.d_model, cfg.n_kv_heads * hd)
         self.o_proj = _dense(cfg, cfg.n_heads * hd, cfg.d_model)
+        # under tp (parallel/sharding.py) a rank holds n_heads / tp query
+        # heads, and where tp does not divide the kv heads, all of them:
+        # then these are the kv heads its query heads read, and the tp
+        # group over which the ranks' parts of their gradients sum
+        self.kv_index: Optional[torch.Tensor] = None
+        self.kv_group = None
 
     def forward(self, x, cos, sin, cache=None, positions=None):
-        cfg = self.cfg
-        hd = cfg.head_dim
+        hd = self.cfg.head_dim
         b, s, _ = x.shape
-        q = self.q_proj(x).view(b, s, cfg.n_heads, hd)
-        k = self.k_proj(x).view(b, s, cfg.n_kv_heads, hd)
-        v = self.v_proj(x).view(b, s, cfg.n_kv_heads, hd)
+        # head counts from the projections' widths: this rank's under tp
+        q = self.q_proj(x).view(b, s, -1, hd)
+        k = self.k_proj(x).view(b, s, -1, hd)
+        v = self.v_proj(x).view(b, s, -1, hd)
+        if self.kv_index is not None:
+            from ..parallel.collectives import copy_to_group
+            k = copy_to_group(k, self.kv_group).index_select(2, self.kv_index)
+            v = copy_to_group(v, self.kv_group).index_select(2, self.kv_index)
         q = apply_rotary(q, cos, sin, positions)
         k = apply_rotary(k, cos, sin, positions)
         new_cache = None
@@ -146,7 +155,7 @@ class LlamaAttention(nn.Module):
             out = multi_head_attention(q, k, v, causal=True)
         else:
             out, new_cache = cached_attention(q, k, v, cache, positions)
-        out = out.reshape(b, s, cfg.n_heads * hd)
+        out = out.reshape(b, s, -1)
         return self.o_proj(out), new_cache
 
 
@@ -205,23 +214,36 @@ def _save_dots(ctx, op, *args, **kwargs):
 
 
 def _remat_block(block: nn.Module, policy: str, *args):
-    """block(*args) under activation checkpointing.
+    """block(*args) with its forward under activation checkpointing.
 
-    The recompute in the backward runs with the tensors the block holds
-    now, not with those it holds when the backward runs: under
-    `torch.func.functional_call` (LoRA's merged weights, a frozen
-    reference's clone) the call has returned and restored the module's
-    own parameters by then."""
+    The block is called through its hooks, so a wrapper's pre-forward
+    work (FSDP2 gathering the block's shards) runs once, around the
+    checkpointed body. The body and its recompute in the backward run
+    with the tensors the block holds when the body starts: the gathered
+    weights under FSDP2, the merged ones under
+    `torch.func.functional_call` (LoRA), not whatever the module holds by
+    the time the backward runs (the call has returned and restored the
+    module's own parameters by then)."""
     kw = {}
     if policy == "dots":
         kw["context_fn"] = lambda: create_selective_checkpoint_contexts(
             _save_dots)
-    bound = dict(block.named_parameters())
+    body = type(block).forward
 
-    def run(*a):
-        return functional_call(block, bound, a)
+    def forward(*a):
+        bound = dict(block.named_parameters())
 
-    return checkpoint(run, *args, use_reentrant=False, **kw)
+        def run(*b):
+            with _reparametrize_module(block, bound):
+                return body(block, *b)
+
+        return checkpoint(run, *a, use_reentrant=False, **kw)
+
+    block.forward = forward       # this call only; the hooks wrap it
+    try:
+        return block(*args)
+    finally:
+        del block.forward
 
 
 def _lecun_normal_(w: torch.Tensor, gen: torch.Generator,
@@ -297,7 +319,8 @@ class Llama(nn.Module):
         # remat trades recompute for memory on the train path only; the
         # cached (serving) path never checkpoints
         remat = cfg.remat and cache is None and torch.is_grad_enabled()
-        x = F.embedding(tokens.long(), self.token_embed.weight).to(cfg.dtype)
+        # through the module, so a vocab-parallel plan's hooks run
+        x = self.token_embed(tokens.long()).to(cfg.dtype)
         new_cache = []
         for i, block in enumerate(self.blocks):
             if remat:

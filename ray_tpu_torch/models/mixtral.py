@@ -2,9 +2,10 @@
 ray_tpu/models/mixtral.py).
 
 The MoE MLP routes through `ops.moe.moe_dispatch_combine`, the GShard
-dispatch of the reference: capacity comes from the call's B * S tokens,
-so the tokens an expert drops depend on the shape the caller runs (the
-engine's bucket padding and idle decode slots included). The stacked
+dispatch of the reference: capacity comes from the call's B * S tokens
+(on a mesh, the global batch's), so the tokens an expert drops depend
+on the shape the caller runs (the engine's bucket padding and idle
+decode slots included). The stacked
 expert weights keep flax's layout, `experts_{gate,up}_kernel` (E, d,
 ff) and `experts_down_kernel` (E, ff, d), and the router is
 `router_kernel` (d, E); its product runs in fp32.
@@ -24,12 +25,12 @@ import dataclasses
 from typing import List, Optional
 
 import torch
-import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor
 
 from ..ops import rms_norm, rope_frequencies, swiglu
 from ..ops.linear import Dense
-from ..ops.moe import expert_capacity, moe_dispatch_combine
+from ..ops.moe import moe_dispatch_combine
 from ..util.device import DeviceLike, resolve_device
 from .llama import (LlamaAttention, LlamaConfig, _lecun_normal_, _normal_,
                     _remat_block)
@@ -102,6 +103,9 @@ class MoEMLP(nn.Module):
         self.experts_down_kernel = nn.Parameter(torch.empty(e, ff, d,
                                                             dtype=pd))
         self.router_loss: Optional[torch.Tensor] = None
+        # the DeviceMesh of parallel.sharding.shard_module: the capacity
+        # and queue positions of the global batch, experts over ep
+        self.moe_mesh = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
@@ -110,18 +114,20 @@ class MoEMLP(nn.Module):
         tokens = x.reshape(b * s, d)
         router_logits = tokens.float() @ self.router_kernel.float()
 
+        def local(w):   # this rank's experts when sharded over ep
+            return (w.to_local() if isinstance(w, DTensor) else w).to(dt)
+
         def expert_fn(batch):   # (E, C, d) -> (E, C, d)
             batch = batch.to(dt)
-            gate = torch.bmm(batch, self.experts_gate_kernel.to(dt))
-            up = torch.bmm(batch, self.experts_up_kernel.to(dt))
+            gate = torch.bmm(batch, local(self.experts_gate_kernel))
+            up = torch.bmm(batch, local(self.experts_up_kernel))
             return torch.bmm(swiglu(gate, up),
-                             self.experts_down_kernel.to(dt))
+                             local(self.experts_down_kernel))
 
-        cap = expert_capacity(b * s, cfg.n_experts, cfg.experts_per_token,
-                              cfg.capacity_factor)
         out, aux = moe_dispatch_combine(tokens, router_logits, expert_fn,
                                         k=cfg.experts_per_token,
-                                        capacity=cap)
+                                        capacity_factor=cfg.capacity_factor,
+                                        mesh=self.moe_mesh)
         self.router_loss = (cfg.router_aux_coef * aux.load_balance_loss
                             + cfg.router_z_coef * aux.router_z_loss)
         return out.reshape(b, s, d).to(dt)
@@ -197,7 +203,7 @@ class Mixtral(nn.Module):
                 positions: Optional[torch.Tensor] = None):
         cfg = self.cfg
         remat = cfg.remat and cache is None and torch.is_grad_enabled()
-        x = F.embedding(tokens.long(), self.token_embed.weight).to(cfg.dtype)
+        x = self.token_embed(tokens.long()).to(cfg.dtype)
         new_cache = []
         for i, block in enumerate(self.blocks):
             if remat:

@@ -14,6 +14,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor, Shard
 
 
 class Dense(nn.Linear):
@@ -25,11 +26,16 @@ class Dense(nn.Linear):
                  param_dtype: torch.dtype = torch.float32):
         super().__init__(d_in, d_out, bias=bias, dtype=param_dtype)
         self.compute_dtype = dtype
+        # weight -> the weight the product uses (LoRA's merge over a
+        # sharded base, train/lora.py), applied after FSDP2's gather
+        self.weight_fn = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
         b = None if self.bias is None else self.bias.to(dt)
-        return F.linear(x.to(dt), self.weight.to(dt), b)
+        w = self.weight if self.weight_fn is None else self.weight_fn(
+            self.weight)
+        return F.linear(x.to(dt), w.to(dt), b)
 
 
 class Conv(nn.Conv2d):
@@ -82,7 +88,12 @@ class _MatmulFp32Out(torch.autograd.Function):
 
 def logits_fp32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x (..., d) @ w (V, d)^T with w cast to x's type and fp32
-    accumulation, returned in fp32 (never rounded to x's type)."""
+    accumulation, returned in fp32 (never rounded to x's type). A w
+    sharded over its rows (vocab) on a one-axis mesh (a DTensor from
+    parallel/sharding.py under tp) gives the same logits: each rank's
+    rows from the local shard, gathered over the mesh."""
+    if isinstance(w, DTensor):
+        return _vocab_parallel(x, w)
     w = w.to(x.dtype)
     if x.dtype == torch.float32:
         return x @ w.t()
@@ -93,3 +104,16 @@ def logits_fp32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return x.float() @ w.float().t()
 
 
+
+
+def _vocab_parallel(x: torch.Tensor, w: "DTensor") -> torch.Tensor:
+    """logits_fp32 with w (V, d) sharded on dim 0: x is the same on
+    every rank of the mesh, so its gradient sums the ranks' parts, and
+    the gathered logits' gradient is this rank's columns."""
+    from ..parallel.collectives import copy_to_group, gather_from_group
+    if w.device_mesh.ndim != 1 or w.placements[0] != Shard(0):
+        raise ValueError(f"logits_fp32: a DTensor weight must be sharded "
+                         f"on dim 0 over one axis, got {w.placements}")
+    group = w.device_mesh.get_group()
+    local = logits_fp32(copy_to_group(x, group), w.to_local())
+    return gather_from_group(local, group, dim=-1)

@@ -9,8 +9,9 @@ token's first choice is queued before any second choice. An expert takes
 at most `capacity` tokens; the rest of its queue is dropped (that
 expert's share of the token's output is 0). Dispatch and combine are
 one-hot (G, E, C) tensors and the expert batches come from einsums, so
-which tokens are dropped depends on G, the number of tokens in the call.
-The aux losses are fp32.
+which tokens are dropped depends on G, the number of tokens in the call
+(on a mesh, the global batch's: see `moe_dispatch_combine`). The aux
+losses are fp32.
 """
 from __future__ import annotations
 
@@ -45,27 +46,58 @@ def top_k_routing(router_logits: torch.Tensor, k: int):
     return weights, top_idx
 
 
+def _queue_positions(assign: torch.Tensor, mesh) -> torch.Tensor:
+    """Each (token, slot)'s position in its expert's queue, slot-major
+    so that every first choice queues before any second choice, int32
+    (exact past 2**24 assignments). assign: (G, k, E) one-hot.
+
+    On a mesh the queue is the global batch's, as the reference's jit
+    sees it: the data ranks' tokens in row order (dp-major), so a slot-k
+    assignment counts every slot before k on all ranks, then slot k on
+    the ranks before this one."""
+    from ..parallel import collectives as col  # noqa: PLC0415
+    slot_major = assign.transpose(0, 1).to(torch.int32)         # (k, G, E)
+    pos = torch.cumsum(slot_major, dim=1,
+                       dtype=torch.int32) - slot_major          # within slot
+    counts = slot_major.sum(dim=1, dtype=torch.int32)            # (k, E)
+    if mesh is None or col.data_size(mesh) == 1:
+        offset = torch.cumsum(counts, 0, dtype=torch.int32) - counts
+    else:
+        every = col.all_gather_axes(counts, mesh,
+                                    col.data_axes(mesh))        # (R, k, E)
+        total = every.sum(0, dtype=torch.int32)
+        offset = (torch.cumsum(total, 0, dtype=torch.int32) - total
+                  + every[:col.data_rank(mesh)].sum(0, dtype=torch.int32))
+    return (pos + offset[:, None, :]).transpose(0, 1)            # (G, k, E)
+
+
 def moe_dispatch_combine(x: torch.Tensor, router_logits: torch.Tensor,
                          expert_fn: Callable[[torch.Tensor], torch.Tensor],
                          *, k: int = 2, capacity_factor: float = 1.25,
-                         capacity: Optional[int] = None):
+                         capacity: Optional[int] = None, mesh=None):
     """x: (G, d) flattened tokens; router_logits: (G, E).
 
     expert_fn: (E, C, d) -> (E, C, d_out), the experts applied to their
-    batches. Returns (out (G, d_out), MoEAux)."""
+    batches. Returns (out (G, d_out), MoEAux).
+
+    With `mesh` (a DeviceMesh from parallel/mesh.py) x holds this data
+    rank's tokens: the capacity comes from the global token count and
+    the queue positions from the global order (`_queue_positions`), so
+    the same tokens drop as under the reference's jit of the global
+    batch. Under ep > 1 expert_fn applies this rank's E / ep experts
+    (E / ep, C, d): each expert's capacity slots go to its ep rank by
+    all-to-all, and its outputs come back the same way. The aux losses
+    are this rank's tokens'."""
+    from ..parallel import collectives as col  # noqa: PLC0415
     g = x.shape[0]
     e = router_logits.shape[-1]
+    n_data = 1 if mesh is None else col.data_size(mesh)
     c = capacity if capacity is not None else expert_capacity(
-        g, e, k, capacity_factor)
+        g * n_data, e, k, capacity_factor)
 
     weights, top_idx = top_k_routing(router_logits, k)          # (G, k)
     assign = F.one_hot(top_idx, e).float()                       # (G, k, E)
-    # queue position of each (token, slot) at its expert, slot-major so
-    # slot 0 wins capacity; int32 keeps it exact past 2**24 assignments
-    slot_major = assign.transpose(0, 1).reshape(k * g, e).to(torch.int32)
-    pos_slot_major = torch.cumsum(slot_major, dim=0,
-                                  dtype=torch.int32) - slot_major
-    pos = pos_slot_major.reshape(k, g, e).transpose(0, 1)       # (G, k, E)
+    pos = _queue_positions(assign, mesh)                         # (G, k, E)
     keep = assign * (pos < c)                                    # (G, k, E)
     slot_pos = (pos * keep).sum(-1).to(torch.int64)              # (G, k)
 
@@ -74,7 +106,19 @@ def moe_dispatch_combine(x: torch.Tensor, router_logits: torch.Tensor,
     combine = torch.einsum("gke,gk,gkc->gec", keep, weights, cap_onehot)
 
     expert_in = torch.einsum("gec,gd->ecd", dispatch.to(x.dtype), x)
-    expert_out = expert_fn(expert_in)                            # (E, C, do)
+    ep = 1 if mesh is None else col.axis_size(mesh, "ep")
+    if ep == 1:
+        expert_out = expert_fn(expert_in)                        # (E, C, do)
+    else:
+        # a slot is filled on one rank at most: summing the ep ranks'
+        # buffers gathers each of this rank's experts' batch
+        group = col.axis_group(mesh, "ep")
+        mine = col.all_to_all(expert_in.reshape(ep, e // ep, c, -1),
+                              group).sum(0)
+        out = expert_fn(mine)                                    # (E/ep, C, do)
+        expert_out = col.all_to_all(
+            out.unsqueeze(0).expand(ep, *out.shape).contiguous(),
+            group).reshape(e, c, -1)
     out = torch.einsum("gec,ecd->gd", combine.to(expert_out.dtype),
                        expert_out)
 

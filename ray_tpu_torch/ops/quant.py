@@ -16,7 +16,9 @@ from __future__ import annotations
 from typing import Dict, Mapping, Union
 
 import torch
+import torch.distributed as dist
 from torch import nn
+from torch.distributed.tensor import DTensor, Shard
 
 from .linear import logits_fp32
 
@@ -24,7 +26,9 @@ from .linear import logits_fp32
 class QuantDense(nn.Module):
     """Drop-in for Dense(bias=False) with int8 weights: buffers
     `kernel_q` (out, in) int8 and `scale` (out,) fp32, made by
-    `quantize_dense` / `quantize_llama_params`, never trained."""
+    `quantize_dense` / `quantize_llama_params`, never trained. Under tp
+    `kernel_q` is a DTensor sharded by the rule table; `scale` stays
+    whole."""
 
     def __init__(self, d_in: int, d_out: int, *,
                  dtype: torch.dtype = torch.bfloat16):
@@ -43,7 +47,20 @@ class QuantDense(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
-        y = logits_fp32(x.to(dt), self.kernel_q)
+        wq = self.kernel_q
+        if not isinstance(wq, DTensor):
+            y = logits_fp32(x.to(dt), wq)
+            return (y * self.scale).to(dt)
+        # sharded over tp (parallel/sharding.py): on dim 0 this rank's
+        # output channels, on dim 1 its input features, whose fp32
+        # partial products sum over the mesh before the scale
+        local = wq.to_local()
+        y = logits_fp32(x.to(dt), local)
+        if wq.placements[0] == Shard(0):
+            n = local.shape[0]
+            r = wq.device_mesh.get_local_rank()
+            return (y * self.scale[r * n:(r + 1) * n]).to(dt)
+        dist.all_reduce(y, group=wq.device_mesh.get_group())
         return (y * self.scale).to(dt)
 
 

@@ -1,0 +1,291 @@
+"""Rank functions for the parallel paths' parity checks.
+
+`train.backend.launch` pickles a function by reference into fresh
+interpreters, so the bodies the ranks run live here, in the port,
+where importing them loads neither JAX nor the JAX package. Each takes
+plain data (numpy weights and batches, made by the caller from a seed)
+and returns numpy results from rank 0 (None from the others), whole
+tensors gathered over the mesh. They run on the CPU (gloo) unless a
+case names another device.
+"""
+from __future__ import annotations
+
+import os
+import sys
+from typing import Any, Dict, List
+
+import numpy as np
+import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
+
+
+def _whole(t):
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def _np(t) -> np.ndarray:
+    return _whole(t).detach().float().cpu().numpy()
+
+
+def _rank0(x):
+    return x if dist.get_rank() == 0 else None
+
+
+def _batch(b: Dict[str, np.ndarray], dev) -> Dict[str, torch.Tensor]:
+    return {k: torch.from_numpy(np.asarray(v)).to(dev) for k, v in b.items()}
+
+
+_MESHES: Dict[tuple, Any] = {}
+
+
+def _mesh(spec: Dict[str, int], device: str = "cpu"):
+    """build_mesh(MeshSpec(**spec)), one a spec in this rank (each build
+    makes a process group per axis)."""
+    from ..parallel.mesh import MeshSpec, build_mesh
+    key = (tuple(sorted(spec.items())), device)
+    if key not in _MESHES:
+        _MESHES[key] = build_mesh(MeshSpec(**spec), device=device)
+    return _MESHES[key]
+
+
+def _model(case, dev):
+    from ..models import Llama, LlamaConfig, Mixtral, MixtralConfig
+    kind = case.get("model", "llama")
+    if kind == "mixtral":
+        cfg = MixtralConfig(**case["cfg"], dtype=torch.float32,
+                            param_dtype=torch.float32)
+        model = Mixtral(cfg, device=dev)
+    else:
+        cfg = LlamaConfig(**case["cfg"], dtype=torch.float32,
+                          param_dtype=torch.float32)
+        model = Llama(cfg, device=dev)
+    model.load_state_dict({k: torch.from_numpy(np.asarray(v))
+                           for k, v in case["params"].items()})
+    return model
+
+
+def train_cases(cases: List[Dict[str, Any]]):
+    """For each case: `make_train_step` on MeshSpec(**case["spec"]) for
+    its batches; per step loss, grad_norm and ntokens, then the whole
+    params."""
+    from ..train import make_optimizer, make_train_step
+    out = []
+    for case in cases:
+        dev = torch.device(case.get("device", "cpu"))
+        mesh = _mesh(case["spec"], dev.type)
+        model = _model(case, dev)
+        tx = make_optimizer(case["opt"], learning_rate=case["lr"])
+        batches = [_batch(b, dev) for b in case["batches"]]
+        state, step = make_train_step(
+            model, tx, mesh, accum_steps=case.get("accum", 1))(batches[0])
+        rows = []
+        for b in batches:
+            state, m = step(state, b)
+            rows.append({k: float(m[k]) for k in ("loss", "grad_norm",
+                                                  "ntokens")})
+        params = {k: _np(v) for k, v in model.state_dict().items()}
+        out.append(_rank0({"metrics": rows, "params": params}))
+    return out
+
+
+def lora_case(case: Dict[str, Any]):
+    """make_lora_train_step over the model sharded on the case's mesh:
+    per step loss and grad_norm, the adapters after, and whether the
+    base moved."""
+    from ..train import make_lora_train_step, make_optimizer
+    from ..train.lora import unflatten_adapters
+    dev = torch.device("cpu")
+    mesh = _mesh(case["spec"])
+    model = _model(case, dev)
+    lora = {"rank": case["rank"], "alpha": case["alpha"], "adapters": {
+        name: {k: torch.from_numpy(np.asarray(v)) for k, v in pair.items()}
+        for name, pair in case["adapters"].items()}}
+    batches = [_batch(b, dev) for b in case["batches"]]
+    state, step = make_lora_train_step(
+        model, make_optimizer(case.get("opt", "sgd"),
+                              learning_rate=case["lr"]),
+        mesh=mesh)(batches[0], lora)
+    base = {k: _np(v) for k, v in model.state_dict().items()}
+    rows = []
+    for b in batches:
+        state, m = step(state, b)
+        rows.append({k: float(m[k]) for k in ("loss", "grad_norm")})
+    after = {k: _np(v) for k, v in model.state_dict().items()}
+    adapters = {name: {k: v.detach().numpy() for k, v in pair.items()}
+                for name, pair in unflatten_adapters(state.params).items()}
+    moved = [k for k in base if not np.array_equal(base[k], after[k])]
+    return _rank0({"metrics": rows, "adapters": adapters,
+                   "base_moved": moved})
+
+
+def int8_forward(case: Dict[str, Any]):
+    """An int8 Llama (case["params"]: the quantized state_dict) sharded
+    on the case's mesh: logits of the global batch, gathered."""
+    from ..models import Llama, LlamaConfig
+    from ..parallel.collectives import all_gather_axes, data_axes
+    from ..parallel.sharding import batch_sharding, shard_module
+    mesh = _mesh(case["spec"])
+    cfg = LlamaConfig(**case["cfg"], dtype=torch.float32,
+                      param_dtype=torch.float32, quant="int8")
+    model = Llama(cfg, device="cpu")
+    model.load_state_dict({k: torch.from_numpy(np.asarray(v))
+                           for k, v in case["params"].items()})
+    shard_module(model, mesh)
+    tokens = batch_sharding(mesh).shard(torch.from_numpy(case["tokens"]))
+    with torch.no_grad():
+        logits, _ = model(tokens)
+    every = all_gather_axes(logits.contiguous(), mesh, data_axes(mesh))
+    kq = model.layer_0.attention.q_proj.kernel_q
+    return _rank0({"logits": every.reshape(-1, *logits.shape[1:]).numpy(),
+                   "q_placements": repr(getattr(kq, "placements", None))})
+
+
+def checkpoint_case(case: Dict[str, Any]):
+    """Save a Llama sharded at case["save"] (a MeshSpec dict), restore
+    it onto a model prepared on case["restore"] and onto one device; the
+    whole tensors of both restores against the saved model's, bit for
+    bit."""
+    from ..parallel.sharding import shard_module
+    from ..train import prepare_module, restore_pytree, save_pytree
+    path = case["path"]
+    saved = shard_module(_model(case, "cpu"), _mesh(case["save"]))
+    save_pytree(saved.state_dict(), path, step=7)
+    want = {k: _whole(v).detach() for k, v in saved.state_dict().items()}
+    committed = os.path.exists(os.path.join(path, "ckpt_meta.json"))
+    other = prepare_module(_model({**case, "params": {
+        k: np.zeros_like(v) for k, v in case["params"].items()}}, "cpu"),
+        _mesh(case["restore"]))
+    restore_pytree(path, target=other, shardings=other.state_dict(),
+                   map_location="cpu")
+    resharded = {k: _whole(v).detach() for k, v in other.state_dict().items()}
+    single = restore_pytree(path, map_location="cpu")
+    return _rank0({
+        "committed_on_return": committed,
+        "resharded_equal": all(torch.equal(resharded[k], want[k])
+                               for k in want),
+        "single_equal": all(torch.equal(single[k], want[k]) for k in want),
+        "n_tensors": len(want),
+        "placements": sorted({repr(v.placements) for v in
+                              other.state_dict().values()
+                              if isinstance(v, DTensor)})})
+
+
+def ring_cases(cases: List[Dict[str, Any]]):
+    """ring_attention over MeshSpec(sp=world) for each case: this rank's
+    chunk of q, k, v (whole arrays in the case), the output and the
+    gradients of sum(out * w), gathered whole."""
+    from ..ops.ring_attention import ring_attention
+    from ..parallel.collectives import all_gather_axes
+    n = dist.get_world_size()
+    mesh = _mesh(dict(sp=n))
+    r = mesh.get_local_rank("sp")
+    out = []
+    for case in cases:
+        def chunk(a):
+            c = a.shape[1] // n
+            return torch.from_numpy(a[:, r * c:(r + 1) * c].copy())
+        q, k, v, w = (chunk(case[x]) for x in "qkvw")
+        for t in (q, k, v):
+            t.requires_grad_(True)
+        o = ring_attention(q, k, v, mesh=mesh, causal=case["causal"])
+        (o * w).sum().backward()
+        res = {}
+        for name, t in (("out", o.detach()), ("dq", q.grad),
+                        ("dk", k.grad), ("dv", v.grad)):
+            every = all_gather_axes(t.contiguous(), mesh, ("sp",))
+            res[name] = torch.cat(list(every), dim=1).numpy()
+        out.append(_rank0(res))
+    return out
+
+
+def pipeline_case(case: Dict[str, Any]):
+    """pipeline_apply of a tanh-dense stage over MeshSpec(pp=world) with
+    the whole stacked params on every rank: the output and the
+    gradients of sum(out * w) in x and in the stacks (each rank's stage
+    rows, summed over the ranks)."""
+    from ..parallel.pipeline import pipeline_apply
+    mesh = _mesh(dict(pp=dist.get_world_size()))
+    x = torch.from_numpy(case["x"]).requires_grad_(True)
+    params = {k: torch.from_numpy(case[k]).requires_grad_(True)
+              for k in ("w", "b")}
+
+    def stage_fn(p, h):
+        return torch.tanh(h @ p["w"] + p["b"])
+
+    out = pipeline_apply(stage_fn, params, x, mesh=mesh,
+                         n_microbatches=case["n_micro"])
+    (out * torch.from_numpy(case["g"])).sum().backward()
+    grads = [params["w"].grad, params["b"].grad]
+    for g in grads:
+        dist.all_reduce(g)
+    return _rank0({"out": out.detach().numpy(), "dx": x.grad.numpy(),
+                   "dw": grads[0].numpy(), "db": grads[1].numpy()})
+
+
+def pipeline_train_case(case: Dict[str, Any]):
+    """make_pipeline_train_step on MeshSpec(**case["spec"]) from the
+    case's params: per step loss, then the whole params."""
+    from ..models import LlamaConfig
+    from ..parallel.pipeline_train import (PipelinedLM,
+                                           make_pipeline_train_step,
+                                           named_leaves)
+    from ..train import make_optimizer
+    mesh = _mesh(case["spec"])
+    cfg = LlamaConfig(**case["cfg"], dtype=torch.float32,
+                      param_dtype=torch.float32)
+    model = PipelinedLM(cfg, mesh, n_microbatches=case["n_micro"],
+                        device="cpu")
+    params = {"embed": torch.from_numpy(case["params"]["embed"]),
+              "stages": {k: torch.from_numpy(v)
+                         for k, v in case["params"]["stages"].items()},
+              "final_norm": torch.from_numpy(case["params"]["final_norm"])}
+    batches = [_batch(b, "cpu") for b in case["batches"]]
+    state, step = make_pipeline_train_step(
+        model, make_optimizer(case["opt"], learning_rate=case["lr"]))(
+        params, batches[0])
+    losses = []
+    for b in batches:
+        state, m = step(state, b)
+        losses.append(float(m["loss"]))
+    return _rank0({"losses": losses, "params": {
+        k: _np(v) for k, v in named_leaves(state.params)}})
+
+
+def run_jobs(jobs):
+    """Several of the functions above in one world: [(name, arg), ...]
+    -> their results in order."""
+    return [globals()[name](arg) for name, arg in jobs]
+
+
+def fail_on(rank: int):
+    """Raise on `rank`; every other rank waits in a barrier it would
+    never leave (the launcher must take the world down)."""
+    if dist.get_rank() == rank:
+        raise ValueError(f"rank {rank} fails on purpose")
+    dist.barrier()
+
+
+def sleep_for(seconds: float):
+    """Outlive a launcher's deadline."""
+    import time
+    time.sleep(seconds)
+
+
+def foreign_modules() -> List[str]:
+    """Modules of JAX, the JAX package or optax/flax loaded in this rank
+    (none may be)."""
+    return sorted(m for m in sys.modules
+                  if m.split(".")[0] in ("jax", "jaxlib", "ray_tpu",
+                                         "optax", "flax", "orbax"))
+
+
+def rank_env() -> str:
+    """This rank's RAY_TPU_TRAIN_RANK, as the launcher set it."""
+    return os.environ.get("RAY_TPU_TRAIN_RANK")
+
+
+__all__ = ["train_cases", "lora_case", "int8_forward", "checkpoint_case",
+           "ring_cases", "pipeline_case", "pipeline_train_case",
+           "run_jobs", "fail_on", "sleep_for", "foreign_modules",
+           "rank_env"]

@@ -1,0 +1,197 @@
+"""Collectives with derivatives, and the mesh's axis groups.
+
+XLA inserts the collectives of the reference's sharded programs and
+differentiates through them (`ppermute`, `psum`). In eager PyTorch a
+collective is a call, and `torch.distributed`'s calls have no
+derivative, so the port's parallel paths use these autograd functions.
+Their backwards assume what the reference's layouts imply: a tensor
+that is the same on every rank of the group (replicated) has the same
+gradient on every rank, so
+
+  copy_to_group      forward identity,   backward all-reduce (sum)
+  gather_from_group  forward all-gather, backward this rank's slice
+  all_to_all         forward all-to-all, backward all-to-all back
+
+(`copy_to_group` is Megatron's f operator.) `shift` is the ring's hop
+(send to rank + 1, receive from rank - 1), with no derivative: ring
+attention writes its backward's hops out. Every buffer a collective
+writes is contiguous: it fills memory in row-major order, whatever
+strides its input had. The plain helpers below name the groups of a
+`DeviceMesh` by axis and reduce plain tensors over several axes.
+"""
+from __future__ import annotations
+
+from typing import List, Sequence
+
+import torch
+import torch.distributed as dist
+
+DATA_AXES = ("dp", "fsdp", "ep")
+
+
+# ---- the mesh's axes -------------------------------------------------------
+
+def axis_size(mesh, axis: str) -> int:
+    return mesh.size(mesh.mesh_dim_names.index(axis))
+
+
+def axis_rank(mesh, axis: str) -> int:
+    return mesh.get_local_rank(axis)
+
+
+def axis_group(mesh, axis: str):
+    return mesh.get_group(axis)
+
+
+def group_ranks(group) -> List[int]:
+    """Global ranks of a group, in the group's own rank order."""
+    return dist.get_process_group_ranks(group)
+
+
+def data_axes(mesh) -> List[str]:
+    """The axes that split the batch's rows, outermost first: dp, fsdp
+    and ep (the port gives each ep rank its own rows; see ops/moe.py)."""
+    return [a for a in DATA_AXES if axis_size(mesh, a) > 1]
+
+
+def data_size(mesh) -> int:
+    n = 1
+    for a in data_axes(mesh):
+        n *= axis_size(mesh, a)
+    return n
+
+
+def data_rank(mesh) -> int:
+    """This rank's index among the data ranks, dp-major (the row order
+    of the global batch)."""
+    idx = 0
+    for a in data_axes(mesh):
+        idx = idx * axis_size(mesh, a) + axis_rank(mesh, a)
+    return idx
+
+
+def all_reduce_axes_(tensors: Sequence[torch.Tensor], mesh,
+                     axes: Sequence[str]) -> None:
+    """Sum plain tensors (in place) over the product of `axes`: one
+    flat bucket, reduced over each axis's group in turn."""
+    axes = [a for a in axes if axis_size(mesh, a) > 1]
+    tensors = [t for t in tensors if t is not None]
+    if not axes or not tensors:
+        return
+    by_dtype = {}
+    for t in tensors:
+        by_dtype.setdefault((t.dtype, t.device), []).append(t)
+    for group in by_dtype.values():
+        flat = torch.cat([t.reshape(-1) for t in group])
+        for a in axes:
+            dist.all_reduce(flat, group=axis_group(mesh, a))
+        off = 0
+        for t in group:
+            n = t.numel()
+            t.copy_(flat[off:off + n].view_as(t))
+            off += n
+
+
+def all_gather_axes(t: torch.Tensor, mesh, axes: Sequence[str]
+                    ) -> torch.Tensor:
+    """(R, *t.shape): `t` from every rank of the product of `axes`, in
+    the axes' row-major order (outermost axis first). No derivative."""
+    out = t.contiguous()[None]
+    for a in reversed([a for a in axes if axis_size(mesh, a) > 1]):
+        group = axis_group(mesh, a)
+        parts = [torch.empty_like(out) for _ in range(axis_size(mesh, a))]
+        dist.all_gather(parts, out, group=group)
+        out = torch.cat(parts)
+    return out
+
+
+# ---- collectives with derivatives -------------------------------------------
+
+class _CopyToGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+class _GatherFromGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        n = dist.get_world_size(group)
+        ctx.group, ctx.dim, ctx.n = group, dim, n
+        x = x.contiguous()
+        parts = [torch.empty_like(x) for _ in range(n)]
+        dist.all_gather(parts, x, group=group)
+        return torch.cat(parts, dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        r = dist.get_rank(ctx.group)
+        return g.chunk(ctx.n, dim=ctx.dim)[r].contiguous(), None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        x = x.contiguous()
+        out = torch.empty_like(x)
+        dist.all_to_all_single(out, x, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous()
+        out = torch.empty_like(g)
+        dist.all_to_all_single(out, g, group=ctx.group)
+        return out, None
+
+
+def _shift(tensors, group, step: int):
+    """Send each tensor to group rank (r + step) % n and receive the one
+    from (r - step) % n, all in one batch of P2P ops."""
+    ranks = group_ranks(group)
+    n = len(ranks)
+    r = dist.get_rank(group)
+    dst, src = ranks[(r + step) % n], ranks[(r - step) % n]
+    tensors = [t.contiguous() for t in tensors]
+    outs = [torch.empty_like(t) for t in tensors]
+    ops = []
+    for t, o in zip(tensors, outs):
+        ops.append(dist.P2POp(dist.isend, t, dst, group))
+        ops.append(dist.P2POp(dist.irecv, o, src, group))
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    return outs
+
+
+def copy_to_group(x, group):
+    return _CopyToGroup.apply(x, group)
+
+
+def gather_from_group(x, group, dim: int = -1):
+    return _GatherFromGroup.apply(x, group, dim % x.ndim)
+
+
+def all_to_all(x, group):
+    """x (n, ...): chunk i goes to group rank i; returns (n, ...) whose
+    chunk j came from group rank j."""
+    return _AllToAll.apply(x, group)
+
+
+def shift(tensors, group, step: int = 1):
+    """Each tensor sent to group rank (r + step) % n; returns those
+    received from (r - step) % n. No derivative."""
+    return _shift(list(tensors), group, step)
+
+
+__all__ = ["DATA_AXES", "axis_size", "axis_rank", "axis_group",
+           "group_ranks", "data_axes", "data_size", "data_rank",
+           "all_reduce_axes_", "all_gather_axes", "copy_to_group",
+           "gather_from_group", "all_to_all", "shift"]

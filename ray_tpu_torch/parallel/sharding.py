@@ -1,0 +1,415 @@
+"""Parameter and activation sharding rules (counterpart of
+ray_tpu/parallel/sharding.py).
+
+The table is the reference's, re-expressed on the port's parameter names
+and its (out, in) weight layout: where the reference writes
+`P("fsdp", "tp")` for a q_proj kernel (in, out), the port writes
+`P("tp", "fsdp")` for q_proj.weight (out, in). Embeddings (vocab, d),
+the router (d, E) and the stacked experts keep the reference's layout
+and specs. `spec_for` gives the reference's answers, including
+replication where an axis does not divide a dim.
+
+`shard_module` applies the table to a module on a `DeviceMesh` from
+`build_mesh`, where XLA would apply it to a pytree:
+- tp: a projection whose table entry puts tp on its output dim becomes
+  `ColwiseParallel`, on its input dim `RowwiseParallel`; the embedding
+  is vocab-parallel (`RowwiseParallel`); a head the plans do not cover
+  (Llama's `_LMHead`, the int8 `QuantDense` buffers) is distributed over
+  vocab / its table dim with `distribute_tensor` and computes on local
+  shards (ops/linear.py, ops/quant.py). A head is never split across
+  ranks: attention projections whose head count tp does not divide stay
+  replicated, and where tp divides the query heads but not the kv
+  heads, k/v stay replicated and each rank selects the kv heads its
+  query heads read.
+- ep: the stacked expert weights are sharded over ep on dim 0 (each ep
+  rank holds E / ep experts) and left out of FSDP; ops/moe.py moves the
+  tokens to them with all-to-all.
+- fsdp: `fully_shard` per block, then the root, on the dim the table
+  gives fsdp (FSDP2 shards every parameter it manages; one the table
+  replicates is sharded on dim 0). dp is FSDP2's replicate dim (HSDP
+  over ("dp", "fsdp")). Master weights and the all-gather stay fp32.
+sp and pp do not shard a module: ring attention (ops/ring_attention.py)
+and the pipelines (parallel/pipeline*.py) take those axes.
+
+Conventions for decoder transformers (ray_tpu_torch/models/*), the
+port's layout:
+  embed      (vocab, d)        -> P(("tp", "fsdp"), None)  vocab-parallel
+  attn qkv   (heads*hd, d)     -> P("tp", "fsdp")     column parallel
+  attn out   (d, heads*hd)     -> P("fsdp", "tp")     row parallel
+  mlp gate/up(ff, d)           -> P("tp", "fsdp")     column parallel
+  mlp down   (d, ff)           -> P("fsdp", "tp")     row parallel
+  norms      (d,)              -> P()                  replicated
+Activations: batch rows over the data axes (dp, fsdp, ep), sequence
+over sp.
+"""
+from __future__ import annotations
+
+import dataclasses
+import re
+from typing import Dict, Mapping, Optional, Sequence, Tuple, Union
+
+import torch
+from torch import nn
+
+from .collectives import axis_size, data_axes, data_rank, data_size
+from .mesh import AXIS_ORDER, MeshSpec
+
+
+class P(tuple):
+    """PartitionSpec: one entry per tensor dim, each None (replicated),
+    an axis name, or a tuple of axis names (sharded over their
+    product)."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, entries)
+
+    def __repr__(self):
+        return f"P{tuple.__repr__(self)}"
+
+
+Rule = Tuple[str, P]
+
+_W = r"(weight|kernel_q)$"     # a projection's weight, fp or int8
+
+DEFAULT_RULES: Sequence[Rule] = (
+    # MoE experts first: their paths can also contain generic names like
+    # gate_proj, and first-match must pick the 3-axis ep spec. The
+    # stacked experts keep flax's (E, in, out) layout.
+    (r".*experts.*(gate|up).*kernel$", P("ep", "fsdp", "tp")),
+    (r".*experts.*down.*kernel$", P("ep", "tp", "fsdp")),
+    (r".*router.*kernel$", P("fsdp", None)),
+    # vocab-parallel embedding, d_model unsharded (see the reference)
+    (r".*(token_embed|embed_tokens|wte)\b.*weight$",
+     P(("tp", "fsdp"), None)),
+    # untied output head (vocab, d): column-parallel over vocab
+    (r".*(lm_head|output_proj)\b.*weight$", P("tp", "fsdp")),
+    (r".*(wq|wk|wv|qkv|q_proj|k_proj|v_proj)\b.*" + _W,
+     P("tp", "fsdp")),
+    (r".*(wo|o_proj|out_proj|attn_out)\b.*" + _W, P("fsdp", "tp")),
+    (r".*(gate_proj|up_proj|w1|w3|fc_in)\b.*" + _W,
+     P("tp", "fsdp")),
+    (r".*(down_proj|w2|fc_out)\b.*" + _W, P("fsdp", "tp")),
+    (r".*(pos_embed|wpe)\b.*weight$", P(None, "fsdp")),
+    (r".*(norm|ln_f|ln_1|ln_2|layernorm).*$", P()),
+    (r".*bias$", P()),
+    (r".*scale$", P()),
+)
+
+MeshLike = Union["DeviceMesh", MeshSpec, Mapping[str, int]]  # noqa: F821
+
+
+def axis_sizes(mesh: MeshLike) -> Dict[str, int]:
+    """{axis: size} of a DeviceMesh, a MeshSpec or such a dict."""
+    if isinstance(mesh, MeshSpec):
+        return mesh.axis_sizes()
+    if isinstance(mesh, Mapping):
+        return {a: int(mesh.get(a, 1)) for a in AXIS_ORDER}
+    return {a: mesh.size(i) for i, a in enumerate(mesh.mesh_dim_names)}
+
+
+@dataclasses.dataclass
+class ShardingRules:
+    rules: Sequence[Rule] = DEFAULT_RULES
+    default: P = dataclasses.field(default_factory=P)
+
+    def spec_for(self, path: str, shape: Tuple[int, ...],
+                 mesh: MeshLike) -> P:
+        return _clip_to_mesh(self._match(path), shape, axis_sizes(mesh))
+
+    def _match(self, path: str) -> P:
+        for pattern, spec in self.rules:
+            if re.match(pattern, path):
+                return spec
+        return self.default
+
+
+def _clip_to_mesh(spec: P, shape: Tuple[int, ...],
+                  sizes: Mapping[str, int]) -> P:
+    """Drop axes not in the mesh / of size 1, and any axis that doesn't
+    divide the dimension, falling back to replication for that dim."""
+    out = []
+    for i, entry in enumerate(spec):
+        if i >= len(shape):
+            break
+        dim = shape[i]
+        names = entry if isinstance(entry, tuple) else (
+            (entry,) if entry is not None else ())
+        kept = []
+        prod = 1
+        for name in names:
+            sz = sizes.get(name, 1)
+            if sz > 1 and dim % (prod * sz) == 0:
+                kept.append(name)
+                prod *= sz
+        if not kept:
+            out.append(None)
+        elif len(kept) == 1:
+            out.append(kept[0])
+        else:
+            out.append(tuple(kept))
+    while out and out[-1] is None:
+        out.pop()
+    return P(*out)
+
+
+def partition_spec_for(path: str, shape: Tuple[int, ...], mesh: MeshLike,
+                       rules: Optional[ShardingRules] = None) -> P:
+    return (rules or ShardingRules()).spec_for(path, shape, mesh)
+
+
+def path_str(path) -> str:
+    """Canonical name of a parameter path: a dotted module path as
+    given, or a sequence of keys joined by "." (the port's names are
+    `named_parameters()` names; the reference joins with "/")."""
+    if isinstance(path, str):
+        return path
+    return ".".join(str(getattr(p, "key", p)) for p in path)
+
+
+def dim_of(spec: P, axis: str) -> Optional[int]:
+    """The dim of `spec` sharded over `axis`, or None."""
+    for i, entry in enumerate(spec):
+        if entry == axis or (isinstance(entry, tuple) and axis in entry):
+            return i
+    return None
+
+
+def state_specs(model: nn.Module, mesh: MeshLike,
+                rules: Optional[ShardingRules] = None) -> Dict[str, P]:
+    """{name: spec} of every parameter and buffer of `model` (the
+    counterpart of the reference's sharding tree)."""
+    rules = rules or ShardingRules()
+    named = dict(model.named_parameters())
+    named.update(model.named_buffers())
+    return {n: rules.spec_for(n, tuple(t.shape), mesh)
+            for n, t in named.items()}
+
+
+# ---- applying the table ----------------------------------------------------
+
+def _is_attention(m: nn.Module) -> bool:
+    return all(hasattr(m, a) for a in ("q_proj", "k_proj", "v_proj",
+                                       "o_proj")) and hasattr(m, "cfg")
+
+
+def _attention_plan(prefix: str, attn: nn.Module, tp_mesh
+                    ) -> Dict[str, bool]:
+    """Which of an attention's projections tp may shard (whole heads
+    only), and, when q is sharded and k/v are not, the kv heads this
+    rank's query heads read (`kv_index`) and the tp group that sums the
+    ranks' parts of the k/v gradients (`kv_group`)."""
+    tp, tp_rank = tp_mesh.size(), tp_mesh.get_local_rank()
+    hq, hkv = attn.cfg.n_heads, attn.cfg.n_kv_heads
+    q_ok = hq % tp == 0
+    kv_ok = q_ok and hkv % tp == 0
+    attn.kv_index, attn.kv_group = None, None
+    if q_ok and not kv_ok:
+        attn.kv_group = tp_mesh.get_group()
+        rep, local = hq // hkv, hq // tp
+        dev = next(iter(attn.state_dict().values())).device
+        attn.kv_index = torch.tensor(
+            [(tp_rank * local + j) // rep for j in range(local)],
+            dtype=torch.long, device=dev)
+    return {f"{prefix}.q_proj": q_ok, f"{prefix}.o_proj": q_ok,
+            f"{prefix}.k_proj": kv_ok, f"{prefix}.v_proj": kv_ok}
+
+
+def _apply_tp(model: nn.Module, mesh, rules: ShardingRules) -> None:
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    from torch.distributed.tensor.parallel import (ColwiseParallel,
+                                                   RowwiseParallel,
+                                                   parallelize_module)
+    from ..ops.quant import QuantDense
+    tp_mesh = mesh["tp"]
+    allowed: Dict[str, bool] = {}
+    for name, m in model.named_modules():
+        if _is_attention(m):
+            allowed.update(_attention_plan(name, m, tp_mesh))
+    plan = {}
+    for name, m in model.named_modules():
+        if allowed.get(name) is False:
+            continue
+        if isinstance(m, QuantDense):
+            spec = rules.spec_for(f"{name}.kernel_q",
+                                  tuple(m.kernel_q.shape), mesh)
+            dim = dim_of(spec, "tp")
+            if dim is not None:
+                m.kernel_q = distribute_tensor(m.kernel_q, tp_mesh,
+                                               [Shard(dim)])
+            continue
+        w = getattr(m, "weight", None)
+        if not isinstance(w, nn.Parameter) or w.ndim != 2:
+            continue
+        dim = dim_of(rules.spec_for(f"{name}.weight", tuple(w.shape), mesh),
+                     "tp")
+        if dim is None:
+            continue
+        if name.rpartition(".")[2] == "qkv":
+            raise NotImplementedError(
+                f"{name}: a fused qkv projection under tp would split "
+                f"heads (GPT-2 under tp is not ported)")
+        if isinstance(m, nn.Embedding):
+            # vocab-parallel lookup of the whole (replicated) token ids
+            plan[name] = RowwiseParallel(input_layouts=Replicate())
+        elif isinstance(m, nn.Linear):
+            head = re.search(r"(lm_head|output_proj)$", name) is not None
+            plan[name] = (RowwiseParallel() if dim == 1 else
+                          ColwiseParallel(output_layouts=Replicate())
+                          if head else ColwiseParallel())
+        elif dim == 0:
+            # a head the plans do not cover: vocab-sharded weight, local
+            # logits gathered in ops/linear.py logits_fp32
+            m.weight = nn.Parameter(distribute_tensor(w.data, tp_mesh,
+                                                      [Shard(0)]))
+        else:
+            raise NotImplementedError(f"{name}: no tp plan for "
+                                      f"{type(m).__name__} on dim {dim}")
+    if plan:
+        parallelize_module(model, tp_mesh, plan)
+
+
+def _apply_ep(model: nn.Module, mesh, rules: ShardingRules) -> set:
+    """Experts over ep on dim 0; returns the parameters FSDP leaves out."""
+    from torch.distributed.tensor import Shard, distribute_tensor
+    ep_mesh = mesh["ep"]
+    ignored = set()
+    for mod_name, m in model.named_modules():
+        for pname, p in list(m.named_parameters(recurse=False)):
+            full = f"{mod_name}.{pname}" if mod_name else pname
+            spec = rules.spec_for(full, tuple(p.shape), mesh)
+            if dim_of(spec, "ep") != 0:
+                continue
+            q = nn.Parameter(distribute_tensor(p.data, ep_mesh, [Shard(0)]))
+            setattr(m, pname, q)
+            ignored.add(q)
+    return ignored
+
+
+def data_mesh(mesh):
+    """The mesh FSDP2 shards over: ("dp", "fsdp") as HSDP when dp > 1,
+    else "fsdp"."""
+    return mesh["dp", "fsdp"] if axis_size(mesh, "dp") > 1 else mesh["fsdp"]
+
+
+def shard_module(model: nn.Module, mesh,
+                 rules: Optional[ShardingRules] = None) -> nn.Module:
+    """Apply the table to `model` in place on `mesh` (see the module
+    docstring) and return it. Every rank must hold the same full weights
+    before the call; each keeps its shards after it. Models whose MoE
+    layers route (`moe_mesh`) learn the mesh here. A model sharded
+    already is returned as it is."""
+    from torch.distributed.fsdp import FSDPModule, fully_shard
+    from torch.distributed.tensor import Shard
+    if isinstance(model, FSDPModule):
+        return model
+    rules = rules or ShardingRules()
+    sizes = axis_sizes(mesh)
+    for axis, where in (("pp", "parallel.pipeline_train.PipelinedLM"),
+                        ("sp", "ops.ring_attention")):
+        if sizes[axis] > 1:
+            raise NotImplementedError(
+                f"shard_module: {axis}={sizes[axis]} does not shard a "
+                f"module; it is taken by {where}")
+    if sizes["tp"] > 1:
+        _apply_tp(model, mesh, rules)
+    ignored = _apply_ep(model, mesh, rules) if sizes["ep"] > 1 else set()
+    for m in model.modules():
+        if hasattr(m, "moe_mesh"):
+            m.moe_mesh = mesh
+    names = {p: n for n, p in model.named_parameters()}
+
+    def placement(p):
+        spec = rules.spec_for(names[p], tuple(p.shape), mesh)
+        dim = dim_of(spec, "fsdp")
+        return Shard(dim if dim is not None else 0)
+
+    dmesh = data_mesh(mesh)
+    for block in getattr(model, "blocks", ()):
+        own = ignored & set(block.parameters())
+        fully_shard(block, mesh=dmesh, shard_placement_fn=placement,
+                    **({"ignored_params": own} if own else {}))
+    fully_shard(model, mesh=dmesh, shard_placement_fn=placement,
+                **({"ignored_params": ignored} if ignored else {}))
+    return model
+
+
+# ---- the batch ------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class BatchSharding:
+    """This rank's share of a global batch: rows `row_index` of
+    `n_rows` equal parts, and under sp the sequence chunk `seq_index`
+    of `n_seq` (the counterpart of a NamedSharding over (data, sp))."""
+    row_index: int = 0
+    n_rows: int = 1
+    seq_index: int = 0
+    n_seq: int = 1
+
+    def shard(self, x):
+        """The local part of a tensor (B, S, ...), or of every tensor
+        of a dict."""
+        if isinstance(x, Mapping):
+            return {k: self.shard(v) for k, v in x.items()}
+        b = x.shape[0]
+        if b % self.n_rows:
+            raise ValueError(f"batch of {b} rows does not split over "
+                             f"{self.n_rows} data ranks")
+        m = b // self.n_rows
+        x = x[self.row_index * m:(self.row_index + 1) * m]
+        if self.n_seq > 1:
+            s = x.shape[1]
+            if s % self.n_seq:
+                raise ValueError(f"sequence of {s} does not split over "
+                                 f"sp={self.n_seq}")
+            c = s // self.n_seq
+            x = x[:, self.seq_index * c:(self.seq_index + 1) * c]
+        return x
+
+
+def batch_sharding(mesh, *, seq_axis: Optional[str] = "sp"
+                   ) -> BatchSharding:
+    """Input batch (B, S, ...): rows over the data axes (dp, fsdp, ep),
+    sequence over sp."""
+    n_seq = axis_size(mesh, seq_axis) if seq_axis else 1
+    return BatchSharding(data_rank(mesh), data_size(mesh),
+                         mesh.get_local_rank(seq_axis) if n_seq > 1 else 0,
+                         n_seq)
+
+
+# ---- activation constraints ------------------------------------------------
+# The reference's train step publishes its mesh while tracing so models
+# can pin (B, S, D) activations to batch over the data axes and sequence
+# over sp, keeping XLA's propagation from resharding the residual
+# stream. Eager PyTorch has no propagation to steer: each rank's
+# activations are local tensors of its own rows, and the tp plans
+# decide the layout of every projection's output. So the context is
+# kept for the API and `constrain_activations` returns x unchanged.
+_ACTIVATION_MESH: list = [None]
+
+
+class activation_mesh:
+    """Context manager: make `mesh` visible to constrain_activations."""
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+
+    def __enter__(self):
+        self._prev = _ACTIVATION_MESH[0]
+        _ACTIVATION_MESH[0] = self.mesh
+        return self.mesh
+
+    def __exit__(self, *exc):
+        _ACTIVATION_MESH[0] = self._prev
+        return False
+
+
+def constrain_activations(x, *, seq_axis: Optional[str] = "sp"):
+    """x unchanged: a rank's activations already are its rows (and, under
+    sp, its sequence chunk); see the comment above."""
+    return x
+
+
+__all__ = ["P", "Rule", "DEFAULT_RULES", "ShardingRules", "axis_sizes",
+           "partition_spec_for", "path_str", "dim_of", "state_specs",
+           "shard_module", "data_mesh", "data_axes", "BatchSharding",
+           "batch_sharding", "activation_mesh", "constrain_activations"]

@@ -4,8 +4,8 @@ of ray_tpu/rllib/learner.py).
 Reference counterpart: rllib/core/learner/ (Learner, LearnerGroup). The
 reference's LearnerGroup shards each batch over a jax Mesh's dp axis;
 on one device it is a plain Learner, and that is what the port has.
-Data parallelism over several cards waits for the parallelism slice
-(ROADMAP queue 1, item 9).
+Data parallelism over several cards (a LearnerGroup over the port's
+DeviceMesh) is not ported yet (ROADMAP queue 1, item 9).
 """
 from __future__ import annotations
 
@@ -81,8 +81,8 @@ class LearnerGroup:
         if mesh is not None and len(mesh) > 1:
             raise NotImplementedError(
                 f"LearnerGroup over {len(mesh)} devices: data "
-                f"parallelism waits for the port's parallelism slice "
-                f"(ROADMAP queue 1, item 9); pass mesh=None or one device")
+                f"parallelism over a mesh is not ported yet (ROADMAP "
+                f"queue 1, item 9); pass mesh=None or one device")
         self.learner = learner
         self.mesh = mesh
 

@@ -3,7 +3,9 @@ of a tree of tensors (counterpart of ray_tpu/train/checkpoint.py).
 
 Storage is one `torch.save` file of the tree (a dict of tensors, e.g. a
 state_dict or `TrainState.state_dict()`) in place of orbax's sharded
-arrays; the commit protocol is the JAX package's: the state is written
+arrays; a sharded tree (DTensor leaves) is gathered whole to rank 0,
+and `restore_pytree` reshards it onto any mesh or loads it onto one
+device. The commit protocol is the JAX package's: the state is written
 into a `tmp-` sibling, the meta sidecar is fsynced there, and one atomic
 rename publishes the checkpoint. A previous checkpoint at the same path
 slides aside first and is reclaimed only after the commit; a crash
@@ -16,9 +18,11 @@ import os
 import shutil
 import time
 import uuid
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Mapping, Optional
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, Replicate
 
 from ..util.device import DeviceLike, resolve_device
 
@@ -83,11 +87,46 @@ def _write_state(directory: str, state: Any) -> None:
                  lambda f: torch.save(state, f))
 
 
+def _world() -> int:
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def _gather(tree: Any, keep: bool) -> Any:
+    """The tree with every DTensor gathered whole (a collective: every
+    rank walks the same tree in the same order), on the CPU where `keep`
+    and dropped (None) elsewhere; other leaves as they are."""
+    if isinstance(tree, DTensor):
+        full = tree.full_tensor()
+        return full.cpu() if keep else None
+    if isinstance(tree, Mapping):
+        return {k: _gather(v, keep) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_gather(v, keep) for v in tree)
+    return tree
+
+
 def save_pytree(state: Any, path: str, *, step: Optional[int] = None,
                 metadata: Optional[Dict[str, Any]] = None) -> Checkpoint:
     """Save a tree of tensors; blocking. A crash at any instant leaves
     either the previous committed checkpoint intact or the new one
-    committed, never a torn directory that latest() would select."""
+    committed, never a torn directory that latest() would select.
+
+    In a world of several ranks every rank calls it with its part of the
+    same tree: DTensor leaves (a sharded model's or optimizer's state)
+    are gathered whole to rank 0, which writes and commits after a
+    barrier; no rank returns before the commit."""
+    if _world() > 1:
+        full = _gather(state, dist.get_rank() == 0)
+        dist.barrier()
+        if dist.get_rank() == 0:
+            _commit(full, path, step, metadata)
+        dist.barrier()
+        return Checkpoint(path)
+    return _commit(_gather(state, True), path, step, metadata)
+
+
+def _commit(state: Any, path: str, step: Optional[int],
+            metadata: Optional[Dict[str, Any]]) -> Checkpoint:
     path = os.path.abspath(path)
     parent, base = os.path.split(path)
     os.makedirs(parent, exist_ok=True)
@@ -145,12 +184,37 @@ def _fsync_dir(path: str) -> None:
         pass
 
 
-def restore_pytree(path: str, *, map_location: DeviceLike = "cuda") -> Any:
+def restore_pytree(path: str, *, target: Any = None, shardings: Any = None,
+                   map_location: DeviceLike = "cuda") -> Any:
     """Load a saved tree with every tensor on `map_location` (the GPU
-    unless the caller names another device)."""
+    unless the caller names another device): whole tensors, on one
+    device. With `shardings`, a tree of the same keys whose leaves are
+    DTensors (e.g. the `state_dict()` of a model sharded on another
+    mesh), each leaf becomes a DTensor of that leaf's mesh and placements
+    (this rank keeps its shard). With `target`, a module, the values
+    are loaded into it (`load_state_dict`) and it is returned."""
     dev = resolve_device(map_location)
-    return torch.load(os.path.join(path, STATE_NAME), map_location=dev,
+    tree = torch.load(os.path.join(path, STATE_NAME), map_location=dev,
                       weights_only=True)
+    if shardings is not None:
+        tree = _place(tree, shardings)
+    if target is None:
+        return tree
+    target.load_state_dict(tree)
+    return target
+
+
+def _place(tree: Any, like: Any) -> Any:
+    if isinstance(like, DTensor):
+        mesh = like.device_mesh
+        whole = DTensor.from_local(tree.to(like.device), mesh,
+                                   [Replicate()] * mesh.ndim,
+                                   run_check=False)
+        return whole.redistribute(mesh, like.placements)
+    if isinstance(like, Mapping):
+        return {k: _place(v, like[k]) if k in like else v
+                for k, v in tree.items()}
+    return tree
 
 
 class CheckpointManager:

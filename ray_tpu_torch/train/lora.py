@@ -33,10 +33,11 @@ from typing import Any, Callable, Dict, Mapping, Optional, Sequence, Tuple, \
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor, Replicate
 from torch.func import functional_call
 
 from .optim import global_norm
-from .spmd import TrainState, next_token_loss
+from .spmd import TrainState, next_token_loss, token_count
 
 DEFAULT_TARGETS = ("q_proj", "k_proj", "v_proj", "o_proj",
                    "gate_proj", "up_proj", "down_proj",
@@ -121,8 +122,7 @@ def merge_lora(params: Params, lora: Mapping[str, Any]
     for name, pair in lora["adapters"].items():
         if name not in named:
             raise KeyError(f"adapter {name!r} has no weight in params")
-        p = named[name]
-        out[name] = p + lora_delta(pair, scaling, p.dtype)
+        out[name] = _merged_weight(pair, scaling)(named[name])
     return out
 
 
@@ -155,6 +155,7 @@ def frozen_base(params: Params) -> Dict[str, torch.Tensor]:
 
 def make_lora_train_step(model: nn.Module, tx,
                          base_params: Optional[Params] = None, *,
+                         mesh=None,
                          loss_fn: Optional[Callable] = None) -> Callable:
     """Like `make_train_step`, but only the adapters train: the base
     (`base_params`, default the model's own parameters) is closed over
@@ -168,8 +169,18 @@ def make_lora_train_step(model: nn.Module, tx,
     global norm of the adapters' gradients before clipping. The forward
     runs the model through `torch.func.functional_call` on the merged
     weights. `loss_fn(apply, batch) -> (loss, metrics)`, where
-    `apply(inputs)` is that forward, defaults to `next_token_loss`."""
+    `apply(inputs)` is that forward, defaults to `next_token_loss`.
+
+    With `mesh` the frozen base is the model itself, sharded by the rule
+    table (`shard_module`; a model sharded already stays so), and the
+    adapters are replicated on every rank, as in the reference; see
+    `_mesh_lora_step`."""
     loss_fn = loss_fn or next_token_loss
+    if mesh is not None:
+        if base_params is not None:
+            raise ValueError("on a mesh the base is the model's own "
+                             "sharded parameters; pass no base_params")
+        return _mesh_lora_step(model, tx, mesh, loss_fn)
     base = frozen_base(model if base_params is None else base_params)
 
     def init_fn(example_batch, lora) -> Tuple[TrainState, Callable]:
@@ -200,6 +211,86 @@ def make_lora_train_step(model: nn.Module, tx,
                 p.grad = None
             state.step += 1
             return state, metrics
+
+        return state, step
+
+    return init_fn
+
+
+def _merged_weight(pair, scaling: float):
+    """weight -> weight + delta, for `Dense.weight_fn`. Under tp the
+    gathered weight is a DTensor shard: the replicated delta is cut to
+    the same shard (its gradient gathers back to the whole delta)."""
+    def fn(w):
+        delta = lora_delta(pair, scaling, w.dtype)
+        if isinstance(w, DTensor):
+            delta = DTensor.from_local(
+                delta, w.device_mesh, [Replicate()] * w.device_mesh.ndim,
+                run_check=False).redistribute(w.device_mesh, w.placements)
+        return w + delta
+    return fn
+
+
+def _mesh_lora_step(model, tx, mesh, loss_fn) -> Callable:
+    """make_lora_train_step on a mesh. Each targeted `Dense` merges its
+    adapter into the weight FSDP2 gathers (`Dense.weight_fn`, set for
+    the step only); the base's parameters stop requiring grad for the
+    step, so FSDP2 reduces nothing of theirs. Each rank runs its rows;
+    the adapters' gradients of the local masked sums are summed over the
+    data ranks and divided by the global token count: the reference's
+    masked mean of the global batch."""
+    from ..parallel.collectives import all_reduce_axes_
+    from ..parallel.sharding import batch_sharding, shard_module
+    shard_module(model, mesh)
+    bsh = batch_sharding(mesh)
+    modules = dict(model.named_modules())
+
+    def init_fn(example_batch, lora) -> Tuple[TrainState, Callable]:
+        bsh.shard(example_batch)                   # checks the split
+        scaling = lora["alpha"] / lora["rank"]
+        flat = {k: v.detach().clone().requires_grad_(True)
+                for k, v in flatten_adapters(lora["adapters"]).items()}
+        state = TrainState(step=0, params=flat,
+                           opt_state=tx(list(flat.items())))
+
+        def step(state: TrainState, batch):
+            params = list(state.params.values())
+            for p in params:
+                p.grad = None
+            targets = []
+            for name, pair in unflatten_adapters(state.params).items():
+                mod = modules[name.rpartition(".")[0]]
+                mod.weight_fn = _merged_weight(pair, scaling)
+                targets.append(mod)
+            base = [p for p in model.parameters() if p.requires_grad]
+            try:
+                for p in base:
+                    p.requires_grad_(False)
+                local = bsh.shard(batch)
+                loss, metrics = loss_fn(model, local)
+                nt = token_count(local, metrics, loss.device)
+                (loss * nt).backward()
+            finally:
+                for mod in targets:
+                    mod.weight_fn = None
+                for p in base:
+                    p.requires_grad_(True)
+            totals = torch.stack([nt, metrics["loss"].float() * nt])
+            all_reduce_axes_([totals], mesh, ("dp", "fsdp", "ep"))
+            all_reduce_axes_([p.grad for p in params], mesh,
+                             ("dp", "fsdp", "ep"))
+            n_tok = torch.clamp(totals[0], min=1.0)
+            with torch.no_grad():
+                for p in params:
+                    p.grad.div_(n_tok)
+            out = {"loss": totals[1] / n_tok, "ntokens": totals[0]}
+            out["ppl"] = torch.exp(torch.clamp(out["loss"], max=20.0))
+            out["grad_norm"] = global_norm(p.grad for p in params)
+            state.opt_state.step()
+            for p in params:
+                p.grad = None
+            state.step += 1
+            return state, out
 
         return state, step
 

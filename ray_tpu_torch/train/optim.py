@@ -21,6 +21,11 @@ optax chain step for step:
   only when norm >= max_norm (`torch.nn.utils.clip_grad_norm_` would
   scale by max_norm / (norm + 1e-6) always).
 
+On a mesh (parallel/sharding.py) parameters and gradients are DTensor
+shards: the global norm reduces over the mesh, so every rank clips by
+the whole model's norm, and adafactor's passes over a whole parameter
+run on the gathered tensor; the elementwise optimizers act on shards.
+
 A schedule is evaluated at the optimizer's step count before it is
 incremented, as `scale_by_schedule` does, so `warmup_cosine` gives lr 0
 on the first step. Parameters and moments are updated in place (the
@@ -37,6 +42,8 @@ from typing import (Callable, Dict, Iterable, List, Optional, Sequence,
                     Tuple, Union)
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, Replicate
 
 Schedule = Callable[[int], float]
 LearningRate = Union[float, Schedule]
@@ -73,12 +80,26 @@ def _decay_mask(names: Sequence[str]) -> List[bool]:
             for n in names]
 
 
+def _sum_squares(t: torch.Tensor) -> torch.Tensor:
+    """Sum of squares of a tensor's every element, fp32. A DTensor's
+    (a shard of FSDP2 or a tp plan) sums its local shard and reduces
+    over the mesh dims it is sharded on, not over those it replicates."""
+    if not isinstance(t, DTensor):
+        return torch.linalg.vector_norm(t, dtype=torch.float32).square()
+    ss = torch.linalg.vector_norm(t.to_local(),
+                                  dtype=torch.float32).square()
+    for dim, placement in enumerate(t.placements):
+        # sharded (Shard, FSDP2's _StridedShard) or partial: sum
+        if not placement.is_replicate():
+            dist.all_reduce(ss, group=t.device_mesh.get_group(dim))
+    return ss
+
+
 def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
     """sqrt of the sum of squares of every element, in fp32 (optax's
-    global_norm)."""
-    norms = [torch.linalg.vector_norm(t, dtype=torch.float32)
-             for t in tensors]
-    return torch.linalg.vector_norm(torch.stack(norms))
+    global_norm): of the whole tensors where they are sharded DTensors,
+    the same on every rank."""
+    return torch.stack([_sum_squares(t) for t in tensors]).sum().sqrt()
 
 
 def clip_by_global_norm_(grads: Sequence[torch.Tensor],
@@ -89,7 +110,8 @@ def clip_by_global_norm_(grads: Sequence[torch.Tensor],
     factor = torch.where(norm < max_norm, torch.ones_like(norm),
                          max_norm / norm)
     for g in grads:
-        g.mul_(factor.to(g.dtype))
+        (g.to_local() if isinstance(g, DTensor) else g).mul_(
+            factor.to(g.dtype))
 
 
 class _Chain:
@@ -207,6 +229,17 @@ class Adafactor(_Chain, _PerParameter):
                          min_scale=min_scale)
 
     def _update(self, p, g, state, group):
+        if isinstance(p, DTensor):
+            # the factored moments and the block rms are passes over the
+            # whole parameter: run them on the gathered tensor (every
+            # rank the same), keep this rank's shard of the update
+            full = p.full_tensor()
+            self._update(full, g.full_tensor(), state, group)
+            p.to_local().copy_(DTensor.from_local(
+                full, p.device_mesh, [Replicate()] * p.device_mesh.ndim,
+                run_check=False).redistribute(
+                    p.device_mesh, p.placements).to_local())
+            return
         dims = _factored_dims(p.shape)
         if not state:
             if dims is None:
@@ -257,6 +290,11 @@ def make_optimizer(name: str = "adamw", *, learning_rate: float = 3e-4,
     def build(named_params: NamedParams) -> torch.optim.Optimizer:
         named = list(named_params)
         params = [p for _, p in named]
+        # the multi-tensor (foreach, fused) kernels take no mix of plain
+        # tensors and DTensors (a pipeline's replicated embedding beside
+        # its pp-sharded stages); such a mix takes the per-tensor loop
+        uniform = len({isinstance(p, DTensor) for p in params}) == 1
+        foreach = None if uniform else False
         if name in ("adamw", "adam"):
             mask = (_decay_mask([n for n, _ in named]) if name == "adamw"
                     else [False] * len(params))
@@ -266,11 +304,12 @@ def make_optimizer(name: str = "adamw", *, learning_rate: float = 3e-4,
                 {"params": [p for p, m in zip(params, mask) if not m],
                  "weight_decay": 0.0}]
             # one fused kernel over all parameters when they are on CUDA
-            fused = all(p.is_cuda for p in params) or None
+            fused = (uniform and all(p.is_cuda for p in params)) or None
             return AdamW([g for g in groups if g["params"]], lr, clip,
-                         betas=(b1, b2), eps=1e-8, fused=fused)
+                         betas=(b1, b2), eps=1e-8, fused=fused,
+                         foreach=foreach)
         if name == "sgd":
-            return SGD(params, lr, clip, momentum=0.9)
+            return SGD(params, lr, clip, momentum=0.9, foreach=foreach)
         if name == "lion":
             return Lion(params, lr, weight_decay=weight_decay,
                         grad_clip=clip)

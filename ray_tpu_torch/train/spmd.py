@@ -1,14 +1,18 @@
 """The train step (counterpart of ray_tpu/train/spmd.py).
 
-Single-device for now: the step runs the model, its backward and the
-optimizer on the device that holds the model. The mesh, the sharding
-rules and state donation of the JAX step wait for the parallelism slice
-(FSDP2 / DTensor over a torch DeviceMesh).
+Without a mesh the step runs the model, its backward and the optimizer
+on the device that holds the model. With a mesh (parallel/mesh.py) it
+is the counterpart of the reference's one jitted SPMD function: every
+rank of the world runs it on its share of the batch, the model sharded
+by the rule table (`parallel.sharding.shard_module`: FSDP2 over fsdp,
+replicas over dp, DTensor plans over tp, experts over ep), and the
+collectives are FSDP2's, DTensor's and the few the step makes itself.
 
-Params live in the module and are updated in place; a `TrainState`
-names them with the optimizer and the step count. Where the JAX step is
-one jitted function, this one is eager PyTorch: forward, backward (the
-flash-attention kernels K1/K2a/K2b on the GPU), then the optimizer.
+Params live in the module and are updated in place (the counterpart of
+donating the state); a `TrainState` names them with the optimizer and
+the step count. Where the JAX step is one jitted function, this one is
+eager PyTorch: forward, backward (the flash-attention kernels K1/K2a/K2b
+on the GPU), then the optimizer.
 """
 from __future__ import annotations
 
@@ -18,6 +22,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor
 
 from .optim import global_norm
 
@@ -83,8 +88,23 @@ def _micro_batches(batch: Batch, n: int):
             for i in range(n)]
 
 
-def make_train_step(model: nn.Module, tx, *,
+@dataclasses.dataclass
+class SpmdStep:
+    """The step on a mesh, with the shardings it uses: `state_shardings`
+    the rule table's spec of every parameter, `batch_shardings` this
+    rank's share of a global batch."""
+    step_fn: Callable[[TrainState, Batch], Tuple[TrainState, Dict]]
+    mesh: Any
+    state_shardings: Dict[str, Any]
+    batch_shardings: Any
+
+    def __call__(self, state, batch):
+        return self.step_fn(state, batch)
+
+
+def make_train_step(model: nn.Module, tx, mesh=None, *,
                     loss_fn: Optional[Callable] = None,
+                    rules=None, donate_state: bool = True,
                     accum_steps: int = 1) -> Callable:
     """Build the train step for `model` with the optimizer builder `tx`
     (from `make_optimizer`).
@@ -102,8 +122,16 @@ def make_train_step(model: nn.Module, tx, *,
     gradients accumulate in fp32, each weighted by its token count
     ("ntokens"; 1 when the loss function reports none), and one
     optimizer update applies at the end: numerically a large-batch step.
+
+    With `mesh`, `init_fn(example_batch)` shards the model (`rules`,
+    default the table) and gives (TrainState, SpmdStep); see
+    `_mesh_train_step`. The state is always updated in place, so
+    `donate_state` changes nothing here.
     """
     loss_fn = loss_fn or next_token_loss
+    if mesh is not None:
+        return _mesh_train_step(model, tx, mesh, loss_fn, rules,
+                                accum_steps)
 
     def grads_and_metrics(params, batch):
         if accum_steps <= 1:
@@ -159,4 +187,101 @@ def make_train_step(model: nn.Module, tx, *,
     return init_fn
 
 
-__all__ = ["TrainState", "next_token_loss", "make_train_step"]
+def token_count(batch: Batch, metrics: Dict, device) -> torch.Tensor:
+    """The tokens a loss averaged over, fp32: the batch's `loss_mask`
+    sum where it has one (rows with no masked token count 0, where
+    next_token_loss's own denominator is at least 1), else the loss
+    function's "ntokens", else 1. On a mesh the ranks' counts add up to
+    the global batch's."""
+    if "loss_mask" in batch:
+        return batch["loss_mask"].float().sum().to(device)
+    return torch.as_tensor(metrics.get("ntokens", 1.0), dtype=torch.float32,
+                           device=device)
+
+
+def _is_expert(p) -> bool:
+    """A parameter sharded over ep by shard_module (outside FSDP2)."""
+    return (isinstance(p, DTensor) and p.device_mesh.ndim == 1
+            and p.device_mesh.mesh_dim_names == ("ep",))
+
+
+def _mesh_train_step(model, tx, mesh, loss_fn, rules, accum_steps):
+    """The step on a mesh. Every rank calls `step(state, batch)` with the
+    same global batch and trains on its share (`batch_shardings`).
+
+    The loss is the reference's: the masked mean over the global batch.
+    Each rank's backward runs on its local masked sum (per micro-batch
+    under accum_steps, weighted by `token_count`); the token count N is
+    all-reduced over the data ranks and every gradient scaled so that it
+    is d(sum)/N over the whole batch, whatever each rank's mask holds. FSDP2 averages over
+    its data mesh (dp x fsdp), hence the factor of that mesh's size; ep
+    ranks hold their own rows, so the other parameters' gradients are
+    summed over ep and the experts' (outside FSDP2) over dp and fsdp.
+    Metrics (loss, ntokens, ppl and grad_norm) are the global values on
+    every rank."""
+    from ..parallel.collectives import all_reduce_axes_, axis_size
+    from ..parallel.sharding import (batch_sharding, data_mesh,
+                                     shard_module, state_specs)
+    shard_module(model, mesh, rules)
+    bsh = batch_sharding(mesh)
+    fsdp_ranks = data_mesh(mesh).size()
+    ep = axis_size(mesh, "ep")
+
+    def step(state: TrainState, batch: Batch):
+        params = list(state.params.values())
+        for p in params:
+            p.grad = None
+        local = bsh.shard(batch)
+        micro = (_micro_batches(local, accum_steps) if accum_steps > 1
+                 else [local])
+        totals, keys = None, None
+        for mb in micro:
+            loss, m = loss_fn(model, mb)
+            nt = token_count(mb, m, loss.device)
+            (loss * nt).backward()
+            keys = keys or [k for k in m if k not in ("ntokens", "ppl")]
+            row = torch.stack([nt] + [torch.as_tensor(
+                m[k], dtype=torch.float32, device=loss.device) * nt
+                for k in keys])
+            totals = row if totals is None else totals + row
+        all_reduce_axes_([totals], mesh, ("dp", "fsdp", "ep"))
+        n_tok = torch.clamp(totals[0], min=1.0)
+        experts = [p for p in params if _is_expert(p) and p.grad is not None]
+        others = [p.grad.to_local() if isinstance(p.grad, DTensor)
+                  else p.grad for p in params
+                  if p.grad is not None and not _is_expert(p)]
+        if ep > 1:
+            all_reduce_axes_(others, mesh, ("ep",))
+            all_reduce_axes_([p.grad.to_local() for p in experts], mesh,
+                             ("dp", "fsdp"))
+        with torch.no_grad():
+            for g in others:
+                g.mul_(fsdp_ranks / n_tok)
+            for p in experts:
+                p.grad.to_local().div_(n_tok)
+        metrics = {k: totals[i + 1] / n_tok for i, k in enumerate(keys)}
+        metrics["ntokens"] = totals[0]
+        if "loss" in metrics:
+            metrics["ppl"] = torch.exp(torch.clamp(metrics["loss"],
+                                                   max=20.0))
+        metrics["grad_norm"] = global_norm(
+            p.grad if p.grad is not None else torch.zeros_like(p)
+            for p in params)
+        state.opt_state.step()
+        for p in params:
+            p.grad = None
+        state.step += 1
+        return state, metrics
+
+    def init_fn(example_batch: Batch) -> Tuple[TrainState, SpmdStep]:
+        bsh.shard(example_batch)                 # checks the split
+        if accum_steps > 1:
+            _micro_batches(bsh.shard(example_batch), accum_steps)
+        return TrainState.create(model, tx), SpmdStep(
+            step, mesh, state_specs(model, mesh, rules), bsh)
+
+    return init_fn
+
+
+__all__ = ["TrainState", "SpmdStep", "next_token_loss", "make_train_step",
+           "token_count"]

@@ -19,3 +19,35 @@ def engine_watchdog_s() -> float:
         return float(raw)
     except ValueError:
         return _ENGINE_WATCHDOG_DEFAULT
+
+
+# the launcher's rank block (ray_tpu/util/knobs.py's train knobs, same
+# names): a worker's rank, its world size and the rank-0 rendezvous
+TRAIN_RANK = "RAY_TPU_TRAIN_RANK"
+TRAIN_WORLD = "RAY_TPU_TRAIN_WORLD"
+COORDINATOR = "RAY_TPU_COORDINATOR"
+
+
+def _int(name: str, default: int) -> int:
+    raw = os.environ.get(name)
+    if raw in (None, ""):
+        return default
+    try:
+        return int(raw)
+    except ValueError:
+        return default
+
+
+def train_rank() -> int:
+    """RAY_TPU_TRAIN_RANK, default 0."""
+    return _int(TRAIN_RANK, 0)
+
+
+def train_world() -> int:
+    """RAY_TPU_TRAIN_WORLD, default 1."""
+    return _int(TRAIN_WORLD, 1)
+
+
+def coordinator() -> "str | None":
+    """RAY_TPU_COORDINATOR, the rendezvous address, default none."""
+    return os.environ.get(COORDINATOR) or None

@@ -514,7 +514,15 @@ def test_port_imports_no_jax_and_no_ray_tpu():
                  "ray_tpu_torch.models.vit", "ray_tpu_torch.models.clip",
                  "ray_tpu_torch.models.mlp", "ray_tpu_torch.ops.moe",
                  "ray_tpu_torch.ops.quant", "ray_tpu_torch.ops.linear",
-                 "ray_tpu_torch.train.adapters", "ray_tpu_torch.entry"):
+                 "ray_tpu_torch.train.adapters", "ray_tpu_torch.entry",
+                 "ray_tpu_torch.parallel.mesh",
+                 "ray_tpu_torch.parallel.sharding",
+                 "ray_tpu_torch.parallel.collectives",
+                 "ray_tpu_torch.parallel.pipeline",
+                 "ray_tpu_torch.parallel.pipeline_train",
+                 "ray_tpu_torch.parallel._testing",
+                 "ray_tpu_torch.ops.ring_attention",
+                 "ray_tpu_torch.train.backend"):
         assert name in mods.split()
 
 
