@@ -5,7 +5,7 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
-It builds every CUDA kernel from `ray_tpu_torch/csrc/`, then runs eleven
+It builds every CUDA kernel from `ray_tpu_torch/csrc/`, then runs thirteen
 phases and fails (non-zero exit, no result line) if any of them fails:
 
 1. kernels: each kernel against its plain PyTorch version at
@@ -94,11 +94,27 @@ phases and fails (non-zero exit, no result line) if any of them fails:
    grad norms, the last loss below the first, and K1/K2a/K2b launched
    exactly as the path implies (counters zeroed just before); then one
    more step under the profiler.
-8. train-parity: 3 fp32 train steps (TF32 off) of the flagship widths
+8. trainer: `SpmdTrainer.fit` (a world of one: the plain step) on the
+   train phase's model and optimizer (lr 1e-5), fed by
+   `device_put_iterator` from fresh seeded numpy batches of 2 x 2049
+   int64 tokens, Zipf over the whole vocabulary (narrowed to int32 on
+   the way), 8 steps logged every step, no checkpoint: finite losses
+   that fall, K1/K2a/K2b launched 2 x layers x steps and layers x
+   steps, the median step (from the trainer's tokens_per_s) beside the
+   train phase's, peak memory, `profiler.hbm_usage()` and
+   `profiler.timed_steps` of the same step; then the same fit at the
+   train phase's lr 3e-4, in bf16 and in fp32 compute, printed only.
+9. trainer-resume: at the flagship widths (bf16 compute, fp32 master
+   weights, adamw), a 6-step fit whose source fails drawing batch 4
+   (checkpoints every 2 steps) resumes from its step-4 checkpoint with a
+   fast_forward iterator: batches 1-3 are never drawn again, and every
+   step's loss equals an uninterrupted 6-step run's (RESUME_RTOL; bit
+   for bit expected).
+10. train-parity: 3 fp32 train steps (TF32 off) of the flagship widths
    on the GPU (K1/K2a/K2b) give the CPU's loss and grad_norm, and so
    does one GPU step under remat "dots" (selective checkpointing; K1
    runs twice per layer).
-9. grpo: post-training through the engine, 2 prompts a step of 64-224
+11. grpo: post-training through the engine, 2 prompts a step of 64-224
    random tokens, groups of 8, 32 new tokens at temperature 1, 2 steps,
    the paged engine sampling (K1 on prefill, K3 on decode). (a)
    Full-parameter GRPO on the train phase's model (8 of 32 layers at 8B
@@ -113,14 +129,14 @@ phases and fails (non-zero exit, no result line) if any of them fails:
    log-prob and update times and peak memory. (c) fp32 parity at the
    flagship widths: one GRPOLearner.update, full and over LoRA adapters,
    on the GPU against the CPU (stats, gradients, updated params).
-10. north-star: pretrain the flagship widths on a repeating corpus,
+12. north-star: pretrain the flagship widths on a repeating corpus,
    checkpoint through CheckpointManager, restore, and serve the restored
    weights through LLMServer: the greedy continuation must match the
    corpus at least once in 6 tokens; then GRPO post-train the restored
    model through the engine sampler for 6 steps: the reward must not
    fall by more than 0.5 and every loss is finite.
 
-11. parallel: on the n = torch.cuda.device_count() cards (one rank a
+13. parallel: on the n = torch.cuda.device_count() cards (one rank a
    card, launched by train.backend.launch; at n == 1 a world of one NCCL
    rank in this process): (a) the train phase's model and schedule at
    min(32, 8 n) layers under MeshSpec(fsdp=n) (FSDP2, fp32 master
@@ -130,9 +146,15 @@ phases and fails (non-zero exit, no result line) if any of them fails:
    sgd steps of the flagship widths on the mesh equal to one device's
    (loss, grad_norm and params, rtol 1e-4); (c) ring_attention at sp =
    n against multi_head_attention at Llama-3-8B attention shape, bf16
-   (K1 at n == 1); (d) (b)'s model saved sharded, restored onto one
-   device bit for bit and served by the paged engine token-identical to
-   the einsum loop; (e) entry.dryrun_multichip(n) on CUDA.
+   (K1 at n == 1); (d) (b)'s model saved sharded, restored onto the mesh
+   with `shardings` (each rank's memory rising by no more than its
+   shards plus the largest leaf) and onto one device, both bit for bit,
+   and served by the paged engine token-identical to the einsum loop;
+   (e) entry.dryrun_multichip(n) on CUDA; (f) Mixtral-8x7B widths at 2
+   fp32 layers on MeshSpec(ep=n): each layer's aux loss equal to one
+   device's on the same global batch within 1e-5. At n == 1 (d)'s bound
+   and (f) cannot fail (the shards are the tree, one data rank reduces
+   nothing), and the script says so.
 
 The last three lines are a JSON object listing each kernel (with its
 launches on each path, the zoo's bursts and ViT's forward among them), the card's name and power limit as nvidia-smi
@@ -2119,6 +2141,282 @@ def phase_train(torch, gpu_line):
                       "losses": losses}
 
 
+TRAINER_STEPS = 8         # the trainer phase: SpmdTrainer.fit, log_every 1
+TRAINER_TIMED = 3         # profiler.timed_steps iterations of its step
+TRAINER_WARMUP = 1        # its warmup steps (warmup_cosine: lr 0 at step 1)
+TRAINER_LR = 1e-5         # its peak lr; the witness fits take
+TRAINER_SPIKE_LR = 3e-4   # ... the train phase's, at which the loss spikes
+RESUME_STEPS = 6          # trainer-resume: the uninterrupted run's steps,
+RESUME_CRASH_AT = 4       # ... the batch whose draw fails the first run,
+RESUME_EVERY = 2          # ... its checkpoints
+# a resumed step against the uninterrupted run's: bit for bit expected
+# (the same kernels on the same params, moments, counts and batches);
+# the check allows a few ulps of a loss of order 7
+RESUME_RTOL = 1e-6
+
+
+def trainer_batches(rows, seq, seed, vocab):
+    """Fresh seeded host batches of ids over the whole vocabulary, drawn
+    by Zipf's law (the id of rank k with probability proportional to
+    1/k, text's rank-frequency law) over a seeded permutation of the
+    ids: the ids' frequencies are there to learn, so the loss falls over
+    fresh batches, where uniform ids leave nothing to learn but the
+    logits' spread. int64 as numpy makes them; the loader narrows them
+    to int32."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    p = 1.0 / np.arange(1, vocab + 1)
+    p /= p.sum()
+    ids = rng.permutation(vocab)
+    while True:
+        yield {"tokens": ids[rng.choice(vocab, (rows, seq + 1), p=p)]}
+
+
+def loader_check(torch, host):
+    """device_put_iterator's CUDA path (pinned host memory, the copy on a
+    side stream, the consumer's stream made to wait) against the host
+    batches, the consumer's stream held busy by a device spin before
+    each read: every batch int32 on the card and equal to its host
+    batch."""
+    from ray_tpu_torch.data import device_put_iterator
+    got = []
+    for b in device_put_iterator(iter(host), prefetch=2):
+        torch.cuda._sleep(HOLD_CYCLES)
+        t = b["tokens"]
+        got.append((t.device.type, t.dtype, t.cpu().numpy()))
+    ok = len(got) == len(host) and all(
+        dev == "cuda" and dt == torch.int32 and (a == h["tokens"]).all()
+        for (dev, dt, a), h in zip(got, host))
+    return ok, len(got)
+
+
+def phase_trainer(torch, gpu_line, train_stats):
+    """The slice's front: SpmdTrainer.fit on the train phase's model
+    (Llama-3-8B widths at TRAIN_LAYERS layers, bf16 compute, fp32 master
+    weights, remat, adamw at TRAINER_LR, warmup TRAINER_WARMUP) over
+    device_put_iterator of fresh seeded numpy batches of TRAIN_BATCH x
+    (TRAIN_SEQ + 1) int64 tokens, Zipf over the whole vocabulary,
+    TRAINER_STEPS steps logged every step, no checkpoint; a world of one
+    takes the plain step. Then profiler.timed_steps of the same step,
+    and the witness: the same fit at TRAINER_SPIKE_LR in bf16 and in
+    fp32 compute. Returns the fit's K1/K2a/K2b launches."""
+    import shutil
+    import tempfile
+
+    from ray_tpu_torch.data import device_put_iterator
+    from ray_tpu_torch.models import Llama, LlamaConfig
+    from ray_tpu_torch.observability import profiler
+    from ray_tpu_torch.ops.kernels import flash_attention as fa
+    from ray_tpu_torch.train import (RunConfig, SpmdTrainer,
+                                     SpmdTrainerConfig, make_optimizer,
+                                     make_train_step, warmup_cosine)
+
+    cfg = LlamaConfig.llama3_8b(n_layers=TRAIN_LAYERS, dtype=torch.bfloat16,
+                                param_dtype=torch.float32)
+    torch.cuda.reset_peak_memory_stats()
+    model = Llama(cfg, device="cuda", seed=0)
+    def trainer_config(model, lr):
+        return SpmdTrainerConfig(model=model, total_steps=TRAINER_STEPS,
+                                 log_every=1, warmup_steps=TRAINER_WARMUP,
+                                 learning_rate=lr, device="cuda")
+
+    def fit(tcfg, name):
+        root = tempfile.mkdtemp(prefix="chip_smoke_trainer_")
+        try:
+            return SpmdTrainer(tcfg, data, run_config=RunConfig(
+                name=name, storage_path=root)).fit()
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+
+    def data():
+        return trainer_batches(TRAIN_BATCH, TRAIN_SEQ, 1, cfg.vocab_size)
+
+    tcfg = trainer_config(model, TRAINER_LR)
+
+    ok, n_batches = loader_check(
+        torch, [b for b, _ in zip(data(), range(TRAINER_STEPS))])
+    print(f"trainer: device_put_iterator on CUDA: {n_batches} int64 host "
+          f"batches came out int32 on the card equal to the host's: {ok}",
+          flush=True)
+    check(ok, "trainer: device_put_iterator's batches differ from the "
+              "host's")
+
+    zero_counters(fa)
+    res = fit(tcfg, "trainer")
+    torch.cuda.synchronize()
+    launches = read_counters(fa)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    hist = res.metrics_history
+    losses = [m["loss"] for m in hist]
+    norms = [m["grad_norm"] for m in hist]
+    counted = TRAIN_BATCH * (TRAIN_SEQ + 1)     # the trainer's B x S
+    step_ms = [counted / m["tokens_per_s"] * 1e3 for m in hist]
+    med = statistics.median(step_ms[1:])
+    print(f"trainer: SpmdTrainer.fit, Llama-3-8B widths, {cfg.n_layers} "
+          f"layers, bf16 compute / fp32 master, remat, adamw, "
+          f"{TRAINER_STEPS} steps over device_put_iterator of fresh seeded "
+          f"int64 batches {TRAIN_BATCH} x {TRAIN_SEQ + 1}, Zipf over the "
+          f"whole vocabulary, lr {TRAINER_LR}, warmup {TRAINER_WARMUP}; "
+          f"losses "
+          f"{[round(x, 6) for x in losses]}", flush=True)
+    print(f"trainer: median step {med:.1f} ms (steps 2-{TRAINER_STEPS}, "
+          f"from tokens_per_s; each "
+          f"{[round(x, 1) for x in step_ms]}) beside the train phase's "
+          f"bare step {train_stats['median_ms']:.1f} ms in this run; peak "
+          f"memory {peak_gib:.2f} GiB (train phase "
+          f"{train_stats['peak_gib']:.2f}); hbm_usage "
+          f"{json.dumps(profiler.hbm_usage())} [{gpu_line}]", flush=True)
+    n = cfg.n_layers * TRAINER_STEPS
+    print(f"trainer: launches {json.dumps(launches)} (expected K1 2 x "
+          f"{cfg.n_layers} x {TRAINER_STEPS}, K2a and K2b {cfg.n_layers} x "
+          f"{TRAINER_STEPS})", flush=True)
+    check(len(hist) == TRAINER_STEPS and hist[-1]["step"] == TRAINER_STEPS,
+          f"trainer: {len(hist)} logged steps")
+    check(all(map(math.isfinite, losses + norms)),
+          "trainer: non-finite loss or grad_norm")
+    check(losses[-1] < losses[0], f"trainer: loss did not fall: {losses}")
+    check(launches == {"flash_fwd (K1)": 2 * n, "flash_bwd_dq (K2a)": n,
+                       "flash_bwd_dkv (K2b)": n},
+          f"trainer: unexpected launch counts {launches}")
+    del res
+    release(torch)
+
+    # the trainer's step (its optimizer and schedule) on a loader batch
+    feed = device_put_iterator(data())
+    batch = next(feed)
+    feed.close()
+    tx = make_optimizer(tcfg.optimizer, schedule=warmup_cosine(
+        tcfg.learning_rate, tcfg.warmup_steps, tcfg.total_steps),
+        grad_clip=tcfg.grad_clip)
+    state, step = make_train_step(model, tx)(batch)
+    timed = profiler.timed_steps(step, state, batch, warmup=1,
+                                 iters=TRAINER_TIMED)
+    print(f"trainer: profiler.timed_steps of the step: "
+          f"{timed['mean_step_s'] * 1e3:.1f} ms a step, "
+          f"{timed['steps_per_s']:.3f} steps/s ({TRAINER_TIMED} steps after "
+          f"1 warm-up) [{gpu_line}]", flush=True)
+    del state, step, timed, model, batch
+    release(torch)
+
+    # the witness: the same fit at the train phase's lr, in bf16 and in
+    # fp32 compute; no check (PERF.md reads it)
+    for dt in (torch.bfloat16, torch.float32):
+        wcfg = LlamaConfig.llama3_8b(n_layers=TRAIN_LAYERS, dtype=dt,
+                                     param_dtype=torch.float32)
+        hist = fit(trainer_config(Llama(wcfg, device="cuda", seed=0),
+                                  TRAINER_SPIKE_LR), "witness").metrics_history
+        print(f"trainer: witness at lr {TRAINER_SPIKE_LR}, {dt} compute, "
+              f"the same model and batches: losses "
+              f"{[round(m['loss'], 4) for m in hist]}, grad_norm "
+              f"{[round(m['grad_norm'], 3) for m in hist]}", flush=True)
+        release(torch)
+    return launches
+
+
+class SimulatedCrash(Exception):
+    """Raised by ResumeBatches in place of batch RESUME_CRASH_AT."""
+
+
+class ResumeBatches:
+    """Batch i is RandomState(100 + i)'s tokens; fast_forward(n) seeks so
+    the next batch is batch n; every draw is logged; with `crash_at` the
+    draw of that batch raises SimulatedCrash."""
+
+    def __init__(self, log, vocab, crash_at=None):
+        self.i, self.log, self.vocab, self.crash_at = 0, log, vocab, crash_at
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        import numpy as np
+        if self.i == self.crash_at:
+            raise SimulatedCrash(f"batch {self.i}")
+        self.log.append(self.i)
+        rng = np.random.RandomState(100 + self.i)
+        self.i += 1
+        return {"tokens": rng.randint(0, self.vocab, (2, 257))}
+
+    def fast_forward(self, n):
+        self.log.append(("ff", n))
+        self.i = n
+
+
+def phase_trainer_resume(torch):
+    """SpmdTrainer's resume on the card at the flagship widths (bf16
+    compute, fp32 master weights, adamw): a RESUME_STEPS-step fit whose
+    source fails at batch RESUME_CRASH_AT (checkpoints every
+    RESUME_EVERY steps; the same schedule as an uninterrupted run) is
+    resumed from its last checkpoint with a fast_forward iterator, and
+    held to an uninterrupted RESUME_STEPS-step run: the batches already
+    consumed are never drawn again, and every step's loss is the
+    uninterrupted run's (RESUME_RTOL)."""
+    import shutil
+    import tempfile
+
+    from ray_tpu_torch.models import Llama, LlamaConfig
+    from ray_tpu_torch.train import (CheckpointManager, RunConfig,
+                                     SpmdTrainer, SpmdTrainerConfig)
+
+    cfg = LlamaConfig(**FLAGSHIP, dtype=torch.bfloat16,
+                      param_dtype=torch.float32)
+    root = tempfile.mkdtemp(prefix="chip_smoke_resume_")
+
+    def fit(name, log, crash_at=None, every=0, resume=None):
+        rows = []
+        tcfg = SpmdTrainerConfig(
+            model=Llama(cfg, device="cuda", seed=0), total_steps=RESUME_STEPS,
+            log_every=1, warmup_steps=1, learning_rate=1e-3,
+            checkpoint_every=every, device="cuda")
+        trainer = SpmdTrainer(
+            tcfg, lambda: ResumeBatches(log, cfg.vocab_size, crash_at),
+            run_config=RunConfig(name=name, storage_path=root),
+            report_fn=rows.append)
+        try:
+            trainer.fit(resume_from=resume)
+        except SimulatedCrash:
+            pass
+        return {m["step"]: m["loss"] for m in rows}
+
+    try:
+        crashed = fit("crashed", [], RESUME_CRASH_AT, RESUME_EVERY)
+        ckpt = CheckpointManager(os.path.join(
+            root, "crashed", "checkpoints")).latest()
+        ckpt_step = ckpt.metadata()["step"] if ckpt is not None else None
+        log = []
+        resumed = fit("resumed", log, resume=ckpt.path)
+        whole = fit("whole", [])
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    drawn = [x for x in log if isinstance(x, int) and x > 0]
+    pairs = [(s, x, whole[s]) for run in (crashed, resumed)
+             for s, x in sorted(run.items())]
+    bitwise = all(x == w for _, x, w in pairs)
+    print(f"trainer-resume: flagship widths bf16/fp32, the first run failed "
+          f"drawing batch {RESUME_CRASH_AT} after steps "
+          f"{sorted(crashed)} (checkpoint {os.path.basename(ckpt.path)}); "
+          f"resumed steps {sorted(resumed)}; the resumed run drew "
+          f"{log} (batches 1-{RESUME_CRASH_AT - 1} never); losses vs the "
+          f"uninterrupted run "
+          f"{[(s, round(x, 7), round(w, 7)) for s, x, w in pairs]}, bit "
+          f"for bit: {bitwise}", flush=True)
+    check(sorted(crashed) == list(range(1, RESUME_CRASH_AT + 1)),
+          f"trainer-resume: the crashed run logged {sorted(crashed)}")
+    check(ckpt_step == RESUME_CRASH_AT,
+          "trainer-resume: no checkpoint at the crash")
+    check(sorted(resumed) == list(range(RESUME_CRASH_AT + 1,
+                                        RESUME_STEPS + 1)),
+          f"trainer-resume: the resumed run logged {sorted(resumed)}")
+    check(log[0] == 0 and ("ff", RESUME_CRASH_AT) in log
+          and drawn[:2] == [RESUME_CRASH_AT, RESUME_CRASH_AT + 1]
+          and all(x >= RESUME_CRASH_AT for x in drawn),
+          f"trainer-resume: the resumed run re-drew consumed batches: {log}")
+    check(all(abs(x - w) <= RESUME_RTOL * abs(w) for _, x, w in pairs),
+          "trainer-resume: a resumed step's loss differs from the "
+          "uninterrupted run's")
+    release(torch)
+
+
 def phase_train_parity(torch):
     """fp32 train steps on the GPU (K1 + K2a/K2b, fp32 kernels) against
     the same model and batch on the CPU (einsum attention, no remat);
@@ -2702,9 +3000,12 @@ def mesh_parity_rank(rows, path):
     of the flagship widths under MeshSpec(fsdp=world) against the same
     steps of the single-device make_train_step on rank 0's card (TF32
     off): loss, grad_norm and params. (d) the mesh model's state saved
-    sharded to `path`, restored on rank 0 onto one device (shardings
-    None), equal to the trained params bit for bit, then served by the
-    paged engine: greedy tokens equal to the einsum loop's."""
+    sharded to `path`, restored onto the mesh (shardings: each rank's
+    shards cut on the host, the card's memory rising by no more than
+    this rank's shards plus the largest leaf) and on rank 0 onto one
+    device (shardings None), both equal to the trained params bit for
+    bit, then served by the paged engine: greedy tokens equal to the
+    einsum loop's."""
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -2712,7 +3013,8 @@ def mesh_parity_rank(rows, path):
     from ray_tpu_torch.models import Llama, LlamaConfig
     from ray_tpu_torch.parallel import MeshSpec, build_mesh
     from ray_tpu_torch.train import (make_optimizer, make_train_step,
-                                     restore_pytree, save_pytree)
+                                     prepare_module, restore_pytree,
+                                     save_pytree)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     n = dist.get_world_size()
@@ -2731,6 +3033,24 @@ def mesh_parity_rank(rows, path):
     trained = {k: (v.full_tensor() if isinstance(v, DTensor) else v)
                .detach().clone() for k, v in sharded.state_dict().items()}
     save_pytree(sharded.state_dict(), path, step=PARALLEL_PARITY_STEPS)
+    # restored onto the mesh shard by shard: the rise of the card's
+    # memory, against this rank's shards plus the largest leaf
+    target = prepare_module(Llama(cfg, device="cuda", seed=98), mesh)
+    layout = target.state_dict()
+    shard_bytes = sum((v.to_local() if isinstance(v, DTensor) else v)
+                      .numel() * v.element_size() for v in layout.values())
+    largest = max(v.numel() * v.element_size() for v in layout.values())
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    restore_pytree(path, target=target, shardings=layout,
+                   map_location="cuda")
+    torch.cuda.synchronize()
+    rise = torch.cuda.max_memory_allocated() - before
+    mesh_equal = all(torch.equal(
+        v.full_tensor() if isinstance(v, DTensor) else v, trained[k])
+        for k, v in target.state_dict().items())
+    del target, layout
     if dist.get_rank() != 0:
         return None
     single = Llama(cfg, device="cuda", seed=2)
@@ -2757,7 +3077,63 @@ def mesh_parity_rank(rows, path):
                   dict(max_slots=4, max_seq_len=512,
                        prefill_buckets=(32, 64, 128, 256)))
     return {"mesh": rows_mesh, "single": rows_single, "worst_rel": worst,
-            "bitwise": bitwise, "n_tensors": len(trained)}
+            "bitwise": bitwise, "n_tensors": len(trained),
+            "mesh_equal": mesh_equal, "restore_rise": rise,
+            "restore_bound": shard_bytes + largest,
+            "shard_bytes": shard_bytes, "largest": largest}
+
+
+MOE_AUX_LAYERS = 2        # (f): Mixtral-8x7B widths in fp32
+MOE_AUX_ROWS, MOE_AUX_SEQ = 2, 256   # rows a rank, tokens a row
+MOE_AUX_RTOL = 1e-5
+
+
+def moe_aux_rank():
+    """(f) on this rank: Mixtral-8x7B widths at MOE_AUX_LAYERS fp32
+    layers (TF32 off, the published capacity factor), each layer's
+    router loss of one forward of a global batch of MOE_AUX_ROWS x world
+    rows on one device, then of this rank's rows after shard_module on
+    MeshSpec(ep=world): the global batch's values on every rank."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from ray_tpu_torch.models import Mixtral, MixtralConfig
+    from ray_tpu_torch.parallel import MeshSpec, build_mesh
+    from ray_tpu_torch.parallel.sharding import batch_sharding, shard_module
+    torch.backends.cuda.matmul.allow_tf32 = False
+    n = dist.get_world_size()
+    mesh = build_mesh(MeshSpec(ep=n), device="cuda")
+    cfg = MixtralConfig.mixtral_8x7b(n_layers=MOE_AUX_LAYERS,
+                                     dtype=torch.float32,
+                                     param_dtype=torch.float32, remat=False)
+    model = Mixtral(cfg, device="cuda", seed=7)
+    tokens = torch.from_numpy(np.random.RandomState(7).randint(
+        0, cfg.vocab_size, (MOE_AUX_ROWS * n, MOE_AUX_SEQ))).to("cuda")
+    with torch.no_grad():
+        model(tokens)
+        single = [float(b.moe.router_loss) for b in model.blocks]
+        shard_module(model, mesh)
+        model(batch_sharding(mesh).shard(tokens))
+        on_mesh = [float(b.moe.router_loss) for b in model.blocks]
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"single": single, "mesh": on_mesh}
+
+
+def moe_aux_check(aux, n):
+    """(f): every rank's aux losses against one device's."""
+    worst = max(abs(m - s_) / abs(s_) for r in aux
+                for m, s_ in zip(r["mesh"], r["single"]))
+    print(f"parallel: (f) Mixtral-8x7B widths, {MOE_AUX_LAYERS} fp32 layers "
+          f"(TF32 off), MeshSpec(ep={n}), {MOE_AUX_ROWS * n} x "
+          f"{MOE_AUX_SEQ} tokens: each layer's aux loss on the mesh "
+          f"{[[round(x, 9) for x in r['mesh']] for r in aux]} (rank by "
+          f"rank) vs one device {[round(x, 9) for x in aux[0]['single']]}, "
+          f"worst relative error over the ranks {worst:.3g} (allowed "
+          f"{MOE_AUX_RTOL})", flush=True)
+    check(worst <= MOE_AUX_RTOL, "parallel (f): the MoE aux losses on the "
+                                 "mesh differ from the global batch's")
 
 
 def ring_rank():
@@ -2799,8 +3175,9 @@ def phase_parallel(torch, gpu_line, train_stats):
     (one rank a card; at n == 1 a world of one NCCL rank in this
     process): (a) the train phase's model on MeshSpec(fsdp=n) at
     min(32, 8 n) layers, (b) fp32 mesh-vs-single parity, (c) ring
-    attention at sp = n, (d) a sharded checkpoint restored onto one
-    device and served, (e) dryrun_multichip(n). Returns (a)'s launches
+    attention at sp = n, (d) a sharded checkpoint restored onto the mesh
+    and onto one device and served, (e) dryrun_multichip(n), (f) the MoE
+    aux losses on MeshSpec(ep=n). Returns (a)'s launches
     (rank 0's; every rank's are checked)."""
     import shutil
     import tempfile
@@ -2869,8 +3246,26 @@ def phase_parallel(torch, gpu_line, train_stats):
     print(f"parallel: (d) sharded checkpoint of {par['n_tensors']} tensors "
           f"restored onto one device bit for bit: {par['bitwise']}; its "
           f"paged burst equal to the einsum loop (above)", flush=True)
+    print(f"parallel: (d) restored onto MeshSpec(fsdp={n}) with shardings "
+          f"bit for bit: {par['mesh_equal']}; rank 0's memory rose "
+          f"{par['restore_rise']} B during the restore, bound "
+          f"{par['restore_bound']} B (its shards {par['shard_bytes']} B + "
+          f"the largest leaf {par['largest']} B)", flush=True)
     check(par["bitwise"], "parallel (d): the restored checkpoint differs "
                           "from the trained params")
+    check(par["mesh_equal"], "parallel (d): the mesh restore differs from "
+                             "the trained params")
+    check(par["restore_rise"] <= par["restore_bound"],
+          "parallel (d): the mesh restore took more card memory than this "
+          "rank's shards plus the largest leaf")
+    if n == 1:
+        print("parallel: n == 1: this rank's shards are the whole tree and "
+              "the data mesh is one rank, so (d)'s memory bound also holds "
+              "for a restore that loads the whole tree, and (f) reduces "
+              "nothing: neither can fail here, and passing is no evidence "
+              "of the repairs they check on more cards", flush=True)
+
+    moe_aux_check(run(moe_aux_rank), n)
 
     ring = run(ring_rank)
     worst = max(r["ratio"] for r in ring)
@@ -2974,6 +3369,8 @@ def main() -> None:
     phase_routes(torch)
     launches.update(phase_zoo(torch, gpu_line))
     launches["train"], train_stats = phase_train(torch, gpu_line)
+    launches["trainer"] = phase_trainer(torch, gpu_line, train_stats)
+    phase_trainer_resume(torch)
     phase_train_parity(torch)
     launches.update(phase_grpo(torch, gpu_line))
     launches["north-star-grpo"] = phase_north_star(torch)

@@ -45,6 +45,14 @@ _F32_MIN = torch.finfo(torch.float32).min
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
 
+def causal_attention_mask(seq_len: int, dtype: torch.dtype = torch.bool,
+                          device=None) -> torch.Tensor:
+    """(seq_len, seq_len) lower-triangular mask: 1 (True) where query i
+    may attend key j <= i."""
+    return torch.tril(torch.ones((seq_len, seq_len), dtype=dtype,
+                                 device=device))
+
+
 def _repeat_kv(x: torch.Tensor, rep: int) -> torch.Tensor:
     """GQA: kv head h serves query heads h*rep .. h*rep+rep-1."""
     return x.repeat_interleave(rep, dim=2) if rep > 1 else x

@@ -87,7 +87,10 @@ def moe_dispatch_combine(x: torch.Tensor, router_logits: torch.Tensor,
     batch. Under ep > 1 expert_fn applies this rank's E / ep experts
     (E / ep, C, d): each expert's capacity slots go to its ep rank by
     all-to-all, and its outputs come back the same way. The aux losses
-    are this rank's tokens'."""
+    and `expert_load` are the global batch's, the same on every rank:
+    the probability and assignment sums, the z-loss's sum and the token
+    count are all-reduced over the data ranks before the means, with a
+    gradient (see `collectives.all_reduce_sum`)."""
     from ..parallel import collectives as col  # noqa: PLC0415
     g = x.shape[0]
     e = router_logits.shape[-1]
@@ -123,10 +126,18 @@ def moe_dispatch_combine(x: torch.Tensor, router_logits: torch.Tensor,
                        expert_out)
 
     # aux losses (fp32): Switch load balance E * sum(frac_tokens *
-    # frac_prob) / k, and the router z-loss
+    # frac_prob) / k, and the router z-loss, over the global batch: on a
+    # mesh the sums and the token count are summed over the data ranks
+    # before the means (all_reduce_sum carries the gradient)
     logits32 = router_logits.float()
-    frac_prob = torch.softmax(logits32, dim=-1).mean(dim=0)      # (E,)
-    frac_tokens = assign.sum(dim=1).mean(dim=0)                  # (E,)
+    sums = torch.cat([torch.softmax(logits32, dim=-1).sum(0),     # (E,)
+                      assign.sum(dim=(0, 1)),                     # (E,)
+                      (torch.logsumexp(logits32, dim=-1) ** 2).sum()[None],
+                      logits32.new_full((1,), float(g))])
+    if n_data > 1:
+        sums = col.all_reduce_sum(sums, mesh, col.data_axes(mesh))
+    n = sums[-1]
+    frac_prob, frac_tokens = sums[:e] / n, sums[e:2 * e] / n
     lb = e * torch.sum(frac_prob * frac_tokens) / k
-    z = torch.mean(torch.logsumexp(logits32, dim=-1) ** 2)
+    z = sums[2 * e] / n
     return out, MoEAux(lb, z, frac_tokens)

@@ -13,11 +13,11 @@ from .pipeline_train import (PipelinedLM, PipelinedLMState,
                              make_pipeline_train_step)
 from .precision import BF16, FP32, Precision
 from .sharding import (DEFAULT_RULES, P, ShardingRules, batch_sharding,
-                       partition_spec_for, shard_module)
+                       partition_spec_for, shard_module, shard_pytree)
 
 __all__ = ["MeshSpec", "build_mesh", "local_mesh_spec", "AXIS_ORDER",
            "ShardingRules", "DEFAULT_RULES", "partition_spec_for",
-           "shard_module", "batch_sharding", "P", "Precision", "BF16",
+           "shard_module", "shard_pytree", "batch_sharding", "P", "Precision", "BF16",
            "FP32", "pipeline_apply", "PipelinedLM", "PipelinedLMState",
            "make_pipeline_train_step", "pipeline_reference",
            "stack_stage_params"]

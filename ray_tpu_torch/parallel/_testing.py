@@ -143,9 +143,16 @@ def int8_forward(case: Dict[str, Any]):
 
 def checkpoint_case(case: Dict[str, Any]):
     """Save a Llama sharded at case["save"] (a MeshSpec dict), restore
-    it onto a model prepared on case["restore"] and onto one device; the
-    whole tensors of both restores against the saved model's, bit for
-    bit."""
+    it onto a model prepared on each of case["restore"] (MeshSpec
+    dicts; shard by shard from the host file) and onto one device; the
+    whole tensors of every restore against the saved model's, bit for
+    bit. For each mesh restore, what this rank moved: the bytes of
+    every tensor that went through `Tensor.to` against the bytes of its
+    shards (each DTensor's local tensor of the layout, as `redistribute`
+    lays it out) and plain leaves, every rank's shards of the layout's
+    local shapes and each in a storage of its own bytes (nothing of the
+    whole tensor kept). Then a saved tensor of another shape than its
+    layout: whether the restore raises."""
     from ..parallel.sharding import shard_module
     from ..train import prepare_module, restore_pytree, save_pytree
     path = case["path"]
@@ -153,22 +160,194 @@ def checkpoint_case(case: Dict[str, Any]):
     save_pytree(saved.state_dict(), path, step=7)
     want = {k: _whole(v).detach() for k, v in saved.state_dict().items()}
     committed = os.path.exists(os.path.join(path, "ckpt_meta.json"))
-    other = prepare_module(_model({**case, "params": {
-        k: np.zeros_like(v) for k, v in case["params"].items()}}, "cpu"),
-        _mesh(case["restore"]))
-    restore_pytree(path, target=other, shardings=other.state_dict(),
-                   map_location="cpu")
-    resharded = {k: _whole(v).detach() for k, v in other.state_dict().items()}
+    resharded, placements, moved, own = {}, {}, {}, {}
+
+    def local(t):
+        return t.to_local() if isinstance(t, DTensor) else t
+
+    def nbytes(t):
+        return t.numel() * t.element_size()
+
+    for spec in case["restore"]:
+        other = prepare_module(_model({**case, "params": {
+            k: np.zeros_like(v) for k, v in case["params"].items()}}, "cpu"),
+            _mesh(spec))
+        layout = other.state_dict()
+        sizes, real_to = [], torch.Tensor.to
+
+        def spy(t, *args, **kw):
+            sizes.append(nbytes(t))
+            return real_to(t, *args, **kw)
+
+        torch.Tensor.to = spy
+        try:
+            tree = restore_pytree(path, shardings=layout, map_location="cpu")
+        finally:
+            torch.Tensor.to = real_to
+        other.load_state_dict(tree)
+        name = repr(sorted(spec.items()))
+        got = {k: _whole(v).detach() for k, v in other.state_dict().items()}
+        resharded[name] = all(torch.equal(got[k], want[k]) for k in want)
+        placements[name] = sorted({repr(v.placements) for v in
+                                   other.state_dict().values()
+                                   if isinstance(v, DTensor)})
+        moved[name] = {"moved": sum(sizes), "largest_moved": max(sizes),
+                       "held": sum(nbytes(local(v)) for v in layout.values()),
+                       "largest_held": max(nbytes(local(v))
+                                           for v in layout.values())}
+        own[name] = all(
+            local(t).shape == local(layout[k]).shape
+            and local(t).untyped_storage().nbytes() == nbytes(local(t))
+            for k, t in tree.items())
     single = restore_pytree(path, map_location="cpu")
+    key = next(k for k, v in layout.items() if isinstance(v, DTensor))
+    save_pytree({key: torch.zeros(3)}, path + "_other_shape")
+    try:
+        restore_pytree(path + "_other_shape", shardings=layout,
+                       map_location="cpu")
+        mismatch_raises = False
+    except ValueError:
+        mismatch_raises = True
     return _rank0({
         "committed_on_return": committed,
-        "resharded_equal": all(torch.equal(resharded[k], want[k])
-                               for k in want),
+        "resharded_equal": resharded,
         "single_equal": all(torch.equal(single[k], want[k]) for k in want),
         "n_tensors": len(want),
-        "placements": sorted({repr(v.placements) for v in
-                              other.state_dict().values()
-                              if isinstance(v, DTensor)})})
+        "placements": placements,
+        "moved": moved, "own_storage": own,
+        "mismatch_raises": mismatch_raises})
+
+
+def shard_pytree_case(case: Dict[str, Any]):
+    """shard_pytree of the case's flat dict of weights on
+    MeshSpec(**case["spec"]): each tensor's placements, whether its
+    whole tensor is the input, and `replicated(mesh)`."""
+    from ..parallel.sharding import replicated, shard_pytree
+    mesh = _mesh(case["spec"])
+    params = {k: torch.from_numpy(np.asarray(v))
+              for k, v in case["params"].items()}
+    out = shard_pytree(params, mesh)
+    return _rank0({
+        "placements": {k: [repr(p) for p in v.placements]
+                       for k, v in out.items()},
+        "whole_equal": all(torch.equal(_whole(out[k]), params[k])
+                           for k in params),
+        "replicated": [repr(p) for p in replicated(mesh)]})
+
+
+def _loss_with_aux(model, batch):
+    """next_token_loss plus the model's summed router losses."""
+    from ..train import next_token_loss
+    loss, metrics = next_token_loss(model, batch)
+    return loss + model.aux_loss(), metrics
+
+
+def moe_aux_case(case: Dict[str, Any]):
+    """Mixtral sharded on MeshSpec(**case["spec"]): each layer's router
+    loss from a forward of this rank's rows of case["tokens"] (the same
+    on every rank, checked), then one mesh train step of the loss plus
+    the aux loss: the router kernels' gradients as the optimizer sees
+    them (the global batch's, unclipped), whole."""
+    from ..parallel.collectives import all_gather_axes, data_axes
+    from ..parallel.sharding import batch_sharding
+    from ..train import make_optimizer, make_train_step
+    mesh = _mesh(case["spec"])
+    model = _model(case, "cpu")
+    batch = {"tokens": torch.from_numpy(case["tokens"])}
+    state, step = make_train_step(model, make_optimizer(
+        "sgd", learning_rate=case["lr"], grad_clip=None), mesh,
+        loss_fn=_loss_with_aux)(batch)
+    local = batch_sharding(mesh).shard(batch)["tokens"]
+    with torch.no_grad():
+        model(local[:, :-1])
+    aux = torch.stack([b.moe.router_loss for b in model.blocks])
+    every = all_gather_axes(aux, mesh, data_axes(mesh))
+    grads = {}
+
+    def record(opt, args, kwargs):
+        for name, p in state.params.items():
+            if "router" in name:
+                grads[name] = _np(p.grad)
+
+    state.opt_state.register_step_pre_hook(record)
+    state, m = step(state, batch)
+    return _rank0({"aux": aux.numpy(),
+                   "aux_same_on_every_rank": bool((every == aux).all()),
+                   "loss": float(m["loss"]), "router_grads": grads})
+
+
+class SeededBatches:
+    """Batch i is {"tokens": RandomState(seed + i).randint(0, vocab,
+    (rows, cols))}, endless; a new one starts at batch 0."""
+
+    def __init__(self, seed: int, rows: int, cols: int, vocab: int):
+        self.seed, self.shape, self.vocab, self.i = seed, (rows, cols), vocab, 0
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        rng = np.random.RandomState(self.seed + self.i)
+        self.i += 1
+        return {"tokens": rng.randint(0, self.vocab, self.shape)}
+
+
+def trainer_case(case: Dict[str, Any]):
+    """SpmdTrainer on MeshSpec(**case["spec"]) from the case's Llama
+    params: case["steps"] steps (checkpoints every case["ckpt_every"]),
+    then a resume from the last checkpoint to case["resume_to"]; the
+    metrics histories. The same with optimizer "adafactor" at the sizes
+    of case["adafactor"] (its moments of a sharded parameter are whole
+    tensors, restored as such). Then one mesh step of two fresh copies, one fed
+    the global batch, one this rank's LocalBatch from
+    device_put_iterator: their losses."""
+    from ..data import device_put_iterator
+    from ..parallel.mesh import MeshSpec
+    from ..train import (RunConfig, SpmdTrainer, SpmdTrainerConfig,
+                         make_optimizer, make_train_step)
+    spec = MeshSpec(**case["spec"])
+
+    def data():
+        return SeededBatches(case["seed"], *case["shape"],
+                             case["cfg"]["vocab_size"])
+
+    def fit(steps, name, log_every, ckpt_every, resume=None, opt="adamw"):
+        cfg = SpmdTrainerConfig(
+            model=_model(case, "cpu"), mesh=spec, optimizer=opt,
+            total_steps=steps, log_every=log_every,
+            warmup_steps=case["warmup"], checkpoint_every=ckpt_every,
+            learning_rate=case["lr"], device="cpu")
+        return SpmdTrainer(cfg, data, run_config=RunConfig(
+            name=name, storage_path=case["path"])).fit(resume_from=resume)
+
+    res = fit(case["steps"], "fit", case["log_every"], case["ckpt_every"])
+    res2 = fit(case["resume_to"], "resumed", case["resume_log_every"], 0,
+               res.checkpoint.path)
+    ada = case["adafactor"]
+    ada1 = fit(ada["steps"], "ada", ada["log_every"], ada["ckpt_every"],
+               opt="adafactor")
+    ada2 = fit(ada["resume_to"], "ada_resumed", ada["resume_log_every"], 0,
+               ada1.checkpoint.path, opt="adafactor")
+    losses = []
+    host = next(data())
+    for local in (False, True):
+        model = _model(case, "cpu")
+        state, step = make_train_step(model, make_optimizer(
+            "adamw", learning_rate=case["lr"]), _mesh(case["spec"]))(
+            _batch(host, "cpu"))
+        if local:
+            batch = next(device_put_iterator(
+                iter([host]), sharding=step.batch_shardings, device="cpu"))
+        else:
+            batch = _batch(host, "cpu")
+        losses.append(float(step(state, batch)[1]["loss"]))
+    return _rank0({"history": res.metrics_history,
+                   "resumed": res2.metrics_history,
+                   "adafactor": ada1.metrics_history,
+                   "adafactor_resumed": ada2.metrics_history,
+                   "checkpoint": os.path.basename(res.checkpoint.path),
+                   "global_vs_local": losses,
+                   "local_rows": int(batch["tokens"].shape[0])})
 
 
 def ring_cases(cases: List[Dict[str, Any]]):
@@ -286,6 +465,8 @@ def rank_env() -> str:
 
 
 __all__ = ["train_cases", "lora_case", "int8_forward", "checkpoint_case",
+           "shard_pytree_case", "moe_aux_case", "SeededBatches",
+           "trainer_case",
            "ring_cases", "pipeline_case", "pipeline_train_case",
            "run_jobs", "fail_on", "sleep_for", "foreign_modules",
            "rank_env"]

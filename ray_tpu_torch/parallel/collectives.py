@@ -11,6 +11,7 @@ gradient on every rank, so
   copy_to_group      forward identity,   backward all-reduce (sum)
   gather_from_group  forward all-gather, backward this rank's slice
   all_to_all         forward all-to-all, backward all-to-all back
+  all_reduce_sum     forward all-reduce, backward all-reduce (sum)
 
 (`copy_to_group` is Megatron's f operator.) `shift` is the ring's hop
 (send to rank + 1, receive from rank - 1), with no derivative: ring
@@ -153,6 +154,23 @@ class _AllToAll(torch.autograd.Function):
         return out, None
 
 
+class _AllReduceSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, groups):
+        ctx.groups = groups
+        out = x.clone(memory_format=torch.contiguous_format)
+        for g in groups:
+            dist.all_reduce(out, group=g)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone(memory_format=torch.contiguous_format)
+        for grp in ctx.groups:
+            dist.all_reduce(g, group=grp)
+        return g, None
+
+
 def _shift(tensors, group, step: int):
     """Send each tensor to group rank (r + step) % n and receive the one
     from (r - step) % n, all in one batch of P2P ops."""
@@ -185,6 +203,21 @@ def all_to_all(x, group):
     return _AllToAll.apply(x, group)
 
 
+def all_reduce_sum(x, mesh, axes: Sequence[str]):
+    """x summed over the ranks of the product of `axes`, the same value
+    on every one of them, with a derivative. Its backward is the sum's
+    adjoint: each rank's x receives the sum over those ranks of the
+    gradients of their outputs, so the gradient of a loss that every
+    rank computes from the sum is counted once per rank that uses it.
+    That is what the mesh train step needs: it sums each parameter's
+    gradient over the data ranks and divides by the global token count
+    (train/spmd.py), each rank's loss weighted by its own tokens, so a
+    term built from an all-reduced sum gets the weight sum(tokens) / N
+    = 1 there and its gradient is the global term's."""
+    groups = [axis_group(mesh, a) for a in axes if axis_size(mesh, a) > 1]
+    return _AllReduceSum.apply(x, groups) if groups else x
+
+
 def shift(tensors, group, step: int = 1):
     """Each tensor sent to group rank (r + step) % n; returns those
     received from (r - step) % n. No derivative."""
@@ -194,4 +227,4 @@ def shift(tensors, group, step: int = 1):
 __all__ = ["DATA_AXES", "axis_size", "axis_rank", "axis_group",
            "group_ranks", "data_axes", "data_size", "data_rank",
            "all_reduce_axes_", "all_gather_axes", "copy_to_group",
-           "gather_from_group", "all_to_all", "shift"]
+           "gather_from_group", "all_to_all", "all_reduce_sum", "shift"]

@@ -174,15 +174,40 @@ def dim_of(spec: P, axis: str) -> Optional[int]:
     return None
 
 
-def state_specs(model: nn.Module, mesh: MeshLike,
-                rules: Optional[ShardingRules] = None) -> Dict[str, P]:
-    """{name: spec} of every parameter and buffer of `model` (the
-    counterpart of the reference's sharding tree)."""
+def _placements(spec: P, mesh) -> list:
+    from torch.distributed.tensor import Replicate, Shard
+    return [Shard(d) if d is not None else Replicate()
+            for d in (dim_of(spec, a) for a in mesh.mesh_dim_names)]
+
+
+def sharding_tree(params: Mapping[str, torch.Tensor], mesh,
+                  rules: Optional[ShardingRules] = None) -> Dict[str, list]:
+    """{name: placements} for a flat dict of tensors on a `DeviceMesh`
+    (the counterpart of the reference's tree of NamedShardings): the
+    table's spec of each tensor as one placement per mesh dim, Shard(d)
+    where the spec puts that axis on dim d, else Replicate. Where a spec
+    puts several axes on one dim, DTensor orders their pieces by mesh
+    dim (the reference by the spec's tuple): the same whole tensor."""
     rules = rules or ShardingRules()
-    named = dict(model.named_parameters())
-    named.update(model.named_buffers())
-    return {n: rules.spec_for(n, tuple(t.shape), mesh)
-            for n, t in named.items()}
+    return {n: _placements(rules.spec_for(n, tuple(t.shape), mesh), mesh)
+            for n, t in params.items()}
+
+
+def shard_pytree(params: Mapping[str, torch.Tensor], mesh,
+                 rules: Optional[ShardingRules] = None
+                 ) -> Dict[str, torch.Tensor]:
+    """Every tensor of a flat dict distributed onto the mesh by the
+    table (`distribute_tensor` with `sharding_tree`'s placements; rank
+    0's values are the ones kept)."""
+    from torch.distributed.tensor import distribute_tensor
+    return {n: distribute_tensor(params[n], mesh, pl)
+            for n, pl in sharding_tree(params, mesh, rules).items()}
+
+
+def replicated(mesh) -> list:
+    """Placements of a tensor whole on every rank of `mesh`."""
+    from torch.distributed.tensor import Replicate
+    return [Replicate()] * mesh.ndim
 
 
 # ---- applying the table ----------------------------------------------------
@@ -346,10 +371,18 @@ class BatchSharding:
     n_seq: int = 1
 
     def shard(self, x):
-        """The local part of a tensor (B, S, ...), or of every tensor
-        of a dict."""
+        """The local part of a tensor or array (B, S, ...), or of every
+        value of a dict, as a `LocalBatch`; a `LocalBatch` of this
+        sharding is returned as it is (it holds the local part
+        already)."""
+        if isinstance(x, LocalBatch):
+            if x.sharding != self:
+                raise ValueError(f"a batch local to {x.sharding} given to "
+                                 f"a step that shards by {self}")
+            return x
         if isinstance(x, Mapping):
-            return {k: self.shard(v) for k, v in x.items()}
+            return LocalBatch({k: self.shard(v) for k, v in x.items()},
+                              self)
         b = x.shape[0]
         if b % self.n_rows:
             raise ValueError(f"batch of {b} rows does not split over "
@@ -364,6 +397,17 @@ class BatchSharding:
             c = s // self.n_seq
             x = x[:, self.seq_index * c:(self.seq_index + 1) * c]
         return x
+
+
+class LocalBatch(dict):
+    """A batch that holds this rank's share of a global batch already
+    (`sharding.shard`'s part of it): what `data.device_put_iterator`
+    yields with a `sharding`, having copied only those rows. A mesh
+    train step takes it as it is, and a plain dict as the global batch."""
+
+    def __init__(self, data, sharding: BatchSharding):
+        super().__init__(data)
+        self.sharding = sharding
 
 
 def batch_sharding(mesh, *, seq_axis: Optional[str] = "sp"
@@ -410,6 +454,7 @@ def constrain_activations(x, *, seq_axis: Optional[str] = "sp"):
 
 
 __all__ = ["P", "Rule", "DEFAULT_RULES", "ShardingRules", "axis_sizes",
-           "partition_spec_for", "path_str", "dim_of", "state_specs",
+           "partition_spec_for", "path_str", "dim_of",
+           "sharding_tree", "shard_pytree", "replicated",
            "shard_module", "data_mesh", "data_axes", "BatchSharding",
-           "batch_sharding", "activation_mesh", "constrain_activations"]
+           "batch_sharding", "LocalBatch", "activation_mesh", "constrain_activations"]

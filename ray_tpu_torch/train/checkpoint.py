@@ -22,7 +22,7 @@ from typing import Any, Dict, Mapping, Optional
 
 import torch
 import torch.distributed as dist
-from torch.distributed.tensor import DTensor, Replicate
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from ..util.device import DeviceLike, resolve_device
 
@@ -188,33 +188,86 @@ def restore_pytree(path: str, *, target: Any = None, shardings: Any = None,
                    map_location: DeviceLike = "cuda") -> Any:
     """Load a saved tree with every tensor on `map_location` (the GPU
     unless the caller names another device): whole tensors, on one
-    device. With `shardings`, a tree of the same keys whose leaves are
-    DTensors (e.g. the `state_dict()` of a model sharded on another
-    mesh), each leaf becomes a DTensor of that leaf's mesh and placements
-    (this rank keeps its shard). With `target`, a module, the values
-    are loaded into it (`load_state_dict`) and it is returned."""
+    device. With `target`, an object with `load_state_dict` (a module,
+    a `TrainState`), the values are loaded into it and it is returned.
+
+    With `shardings`, a tree of the same keys whose leaves are DTensors
+    (e.g. the `state_dict()` of a model sharded on another mesh, or
+    `SpmdStep.state_shardings`), the file is mapped into host memory
+    (`mmap`), never loaded whole onto a card: each DTensor leaf becomes
+    a DTensor of that leaf's mesh and placements built from this rank's
+    shard alone, cut from the host tensor and then moved to the card.
+    A DTensor standing for a subtree lays out every tensor of the
+    subtree (an optimizer's moments, keyed by their parameter's index):
+    each must have its shape, 0-d tensors (a step count) apart, which go
+    to `map_location`; another shape raises. A plain tensor leaf (or
+    subtree) goes whole to that tensor's device, and a leaf `shardings`
+    does not name to `map_location`. Each tensor is copied: nothing
+    restored keeps the file's mapping."""
     dev = resolve_device(map_location)
-    tree = torch.load(os.path.join(path, STATE_NAME), map_location=dev,
-                      weights_only=True)
-    if shardings is not None:
-        tree = _place(tree, shardings)
+    file = os.path.join(path, STATE_NAME)
+    if shardings is None:
+        tree = torch.load(file, map_location=dev, weights_only=True)
+    else:
+        tree = _place(torch.load(file, map_location="cpu", mmap=True,
+                                 weights_only=True), shardings, dev)
     if target is None:
         return tree
     target.load_state_dict(tree)
     return target
 
 
-def _place(tree: Any, like: Any) -> Any:
+def _place(tree: Any, like: Any, dev: torch.device) -> Any:
+    if isinstance(tree, Mapping):
+        return {k: _place(v, like.get(k) if isinstance(like, Mapping)
+                          else like, dev) for k, v in tree.items()}
+    if not isinstance(tree, torch.Tensor):
+        return tree
     if isinstance(like, DTensor):
-        mesh = like.device_mesh
-        whole = DTensor.from_local(tree.to(like.device), mesh,
-                                   [Replicate()] * mesh.ndim,
-                                   run_check=False)
-        return whole.redistribute(mesh, like.placements)
-    if isinstance(like, Mapping):
-        return {k: _place(v, like[k]) if k in like else v
-                for k, v in tree.items()}
-    return tree
+        if tree.dim() == 0:
+            return tree.to(dev, copy=True)
+        if tuple(tree.shape) != tuple(like.shape):
+            raise ValueError(
+                f"restore_pytree: a saved tensor of shape "
+                f"{tuple(tree.shape)} against a layout of shape "
+                f"{tuple(like.shape)}")
+        return DTensor.from_local(
+            _local_shard(tree, like.device_mesh, like.placements)
+            .to(like.device, copy=True), like.device_mesh, like.placements,
+            run_check=False, shape=like.shape, stride=like.stride())
+    if isinstance(like, torch.Tensor):
+        return tree.to(like.device, copy=True)
+    return tree.to(dev, copy=True)
+
+
+def _local_shard(whole: torch.Tensor, mesh, placements) -> torch.Tensor:
+    """This rank's part of `whole` (the same on every rank) under
+    `placements` on `mesh`, cut on the tensor's own device, as
+    `distribute_tensor` or a redistribute from `Replicate` would lay it
+    out: the placements apply in mesh-dim order; `Shard(d)` keeps chunk
+    c of `torch.chunk` over dim d, c this rank's coordinate on that mesh
+    dim; FSDP2's `_StridedShard(d, split_factor=f)` (fsdp over a dim tp
+    already split f ways) cuts dim d into f pieces, each piece into the
+    mesh dim's chunks, and keeps chunk c of every piece, concatenated."""
+    coord = mesh.get_coordinate()
+    out = whole
+    for i, p in enumerate(placements):
+        if isinstance(p, Replicate):
+            continue
+        if not (isinstance(p, Shard) or hasattr(p, "split_factor")):
+            raise NotImplementedError(
+                f"restore onto placement {p!r} (mesh dim {i})")
+        n, c = mesh.size(i), coord[i]
+        # torch 2.13's _StridedShard is no Shard; 2.11's subclasses it
+        pieces = torch.chunk(out, getattr(p, "split_factor", 1), dim=p.dim)
+        out = torch.cat([_chunk(x, n, c, p.dim) for x in pieces], dim=p.dim)
+    return out.contiguous()
+
+
+def _chunk(x: torch.Tensor, n: int, c: int, dim: int) -> torch.Tensor:
+    """Chunk c of torch.chunk(x, n, dim), empty past the last chunk."""
+    parts = torch.chunk(x, n, dim=dim)
+    return parts[c] if c < len(parts) else x.narrow(dim, 0, 0)
 
 
 class CheckpointManager:

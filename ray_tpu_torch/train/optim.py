@@ -146,6 +146,12 @@ class _Chain:
         super().step()
         self.count += 1
 
+    def state_like(self, p: torch.Tensor) -> torch.Tensor:
+        """A tensor whose layout p's saved moments take on a restore
+        (`restore_pytree(shardings=)`): p itself here, every moment of
+        p's shape and, on a mesh, of p's placements."""
+        return p
+
     def state_dict(self):
         sd = super().state_dict()
         sd["count"] = self.count
@@ -227,6 +233,11 @@ class Adafactor(_Chain, _PerParameter):
         super().__init__(params, lr, grad_clip, decay_rate=decay_rate,
                          eps=eps, clipping_threshold=clipping_threshold,
                          min_scale=min_scale)
+
+    def state_like(self, p: torch.Tensor) -> torch.Tensor:
+        """A DTensor's moments are whole tensors (they follow the
+        gathered parameter): a plain tensor on its card stands for them."""
+        return p.to_local() if isinstance(p, DTensor) else p
 
     def _update(self, p, g, state, group):
         if isinstance(p, DTensor):

@@ -91,8 +91,9 @@ def _micro_batches(batch: Batch, n: int):
 @dataclasses.dataclass
 class SpmdStep:
     """The step on a mesh, with the shardings it uses: `state_shardings`
-    the rule table's spec of every parameter, `batch_shardings` this
-    rank's share of a global batch."""
+    the layout of `TrainState.state_dict()` on the mesh, as
+    `restore_pytree(shardings=)` takes it (`state_layout`);
+    `batch_shardings` this rank's share of a global batch."""
     step_fn: Callable[[TrainState, Batch], Tuple[TrainState, Dict]]
     mesh: Any
     state_shardings: Dict[str, Any]
@@ -199,6 +200,23 @@ def token_count(batch: Batch, metrics: Dict, device) -> torch.Tensor:
                            device=device)
 
 
+def state_layout(state: TrainState) -> Dict[str, Any]:
+    """The tree of `state.state_dict()`'s keys whose leaves give each
+    tensor's layout: every parameter (a DTensor on a mesh), and under
+    "opt_state" / "state", at each parameter's optimizer index (the
+    optimizer's own order of its groups' parameters, the keys of
+    `Optimizer.state_dict()["state"]`), the tensor its moments take the
+    layout of, as the optimizer reports it (`state_like`: the parameter
+    for adamw, sgd and lion; a whole tensor for adafactor's moments of a
+    DTensor). An optimizer that does not report keeps its moments in
+    its parameter's layout, as torch's own do."""
+    opt = state.opt_state
+    like = getattr(opt, "state_like", lambda p: p)
+    order = [p for g in opt.param_groups for p in g["params"]]
+    return {"params": dict(state.params),
+            "opt_state": {"state": {i: like(p) for i, p in enumerate(order)}}}
+
+
 def _is_expert(p) -> bool:
     """A parameter sharded over ep by shard_module (outside FSDP2)."""
     return (isinstance(p, DTensor) and p.device_mesh.ndim == 1
@@ -207,7 +225,10 @@ def _is_expert(p) -> bool:
 
 def _mesh_train_step(model, tx, mesh, loss_fn, rules, accum_steps):
     """The step on a mesh. Every rank calls `step(state, batch)` with the
-    same global batch and trains on its share (`batch_shardings`).
+    same global batch and trains on its share (`batch_shardings`), or
+    with a `LocalBatch` of that sharding (`data.device_put_iterator`
+    with `sharding=`), which holds the share already and is taken as it
+    is: the same rows, so the same step.
 
     The loss is the reference's: the masked mean over the global batch.
     Each rank's backward runs on its local masked sum (per micro-batch
@@ -220,8 +241,7 @@ def _mesh_train_step(model, tx, mesh, loss_fn, rules, accum_steps):
     Metrics (loss, ntokens, ppl and grad_norm) are the global values on
     every rank."""
     from ..parallel.collectives import all_reduce_axes_, axis_size
-    from ..parallel.sharding import (batch_sharding, data_mesh,
-                                     shard_module, state_specs)
+    from ..parallel.sharding import batch_sharding, data_mesh, shard_module
     shard_module(model, mesh, rules)
     bsh = batch_sharding(mesh)
     fsdp_ranks = data_mesh(mesh).size()
@@ -277,11 +297,11 @@ def _mesh_train_step(model, tx, mesh, loss_fn, rules, accum_steps):
         bsh.shard(example_batch)                 # checks the split
         if accum_steps > 1:
             _micro_batches(bsh.shard(example_batch), accum_steps)
-        return TrainState.create(model, tx), SpmdStep(
-            step, mesh, state_specs(model, mesh, rules), bsh)
+        state = TrainState.create(model, tx)
+        return state, SpmdStep(step, mesh, state_layout(state), bsh)
 
     return init_fn
 
 
 __all__ = ["TrainState", "SpmdStep", "next_token_loss", "make_train_step",
-           "token_count"]
+           "token_count", "state_layout"]

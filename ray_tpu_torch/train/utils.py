@@ -1,13 +1,15 @@
 """Training prep utilities (counterpart of ray_tpu/train/utils.py).
 
 `prepare_module` shards a model onto the mesh by the rule table, the
-counterpart of the reference's device_put with NamedShardings. The
-reference's `prepare_loader` and `iter_batches_sharded` split a
-`ray_tpu.data` Dataset per worker and prefetch onto the device; they
-wait for a port of the data layer and its device loader.
+counterpart of the reference's device_put with NamedShardings;
+`iter_batches_sharded` prefetches any host-batch iterator onto the
+device, this rank's share of each batch only. The reference's
+`prepare_loader` splits a `ray_tpu.data` Dataset per worker; it waits
+for a port of the data layer.
 """
 from __future__ import annotations
 
+from typing import Any, Iterator
 
 from torch import nn
 
@@ -25,4 +27,14 @@ def prepare_module(model: nn.Module, mesh=None, *, rules=None,
     return shard_module(model, mesh, rules)
 
 
-__all__ = ["prepare_module"]
+def iter_batches_sharded(arrays_iter: Iterator[Any], sharding,
+                         prefetch: int = 2, *,
+                         device: DeviceLike = "cuda") -> Iterator[Any]:
+    """Wrap any host-batch iterator with sharded device prefetch
+    (`sharding` a BatchSharding, e.g. `SpmdStep.batch_shardings`)."""
+    from ..data.device_loader import device_put_iterator
+    return device_put_iterator(arrays_iter, sharding=sharding,
+                               prefetch=prefetch, device=device)
+
+
+__all__ = ["prepare_module", "iter_batches_sharded"]

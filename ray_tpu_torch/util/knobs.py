@@ -51,3 +51,13 @@ def train_world() -> int:
 def coordinator() -> "str | None":
     """RAY_TPU_COORDINATOR, the rendezvous address, default none."""
     return os.environ.get(COORDINATOR) or None
+
+
+DATA_PREFETCH_DEPTH = "RAY_TPU_DATA_PREFETCH_DEPTH"
+
+
+def data_prefetch_depth() -> int:
+    """device_put_iterator's prefetch depth, the host batches staged on
+    the device ahead of the consumer: RAY_TPU_DATA_PREFETCH_DEPTH,
+    default 2."""
+    return _int(DATA_PREFETCH_DEPTH, 2)

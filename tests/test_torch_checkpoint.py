@@ -139,3 +139,30 @@ def test_restore_onto_cuda_raises_without_a_gpu(tmp_path):
     save_pytree({"w": torch.ones(2)}, str(tmp_path / "c"))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         restore_pytree(str(tmp_path / "c"))
+
+
+def test_sharded_restore_maps_the_file_on_the_host(tmp_path, monkeypatch):
+    """With `shardings` the file is loaded with map_location="cpu" and
+    mmap=True (each rank then moves only its shards to its card); a leaf
+    `shardings` does not name goes to map_location. Without shardings
+    the load goes to map_location directly, as before."""
+    path = str(tmp_path / "ck")
+    state = {"w": torch.arange(6, dtype=torch.float32),
+             "opt": {"m": torch.ones(2)}}
+    save_pytree(state, path)
+    calls = []
+    real = torch.load
+
+    def spy(*args, **kw):
+        calls.append(kw)
+        return real(*args, **kw)
+
+    monkeypatch.setattr(torch, "load", spy)
+    got = restore_pytree(path, shardings={"w": torch.zeros(6)},
+                         map_location="cpu")
+    assert calls[-1]["map_location"] == "cpu" and calls[-1]["mmap"]
+    assert calls[-1]["weights_only"]
+    assert torch.equal(got["w"], state["w"])
+    assert torch.equal(got["opt"]["m"], state["opt"]["m"])
+    restore_pytree(path, map_location="cpu")
+    assert "mmap" not in calls[-1]

@@ -30,6 +30,8 @@ from ray_tpu.serve.llm import LLMEngineConfig as JEngineConfig
 from ray_tpu.serve.llm import TokenFSM as JTokenFSM
 from ray_tpu_torch.exceptions import DeadlineExceededError, EngineWedgedError
 from ray_tpu_torch.models import Llama, LlamaConfig, llama_params_from_flax
+from ray_tpu.serve import context as j_context
+from ray_tpu_torch.serve import context as t_context
 from ray_tpu_torch.serve.context import _set_request_deadline
 from ray_tpu_torch.serve.llm import (LLMEngine, LLMEngineConfig, LLMServer,
                                      TokenFSM)
@@ -359,6 +361,25 @@ def test_server_passes_the_request_deadline(state):
     finally:
         _set_request_deadline(None)
         server.shutdown()
+
+
+@pytest.mark.parametrize("offset", [None, 30.0, -5.0])
+def test_remaining_budget_matches_jax(offset):
+    """serve.context.remaining_budget: None without a deadline, else the
+    seconds left (0 once passed), as the reference's."""
+    deadline = None if offset is None else time.time() + offset
+    try:
+        _set_request_deadline(deadline)
+        j_context._set_request_deadline(deadline)
+        got, want = t_context.remaining_budget(), j_context.remaining_budget()
+    finally:
+        _set_request_deadline(None)
+        j_context._set_request_deadline(None)
+    if offset is None:
+        assert got is None and want is None
+    else:
+        assert abs(got - want) < 1.0 and got <= max(offset, 0.0)
+        assert (got == 0.0) == (offset < 0)
 
 
 def _model_factory(state):

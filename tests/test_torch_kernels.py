@@ -522,7 +522,12 @@ def test_port_imports_no_jax_and_no_ray_tpu():
                  "ray_tpu_torch.parallel.pipeline_train",
                  "ray_tpu_torch.parallel._testing",
                  "ray_tpu_torch.ops.ring_attention",
-                 "ray_tpu_torch.train.backend"):
+                 "ray_tpu_torch.train.backend",
+                 "ray_tpu_torch.train.spmd_trainer",
+                 "ray_tpu_torch.train.config", "ray_tpu_torch.train.result",
+                 "ray_tpu_torch.train.elastic", "ray_tpu_torch.train.utils",
+                 "ray_tpu_torch.data.device_loader",
+                 "ray_tpu_torch.observability.profiler"):
         assert name in mods.split()
 
 

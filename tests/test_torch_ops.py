@@ -42,6 +42,17 @@ def test_rms_norm(eps):
            j_norms.rms_norm(jnp.asarray(x), jnp.asarray(w), eps))
 
 
+@pytest.mark.parametrize("dtype", [(jnp.bool_, torch.bool),
+                                   (jnp.float32, torch.float32)])
+def test_causal_attention_mask(dtype):
+    want = np.asarray(j_att.causal_attention_mask(7, dtype=dtype[0]))
+    got = t_att.causal_attention_mask(7, dtype=dtype[1])
+    assert got.dtype == dtype[1]
+    np.testing.assert_array_equal(got.numpy(), want)
+    from ray_tpu_torch import ops
+    assert ops.causal_attention_mask is t_att.causal_attention_mask
+
+
 def test_rms_norm_keeps_input_dtype():
     x = torch.randn(4, 32).to(torch.bfloat16)
     assert t_norms.rms_norm(x, torch.ones(32)).dtype == torch.bfloat16

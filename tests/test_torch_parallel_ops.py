@@ -13,6 +13,11 @@ params to atol 1e-5. The pipelined train step at pp 2 x dp 2 and
 Mixtral's train step at ep 2 x dp 2 with the published capacity factor
 1.25 (at which these batches drop tokens: the no-drop loss differs):
 3 sgd steps, losses to rtol 1e-4, params to rtol 1e-4 (atol 1e-6).
+Mixtral's aux losses at ep 2 x dp 2: each layer's router loss (the
+global batch's, the same on every rank) against the JAX Mixtral's sown
+`aux_loss` collection on the global batch to rtol 1e-5, and the router
+kernels' gradients from one mesh step of the loss plus the aux loss
+against `jax.grad` of the same sum to rtol 1e-4 (atol 1e-7).
 """
 import threading
 
@@ -168,6 +173,32 @@ def _mixtral():
     return case, (state, step), losses
 
 
+def _aux_want(case):
+    """Each layer's sown aux loss, and the router gradients of the next
+    token loss plus the summed aux loss (and of the loss alone), on the
+    global batch, one device."""
+    model = JMixtral(JMixtralConfig(**MIXTRAL, dtype=jnp.float32))
+    tokens = jnp.asarray(case["tokens"])
+    params = case["jparams"]
+
+    def loss(p, with_aux):
+        (logits, _), mut = model.apply({"params": p}, tokens[:, :-1],
+                                       mutable=["aux_loss"])
+        ll = jax.nn.log_softmax(logits.astype(jnp.float32))
+        nll = -jnp.take_along_axis(ll, tokens[:, 1:, None], -1).mean()
+        return nll + with_aux * JMixtral.aux_loss(mut), mut
+
+    (_, mut), grads = jax.value_and_grad(loss, has_aux=True)(params, 1.0)
+    plain = jax.grad(lambda p: loss(p, 0.0)[0])(params)
+
+    def routers(g):
+        return {k: v.numpy() for k, v in mixtral_params_from_flax(
+            _np(g)).items() if "router" in k}
+    return {"aux": [float(mut["aux_loss"][f"layer_{i}"]["moe"]["router"][0])
+                    for i in range(MIXTRAL["n_layers"])],
+            "router_grads": routers(grads), "plain_grads": routers(plain)}
+
+
 def _train_want(state, step, batches):
     rows = []
     for b in batches:
@@ -185,8 +216,12 @@ def runs():
     pipe = _pipe_case()
     ptrain, (pstate, pstep) = _pipe_train()
     mix, (mstate, mstep), mix_losses = _mixtral()
+    aux = dict(model="mixtral", spec=dict(dp=2, ep=2), cfg=MIXTRAL, lr=0.1,
+               params=mix["params"], tokens=mix["batches"][0]["tokens"])
+    aux_jax = dict(aux, jparams=_np(mstate.params))
     jobs = [("ring_cases", list(ring.values())), ("pipeline_case", pipe),
-            ("pipeline_train_case", ptrain), ("train_cases", [mix])]
+            ("pipeline_train_case", ptrain), ("train_cases", [mix]),
+            ("moe_aux_case", aux)]
     port = {}
 
     def ranks():
@@ -199,12 +234,12 @@ def runs():
             "pipe": _pipe_want(pipe),
             "ptrain": _pipe_train_want(pstate, pstep, ptrain["batches"]),
             "mix": _train_want(mstate, mstep, mix["batches"]),
-            "mix_losses": mix_losses}
+            "mix_losses": mix_losses, "aux": _aux_want(aux_jax)}
     th.join()
     assert "out" in port, "the 4-rank world did not return"
-    ring_out, pipe_out, ptrain_out, (mix_out,) = port["out"]
+    ring_out, pipe_out, ptrain_out, (mix_out,), aux_out = port["out"]
     got = {"ring": dict(zip(ring, ring_out)), "pipe": pipe_out,
-           "ptrain": ptrain_out, "mix": mix_out}
+           "ptrain": ptrain_out, "mix": mix_out, "aux": aux_out}
     return want, got
 
 
@@ -247,3 +282,16 @@ def test_mixtral_over_ep_matches_jax(runs):
     for k, w in want["params"].items():
         np.testing.assert_allclose(got["params"][k], w, rtol=1e-4,
                                    atol=1e-6, err_msg=k)
+
+
+def test_mixtral_aux_losses_over_ep_are_global(runs):
+    want, got = runs[0]["aux"], runs[1]["aux"]
+    assert got["aux_same_on_every_rank"]
+    np.testing.assert_allclose(got["aux"], want["aux"], rtol=1e-5)
+    assert set(got["router_grads"]) == set(want["router_grads"])
+    for k, w in want["router_grads"].items():
+        np.testing.assert_allclose(got["router_grads"][k], w, rtol=1e-4,
+                                   atol=1e-7, err_msg=k)
+        # the aux term moves the router's gradient by more than that
+        assert np.abs(w - want["plain_grads"][k]).max() > 1e-3 * np.abs(
+            w).max(), k

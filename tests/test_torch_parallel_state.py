@@ -15,8 +15,15 @@ One world of 4 gloo ranks (`train.backend.launch`) runs the three:
   DTensor over tp), the gathered logits against the JAX int8 forward to
   atol 1e-4.
 - checkpoints: a Llama sharded on fsdp 2 x tp 2 is saved (gathered to
-  rank 0, committed before any rank returns), restored onto dp 4 and
-  onto one device; every tensor equal bit for bit.
+  rank 0, committed before any rank returns), restored shard by shard
+  onto dp 4, onto fsdp 2 x tp 2 (FSDP2's _StridedShard over tp's
+  Shard) and onto one device; every tensor equal bit for bit. Each
+  mesh restore moves through `Tensor.to` the bytes of its rank's shards
+  and nothing more, and keeps each shard in a storage of its own bytes;
+  a saved tensor of another shape than its layout raises.
+- shard_pytree of the Llama's flat dict of weights on fsdp 2 x tp 2:
+  each tensor's placements those of the rule table's spec (Shard(d) on
+  each mesh dim the spec puts on dim d), its whole tensor the input.
 """
 import dataclasses
 import threading
@@ -36,6 +43,8 @@ from ray_tpu.train import init_lora as j_init_lora
 from ray_tpu.train import make_lora_train_step as j_make_lora_train_step
 from ray_tpu.train import make_optimizer as j_make_optimizer
 from ray_tpu_torch.models import convert
+from ray_tpu_torch.parallel import AXIS_ORDER, MeshSpec
+from ray_tpu_torch.parallel.sharding import dim_of, partition_spec_for
 from ray_tpu_torch.parallel import _testing
 from ray_tpu_torch.train.backend import launch
 
@@ -110,10 +119,13 @@ def runs(tmp_path_factory):
     lora_case, jl, lstate, lstep = _lora()
     int8_case, int8_want = _int8()
     ckpt_case = dict(cfg=WIDTHS, params=_sd(_init(3)[1]),
-                     save=dict(fsdp=2, tp=2), restore=dict(dp=4),
+                     save=dict(fsdp=2, tp=2),
+                     restore=[dict(dp=4), dict(fsdp=2, tp=2)],
                      path=str(tmp_path_factory.mktemp("ckpt") / "sharded"))
+    pytree_case = dict(spec=dict(fsdp=2, tp=2), params=ckpt_case["params"])
     jobs = [("lora_case", lora_case), ("int8_forward", int8_case),
-            ("checkpoint_case", ckpt_case)]
+            ("checkpoint_case", ckpt_case),
+            ("shard_pytree_case", pytree_case)]
     port = {}
 
     def ranks():
@@ -126,8 +138,9 @@ def runs(tmp_path_factory):
             "int8": int8_want}
     th.join()
     assert "out" in port, "the 4-rank world did not return"
-    lora, int8, ckpt = port["out"]
-    return want, {"lora": lora, "int8": int8, "ckpt": ckpt}
+    lora, int8, ckpt, pytree = port["out"]
+    return want, {"lora": lora, "int8": int8, "ckpt": ckpt,
+                  "pytree": (pytree_case, pytree)}
 
 
 def test_lora_over_sharded_base_matches_jax(runs):
@@ -157,7 +170,39 @@ def test_sharded_checkpoint_restores_bit_for_bit(runs):
     got = runs[1]["ckpt"]
     assert got["committed_on_return"]
     assert got["n_tensors"] == 2 * 9 + 3    # 9 a block, embed, norm, head
-    assert got["resharded_equal"] and got["single_equal"]
+    assert got["resharded_equal"] == {
+        "[('dp', 4)]": True, "[('fsdp', 2), ('tp', 2)]": True}
+    assert got["single_equal"]
     # restored onto dp 4: replicated over dp, FSDP2's shard of each
-    # parameter over a data mesh of one
-    assert any("Replicate" in p for p in got["placements"])
+    # parameter over a data mesh of one; onto fsdp 2 x tp 2: fsdp's
+    # strided shard of the rows tp already split
+    assert any("Replicate" in p for p in got["placements"]["[('dp', 4)]"])
+    assert any("StridedShard" in p
+               for p in got["placements"]["[('fsdp', 2), ('tp', 2)]"])
+    # each rank moved its shards and nothing more, and keeps each in a
+    # storage of its own (no view of the whole tensor); fsdp 2 x tp 2
+    # holds a quarter of the sharded tensors
+    for name, m in got["moved"].items():
+        assert m["moved"] == m["held"], name
+        assert m["largest_moved"] == m["largest_held"], name
+    assert got["own_storage"] == {
+        "[('dp', 4)]": True, "[('fsdp', 2), ('tp', 2)]": True}
+    assert got["moved"]["[('fsdp', 2), ('tp', 2)]"]["held"] < \
+        got["moved"]["[('dp', 4)]"]["held"]
+    assert got["mismatch_raises"]
+
+
+def test_shard_pytree_follows_the_table(runs):
+    case, got = runs[1]["pytree"]
+    mesh = MeshSpec(**case["spec"])
+    assert got["whole_equal"]
+    assert got["replicated"] == ["Replicate()"] * len(AXIS_ORDER)
+    sharded = 0
+    for name, v in case["params"].items():
+        spec = partition_spec_for(name, v.shape, mesh)
+        want = [f"Shard(dim={dim_of(spec, a)})"
+                if dim_of(spec, a) is not None else "Replicate()"
+                for a in AXIS_ORDER]
+        assert got["placements"][name] == want, name
+        sharded += want != ["Replicate()"] * len(AXIS_ORDER)
+    assert sharded >= 2 * 7 + 2     # 7 projections a block, embed, head
