@@ -5,7 +5,7 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
-It builds every CUDA kernel from `ray_tpu_torch/csrc/`, then runs thirteen
+It builds every CUDA kernel from `ray_tpu_torch/csrc/`, then runs fourteen
 phases and fails (non-zero exit, no result line) if any of them fails:
 
 1. kernels: each kernel against its plain PyTorch version at
@@ -155,6 +155,24 @@ phases and fails (non-zero exit, no result line) if any of them fails:
    device's on the same global batch within 1e-5. At n == 1 (d)'s bound
    and (f) cannot fail (the shards are the tree, one data rank reduces
    nothing), and the script says so.
+14. runtime: the port's runtime (`ray_tpu_torch.init()`, with the
+   driver's CUDA caches emptied first and the card's free memory
+   printed). (a) the cluster's GPU resource is the card count; a
+   num_gpus=1 actor sees get_gpu_ids() == [0], CUDA_VISIBLE_DEVICES "0"
+   and CUDA, a CPU task sees "" and no CUDA. (b) a chain of three bf16
+   tensors of 64 MiB each on one GPU actor stays on the card: the
+   device-store counters show 2 hits (the edges) and nothing
+   materialized until the driver's get, whose copy equals the actor's
+   tensor bit for bit. (c) TorchTrainer, one rank actor with
+   num_gpus=1, runs the train phase's model, batch, optimizer and 5
+   steps: K1 2 x layers x steps, K2a/K2b layers x steps, its losses the
+   train phase's (RUNTIME_RTOL), its median step and peak memory beside
+   the in-process step's, and its spawn-to-first-step time.
+   (d) ElasticSpmdTrainer at world 1 on the flagship widths: the rank
+   is killed once its second checkpoint is committed, the gang reforms
+   once at full size after the dead process exited, restores, and every
+   later loss equals an uninterrupted fit's (RUNTIME_RTOL); the reform
+   time is printed. No worker process is left after shutdown.
 
 The last three lines are a JSON object listing each kernel (with its
 launches on each path, the zoo's bursts and ViT's forward among them), the card's name and power limit as nvidia-smi
@@ -3289,6 +3307,334 @@ def phase_parallel(torch, gpu_line, train_stats):
     return r0["launches"]
 
 
+# the runtime phase: a chain of bf16 tensors of 64 MiB each on the card;
+# TorchTrainer's rank actor against the in-process train phase and the
+# elastic gang's resumed steps against an uninterrupted fit, both the
+# same code on the same card from the same seed (bit for bit expected;
+# the check allows RUNTIME_RTOL of a loss, a cuBLAS heuristic of a fresh
+# process picking another algorithm)
+RUNTIME_CHAIN_ELEMS = 32 * 2**20
+RUNTIME_RTOL = 1e-5
+ELASTIC_STEPS = 8          # the elastic fit's steps at the flagship widths,
+ELASTIC_EVERY = 2          # ... its checkpoints (the rank is killed once
+ELASTIC_KILL_AT = 4        # ... this step's is committed: its second)
+ELASTIC_ROWS, ELASTIC_SEQ = 2, 256
+ELASTIC_DELAY_S = 0.5      # each batch's draw: paces the fit for the kill
+
+
+class RuntimeProbe:
+    """The runtime phase's GPU actor (made remote with num_gpus=1)."""
+
+    def info(self):
+        import torch
+        from ray_tpu_torch import get_gpu_ids
+        return {"gpu_ids": get_gpu_ids(), "cuda": torch.cuda.is_available(),
+                "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+                "count": torch.cuda.device_count(), "pid": os.getpid()}
+
+    def make(self, n, seed):
+        import torch
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        return torch.randn(n, device="cuda", dtype=torch.bfloat16,
+                           generator=gen)
+
+    def double(self, x):
+        check(x.is_cuda, "a chained tensor left the card")
+        return x * 2
+
+    def counters(self):
+        from ray_tpu_torch.core import device_store
+        return dict(device_store.COUNTERS)
+
+
+def cpu_probe():
+    """A task without GPU resources: it must see no card."""
+    import torch
+    return os.environ.get("CUDA_VISIBLE_DEVICES"), torch.cuda.is_available()
+
+
+def runtime_train_loop(config):
+    """TorchTrainer's loop in its rank actor: the train phase's model
+    (seed 0), batch, optimizer and steps, each step timed to a
+    synchronize and reported; K1/K2a/K2b zeroed just before the steps
+    and read just after, with the actor's peak memory."""
+    import torch
+    from ray_tpu_torch import get_gpu_ids
+    from ray_tpu_torch.models import Llama, LlamaConfig
+    from ray_tpu_torch.ops.kernels import flash_attention as fa
+    from ray_tpu_torch.train import (make_optimizer, make_train_step, report,
+                                     warmup_cosine)
+    cfg = LlamaConfig.llama3_8b(n_layers=TRAIN_LAYERS, dtype=torch.bfloat16,
+                                param_dtype=torch.float32)
+    torch.cuda.reset_peak_memory_stats()
+    model = Llama(cfg, device="cuda", seed=0)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size,
+                                     (TRAIN_BATCH, TRAIN_SEQ + 1),
+                                     device="cuda", generator=gen)}
+    tx = make_optimizer("adamw", schedule=warmup_cosine(3e-4, 1,
+                                                        TRAIN_STEPS))
+    state, step = make_train_step(model, tx)(batch)
+    torch.cuda.synchronize()
+    zero_counters(fa)
+    for i in range(TRAIN_STEPS):
+        t1 = time.time()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        t2 = time.time()
+        report({"step": i + 1, "loss": float(m["loss"]),
+                "grad_norm": float(m["grad_norm"]),
+                "step_ms": (t2 - t1) * 1e3, "t_end": t2})
+    report({"launches": read_counters(fa), "layers": cfg.n_layers,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "gpu_ids": get_gpu_ids(),
+            "visible": os.environ.get("CUDA_VISIBLE_DEVICES")})
+
+
+def paced_batches(rows, seq, seed, vocab, delay_s):
+    """trainer_batches, each batch after delay_s seconds."""
+    for b in trainer_batches(rows, seq, seed, vocab):
+        time.sleep(delay_s)
+        yield b
+
+
+def rank_pids():
+    """{actor_id: worker pid} of the ALIVE rank actors of a gang."""
+    from ray_tpu_torch.util import state as state_api
+    rows = state_api.list_actors(
+        filters=[("class_name", "=", "_SpmdHost"), ("state", "=", "ALIVE")],
+        limit=100)
+    by_wid = {w["worker_id"]: w["pid"]
+              for w in state_api.list_workers(limit=1000)}
+    return {r["actor_id"]: by_wid[r["worker_id"]] for r in rows
+            if r["worker_id"] in by_wid}
+
+
+def runtime_resources(torch, rt):
+    """(a): the GPU resource, a num_gpus=1 actor's card, a CPU task."""
+    n = torch.cuda.device_count()
+    res = rt.cluster_resources()
+    probe = rt.remote(num_gpus=1)(RuntimeProbe).remote()
+    info = rt.get(probe.info.remote(), timeout=300)
+    cpu = rt.get(rt.remote(cpu_probe).remote(), timeout=300)
+    print(f"runtime (a): cluster GPU {res.get('GPU')} of {n} cards; the "
+          f"num_gpus=1 actor: get_gpu_ids {info['gpu_ids']}, "
+          f"CUDA_VISIBLE_DEVICES {info['visible']!r}, cuda available "
+          f"{info['cuda']} ({info['count']} card); a CPU task: "
+          f"CUDA_VISIBLE_DEVICES {cpu[0]!r}, cuda available {cpu[1]}",
+          flush=True)
+    check(res.get("GPU") == n, f"runtime (a): GPU resource {res}")
+    check(info["gpu_ids"] == [0] and info["cuda"] and info["count"] == 1
+          and info["visible"] == "0", f"runtime (a): the GPU actor {info}")
+    check(cpu == ("", False), f"runtime (a): the CPU task saw {cpu}")
+    return probe
+
+
+def runtime_device_objects(torch, rt, probe):
+    """(b): a chain of bf16 CUDA tensors on one actor stays on the card;
+    the driver's get copies the last one out once."""
+    n = RUNTIME_CHAIN_ELEMS
+    r1 = probe.make.remote(n, 0)
+    r3 = probe.double.remote(probe.double.remote(r1))
+    ready, _ = rt.wait([r3], timeout=300)
+    before = rt.get(probe.counters.remote(), timeout=60)
+    t0 = time.time()
+    got = rt.get(r3, timeout=300)
+    t_get = time.time() - t0
+    after = rt.get(probe.counters.remote(), timeout=60)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    want = torch.randn(n, device="cuda", dtype=torch.bfloat16,
+                       generator=gen) * 2 * 2
+    same = bool(got.device.type == "cuda" and got.dtype == want.dtype
+                and torch.equal(got, want))
+    print(f"runtime (b): 3 bf16 tensors of {n * 2 / 2**20:.0f} MiB on the "
+          f"actor, 2 edges: counters before the driver's get {before}, "
+          f"after {after}; the driver's get {t_get * 1e3:.1f} ms, on "
+          f"{got.device}, bit for bit {same}", flush=True)
+    check(ready == [r3] and before == {"kept_device": 3, "device_hits": 2,
+                                       "materialized": 0},
+          f"runtime (b): the chain left the card: {before}")
+    check(after["materialized"] == 1, f"runtime (b): {after}")
+    check(same, "runtime (b): the driver's copy differs from the actor's")
+    del got, want
+    rt.kill(probe)
+
+
+def runtime_trainer(torch, rt, root, gpu_line, train_stats):
+    """(c): TorchTrainer, one rank actor with num_gpus=1, on the train
+    phase's model: K1/K2a/K2b launches and losses against the train
+    phase's, the step time beside the in-process step's."""
+    from ray_tpu_torch.train import RunConfig, ScalingConfig, TorchTrainer
+    t0 = time.time()
+    res = TorchTrainer(runtime_train_loop,
+                       scaling_config=ScalingConfig(num_workers=1),
+                       run_config=RunConfig(name="torch_trainer",
+                                            storage_path=root)).fit()
+    t_fit = time.time() - t0
+    check(res.error is None, f"runtime (c): TorchTrainer failed: "
+          f"{res.error!r}")
+    steps = [m for m in res.metrics_history if "loss" in m]
+    final = [m for m in res.metrics_history if "launches" in m][-1]
+    losses = [m["loss"] for m in steps]
+    want = train_stats["losses"]
+    rel = max(abs(x - w) / abs(w) for x, w in zip(losses, want))
+    med = statistics.median(m["step_ms"] for m in steps[1:])
+    n = final["layers"] * TRAIN_STEPS
+    print(f"runtime (c): TorchTrainer, one rank actor (get_gpu_ids "
+          f"{final['gpu_ids']}, CUDA_VISIBLE_DEVICES "
+          f"{final['visible']!r}): losses {[round(x, 6) for x in losses]} "
+          f"against the train phase's {[round(x, 6) for x in want]}, max "
+          f"relative difference {rel:.3g} (bit for bit {losses == want}); "
+          f"median step {med:.1f} ms against the in-process "
+          f"{train_stats['median_ms']:.1f} ms; peak memory "
+          f"{final['peak_gib']:.2f} GiB against {train_stats['peak_gib']:.2f}"
+          f"; spawn to the first step's end "
+          f"{steps[0]['t_end'] - t0:.1f} s, fit {t_fit:.1f} s; launches "
+          f"{json.dumps(final['launches'])} [{gpu_line}]", flush=True)
+    check(len(losses) == TRAIN_STEPS and rel <= RUNTIME_RTOL,
+          "runtime (c): the rank actor's losses differ from the train "
+          "phase's")
+    check(final["launches"] == {"flash_fwd (K1)": 2 * n,
+                                "flash_bwd_dq (K2a)": n,
+                                "flash_bwd_dkv (K2b)": n},
+          f"runtime (c): unexpected launch counts {final['launches']}")
+    return final["launches"]
+
+
+def runtime_elastic(torch, rt, handle, root, gpu_line):
+    """(d): ElasticSpmdTrainer at world 1 on the flagship widths: the
+    rank is killed once its second checkpoint is committed, the gang
+    reforms at full size once the dead process has exited (its card
+    memory free), restores, and every later loss equals an uninterrupted
+    fit's."""
+    import functools
+    import signal
+
+    from ray_tpu_torch.models import Llama, LlamaConfig
+    from ray_tpu_torch.train import (ElasticSpmdTrainer, RunConfig,
+                                     SpmdTrainer, SpmdTrainerConfig)
+    from ray_tpu_torch.train.checkpoint import is_committed
+
+    cfg = LlamaConfig(**FLAGSHIP, dtype=torch.bfloat16,
+                      param_dtype=torch.float32)
+
+    def tcfg():
+        return SpmdTrainerConfig(
+            model=Llama(cfg, device="cuda", seed=0),
+            total_steps=ELASTIC_STEPS, log_every=1, warmup_steps=1,
+            learning_rate=1e-3, checkpoint_every=ELASTIC_EVERY,
+            device="cuda")
+
+    def data(delay_s):
+        return functools.partial(paced_batches, ELASTIC_ROWS, ELASTIC_SEQ,
+                                 0, cfg.vocab_size, delay_s)
+
+    run_config = RunConfig(name="elastic", storage_path=root)
+    # the default resources: one CPU and one GPU a rank
+    trainer = ElasticSpmdTrainer(tcfg(), data(ELASTIC_DELAY_S), num_hosts=1,
+                                 run_config=run_config)
+    box = {}
+
+    def run():
+        try:
+            box["res"] = trainer.fit()
+        except BaseException as e:  # noqa: BLE001 - checked below
+            box["err"] = e
+
+    th = threading.Thread(target=run, daemon=True)
+    t0 = time.time()
+    th.start()
+    ckpt = os.path.join(run_config.run_dir(), "checkpoints",
+                        f"checkpoint_{ELASTIC_KILL_AT:09d}")
+    deadline = time.time() + 600
+    while not is_committed(ckpt) and "err" not in box:
+        check(time.time() < deadline, "runtime (d): no second checkpoint")
+        time.sleep(0.02)
+    check("err" not in box, f"runtime (d): the fit failed before the "
+          f"kill: {box.get('err')!r}")
+    pids = rank_pids()
+    check(len(pids) == 1, f"runtime (d): rank actors {pids}")
+    t_kill = time.time()
+    os.kill(next(iter(pids.values())), signal.SIGKILL)
+    th.join(900)
+    check(not th.is_alive(), "runtime (d): the elastic fit never finished")
+    check("err" not in box, f"runtime (d): {box.get('err')!r}")
+    res = box["res"]
+    t_end = time.time()
+    handle.drain_local_events()
+    reforms = handle.cluster_events.query(types=["train.gang.reform"],
+                                          limit=10)[0]
+    reform_s = float(reforms[-1]["attrs"]["seconds"]) if reforms else None
+    whole = SpmdTrainer(tcfg(), data(0.0), run_config=RunConfig(
+        name="whole", storage_path=root)).fit()
+    want = {m["step"]: m["loss"] for m in whole.metrics_history}
+    hist = res.metrics_history
+    pairs = [(m["step"], m["loss"], want[m["step"]]) for m in hist]
+    rel = max(abs(x - w) / abs(w) for _, x, w in pairs)
+    free, total = torch.cuda.mem_get_info()
+    print(f"runtime (d): ElasticSpmdTrainer at world 1, flagship widths "
+          f"bf16/fp32: the rank killed {t_kill - t0:.1f} s into the fit, "
+          f"after checkpoint {ELASTIC_KILL_AT}; failures "
+          f"{res.config['failures']}, final world "
+          f"{res.config['final_world']}, generations "
+          f"{res.config['generations']}; reform {reform_s} s (the "
+          f"train.gang.reform event), kill to the fit's end "
+          f"{t_end - t_kill:.1f} s; resumed steps "
+          f"{[(s, round(x, 7), round(w, 7)) for s, x, w in pairs]}, max "
+          f"relative difference from the uninterrupted fit {rel:.3g} (bit "
+          f"for bit {all(x == w for _, x, w in pairs)}); card memory free "
+          f"after {free / 2**30:.2f} of {total / 2**30:.2f} GiB "
+          f"[{gpu_line}]", flush=True)
+    check(res.config["failures"] == 1 and res.config["final_world"] == 1
+          and res.config["generations"] == 1,
+          f"runtime (d): the gang did not reform once at full size: "
+          f"{res.config}")
+    first = hist[0]["step"] if hist else None
+    check(first is not None and first - 1 >= ELASTIC_KILL_AT
+          and (first - 1) % ELASTIC_EVERY == 0
+          and [m["step"] for m in hist] == list(range(first,
+                                                      ELASTIC_STEPS + 1)),
+          f"runtime (d): resumed steps {[m['step'] for m in hist]}")
+    check(rel <= RUNTIME_RTOL, "runtime (d): a resumed step's loss "
+          "differs from the uninterrupted fit's")
+
+
+def phase_runtime(torch, gpu_line, train_stats):
+    """14. runtime: the port's runtime on the card, (a)-(d) (see the
+    module docstring). Returns the rank actor's K1/K2a/K2b launches."""
+    import shutil
+    import tempfile
+
+    import psutil
+    import ray_tpu_torch as rt
+
+    release(torch)
+    free, total = torch.cuda.mem_get_info()
+    print(f"runtime: card memory free {free / 2**30:.2f} of "
+          f"{total / 2**30:.2f} GiB before the phase (the driver's caches "
+          f"emptied)", flush=True)
+    root = tempfile.mkdtemp(prefix="chip_smoke_runtime_")
+    handle = rt.init()
+    try:
+        probe = runtime_resources(torch, rt)
+        runtime_device_objects(torch, rt, probe)
+        launches = runtime_trainer(torch, rt, root, gpu_line, train_stats)
+        runtime_elastic(torch, rt, handle, root, gpu_line)
+    finally:
+        rt.shutdown()
+        shutil.rmtree(root, ignore_errors=True)
+    deadline = time.time() + 30
+    while True:
+        left = [p.pid for p in psutil.Process().children(recursive=True)
+                if "core.worker" in " ".join(p.cmdline())]
+        if not left or time.time() > deadline:
+            break
+        time.sleep(0.2)
+    check(not left, f"runtime: worker processes left after shutdown: {left}")
+    release(torch)
+    return launches
+
+
 def check_spills(build) -> None:
     """Registers and spills of the wgmma kernels (K1's forward, K2a's and
     K2b's backward at D 64 and 128) and of every K4 kernel, from the
@@ -3375,6 +3721,7 @@ def main() -> None:
     launches.update(phase_grpo(torch, gpu_line))
     launches["north-star-grpo"] = phase_north_star(torch)
     launches["parallel"] = phase_parallel(torch, gpu_line, train_stats)
+    launches["runtime-trainer"] = phase_runtime(torch, gpu_line, train_stats)
 
     # each kernel's launches on the main paths (the serve bursts, train,
     # GRPO full, LoRA, the north star's and the mesh train step); K4 is

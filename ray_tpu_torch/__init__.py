@@ -26,4 +26,45 @@ mesh and the rule table applied with FSDP2 and DTensor plans
 (`parallel/`), the train step, LoRA and checkpoints on a mesh, ring
 attention (`ops/ring_attention.py`), GPipe, Mixtral over ep and
 `entry.dryrun_multichip`.
+— and the runtime (`core/`, `api.py`, `dag.py`): tasks, actors, objects
+and placement groups with GPU resources (`num_gpus=`, `get_gpu_ids`),
+torch tensors kept on the device between tasks of one worker, and
+training over rank actors (`train.TorchTrainer`, `train.MultiHostSpmd`,
+`train.ElasticSpmdTrainer`).
+
+The runtime loads at first use: `import ray_tpu_torch` imports no
+runtime module until an API name (`init`, `remote`, ...) is read.
 """
+from __future__ import annotations
+
+import importlib
+
+__version__ = "0.1.0"
+
+_API = ("init", "shutdown", "is_initialized", "remote", "get", "put",
+        "wait", "kill", "cancel", "get_actor", "free", "cluster_resources",
+        "available_resources", "get_runtime_context", "method", "nodes",
+        "timeline", "get_gpu_ids", "actor_exit")
+_CORE = {"ObjectRef": "core.object_ref", "ObjectRefGenerator":
+         "core.object_ref", "ActorHandle": "core.actor"}
+_LAZY_SUBMODULES = ("train", "serve", "rllib", "util", "models", "ops",
+                    "parallel", "observability", "dag", "data",
+                    "exceptions")
+
+
+def __getattr__(name):
+    if name in _API:
+        value = getattr(importlib.import_module(".api", __name__), name)
+    elif name in _CORE:
+        value = getattr(importlib.import_module(f".{_CORE[name]}", __name__),
+                        name)
+    elif name in _LAZY_SUBMODULES:
+        value = importlib.import_module(f".{name}", __name__)
+    else:
+        raise AttributeError(
+            f"module 'ray_tpu_torch' has no attribute {name!r}")
+    globals()[name] = value
+    return value
+
+
+__all__ = [*_API, *_CORE, *_LAZY_SUBMODULES, "__version__"]

@@ -8,8 +8,9 @@ samples through the port's serve engine and trains full parameters or
 LoRA adapters (train/lora.py).
 
 Not ported: remote env runners (`num_env_runners > 0`, actors of the
-ray_tpu runtime; ROADMAP queue 1, item 13) and a LearnerGroup over
-several devices (item 9); both raise.
+runtime; ROADMAP's "rllib's remote env runners") and a LearnerGroup
+over several devices (ROADMAP's "LearnerGroup over a mesh"); both
+raise.
 """
 from .algorithm import Algorithm, AlgorithmConfig
 from .dqn import DQN, DQNConfig

@@ -9,8 +9,8 @@ iterations, .save()/.restore(), periodic deterministic evaluation.
 Rollouts run on the local EnvRunner; the learner update runs on the
 config's device (`.resources(device=...)`, CUDA unless the caller asks
 for the CPU). The reference's remote runners (`num_env_runners > 0`)
-are ray_tpu actors, which the port does not have: they raise (ROADMAP
-queue 1, item 13).
+are actors of the runtime, not ported yet: they raise (ROADMAP's
+"rllib's remote env runners").
 """
 from __future__ import annotations
 
@@ -131,8 +131,8 @@ class Algorithm:
         if config.num_env_runners > 0:
             raise NotImplementedError(
                 "num_env_runners > 0 runs EnvRunners as actors of the "
-                "ray_tpu runtime, which the port does not have (ROADMAP "
-                "queue 1, item 13); use num_env_runners=0 (the local "
+                "runtime, which are not ported yet (ROADMAP: rllib's "
+                "remote env runners); use num_env_runners=0 (the local "
                 "runner)")
         # local runner always exists: module spec source + evaluation
         self.local_runner = _make_runner(config, 0)

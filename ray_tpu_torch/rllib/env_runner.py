@@ -5,7 +5,8 @@ Reference counterpart: rllib/env/env_runner.py + rllib/evaluation/
 rollout_worker.py. Runners step numpy envs on the host and sample
 actions through the policy on the runner's device, from a generator
 seeded `seed`. Runners run in-process; the reference's remote runners
-need the runtime's actors (ROADMAP queue 1, item 13).
+are actors of the runtime, not ported yet (ROADMAP: "rllib's remote env
+runners").
 """
 from __future__ import annotations
 

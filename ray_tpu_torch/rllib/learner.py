@@ -5,7 +5,7 @@ Reference counterpart: rllib/core/learner/ (Learner, LearnerGroup). The
 reference's LearnerGroup shards each batch over a jax Mesh's dp axis;
 on one device it is a plain Learner, and that is what the port has.
 Data parallelism over several cards (a LearnerGroup over the port's
-DeviceMesh) is not ported yet (ROADMAP queue 1, item 9).
+DeviceMesh) is not ported yet (ROADMAP: "LearnerGroup over a mesh").
 """
 from __future__ import annotations
 
@@ -81,8 +81,9 @@ class LearnerGroup:
         if mesh is not None and len(mesh) > 1:
             raise NotImplementedError(
                 f"LearnerGroup over {len(mesh)} devices: data "
-                f"parallelism over a mesh is not ported yet (ROADMAP "
-                f"queue 1, item 9); pass mesh=None or one device")
+                f"parallelism over a mesh is not ported yet (ROADMAP: "
+                f"LearnerGroup over a mesh); pass mesh=None or one "
+                f"device")
         self.learner = learner
         self.mesh = mesh
 

@@ -75,8 +75,14 @@ Request controls, as in the reference:
   paths before real traffic (the kernels' build and load, cuBLAS and the
   allocator).
 
-Not ported: the reference's cluster events and registry metrics, which
-need the port's event and metrics planes.
+Telemetry, as in the reference: registry metrics (`ray_tpu_llm_engine_*`,
+one series per engine under the `engine` tag: tokens, TTFT, TPOT, active
+slots, waiting requests, batch occupancy, KV page utilisation) and
+cluster events (request admit / preempt / finish / abort, `wedged`,
+`serve.request.shed` with the `ray_tpu_serve_requests_shed_total`
+counter, consumer-stall hangs) through `util/metrics.py` and
+`util/events.py`; inside an actor the worker's telemetry flush ships
+them to the driver.
 """
 from __future__ import annotations
 
@@ -97,6 +103,7 @@ import torch
 from ...exceptions import DeadlineExceededError, EngineWedgedError
 from ...ops.attention import PagedKV
 from ...util.device import DeviceLike, resolve_device
+from ...util import events as events_mod
 from ...util.knobs import engine_watchdog_s
 
 
@@ -166,6 +173,7 @@ class _Request:
     slot: int = -1
     generated: int = 0
     aborted: bool = False
+    preempt_emitted: bool = False   # the pool-exhausted event, once
     prefix_id: int = -1             # registered prefix whose KV it adopts
     prefill_pos: int = 0            # next prompt index (chunked prefill)
     submit_ts: float = field(default_factory=time.time)
@@ -190,6 +198,39 @@ class _Request:
 
 
 _END = ("__end__", None)
+
+
+_engine_ids = itertools.count()
+_metrics_singletons = None
+
+
+def _engine_metrics():
+    """Shared built-in registry metrics, resolved through the catalog
+    (util/metrics_catalog.py) so names stay `ray_tpu_`-prefixed and
+    documented in one place. Per-engine series ride the `engine` tag —
+    re-instantiating per engine would clobber the registry entry and
+    drop earlier engines' series. A cleared registry (tests do that)
+    is detected and the metrics re-register fresh."""
+    global _metrics_singletons
+    from ...util import metrics as metrics_mod  # noqa: PLC0415
+    from ...util import metrics_catalog as mcat  # noqa: PLC0415
+    if (_metrics_singletons is not None
+            and metrics_mod.get_metric(
+                "ray_tpu_llm_engine_tokens_generated")
+            is not _metrics_singletons["tokens"]):
+        _metrics_singletons = None
+    if _metrics_singletons is None:
+        _metrics_singletons = {
+            "tokens": mcat.get("ray_tpu_llm_engine_tokens_generated"),
+            "active": mcat.get("ray_tpu_llm_engine_active_slots"),
+            "waiting": mcat.get("ray_tpu_llm_engine_waiting_requests"),
+            "occupancy": mcat.get("ray_tpu_llm_engine_batch_occupancy"),
+            "kv_util": mcat.get(
+                "ray_tpu_llm_engine_kv_page_utilization"),
+            "ttft": mcat.get("ray_tpu_llm_engine_ttft_s"),
+            "tpot": mcat.get("ray_tpu_llm_engine_tpot_s"),
+        }
+    return _metrics_singletons
 
 
 def _put_dropping_one(q: "queue_mod.Queue", item) -> None:
@@ -369,6 +410,11 @@ class LLMEngine:
                       "spec_steps": 0, "spec_accepted": 0}
         self._ttft_samples: collections.deque = collections.deque(maxlen=512)
         self._tpot_samples: collections.deque = collections.deque(maxlen=512)
+        # registry metrics, one labeled series per engine; the dict is
+        # refreshed once per loop step, not per token
+        self._mtags = {"engine": f"llm-{next(_engine_ids)}"}
+        self._tokens_unpublished = 0
+        self._m = _engine_metrics()
         self._prefill_first_ms: Dict[int, float] = {}  # bucket -> ms
         # watchdog: _progress_ts advances on every admission, chunk and
         # emitted token; a thread of its own reads it, since the loop
@@ -802,6 +848,13 @@ class LLMEngine:
             raise EngineWedgedError(
                 "engine is wedged; replica awaiting replacement")
         if deadline_ts is not None and time.time() >= deadline_ts:
+            # the queued-expiry path's telemetry: every shed is visible
+            self._event("serve.request.shed", reason="deadline_expired",
+                        stage="submit",
+                        late_s=round(time.time() - deadline_ts, 3))
+            events_mod.emit_safe(
+                counter="ray_tpu_serve_requests_shed_total",
+                counter_tags={"reason": "deadline_expired"})
             raise DeadlineExceededError(
                 "deadline already expired at submit; request rejected "
                 "at admission")
@@ -907,6 +960,8 @@ class LLMEngine:
         if req is None:
             return
         req.aborted = True
+        self._event("llm_engine.request_abort", req=req,
+                    generated=req.generated)
         if req.generated == 0 and req.slot == -1:
             req.out_queue.put(_END)
         elif req.generated > 0:
@@ -1056,8 +1111,26 @@ class LLMEngine:
             if stall > budget:
                 self._declare_wedged(stall)
 
+    def _event(self, etype: str, message: str = "", req=None,
+               **attrs) -> None:
+        """A lifecycle event on the cluster event plane (util/events.py);
+        never raises into the engine."""
+        try:
+            events_mod.emit(
+                etype, message,
+                request_id=req.request_id if req is not None else None,
+                engine=self._mtags["engine"], **attrs)
+        except Exception:  # noqa: BLE001 - telemetry never fails serving
+            pass
+
     def _declare_wedged(self, stall_s: float) -> None:
         self._wedged_since = time.time()
+        self._event("llm_engine.wedged",
+                    f"no forward progress for {stall_s:.1f}s "
+                    f"(watchdog_s={self._watchdog_s}); aborting "
+                    f"in-flight requests", stall_s=round(stall_s, 2),
+                    active=len(self._active),
+                    waiting=self._waiting.qsize())
         err = EngineWedgedError(
             f"engine wedged: no forward progress for {stall_s:.1f}s "
             f"(> RAY_TPU_ENGINE_WATCHDOG_S={self._watchdog_s}); "
@@ -1228,11 +1301,18 @@ class LLMEngine:
                     # hold the head request (FIFO) until releases refill
                     # the pool
                     self._pending_head = req
+                    if not req.preempt_emitted:
+                        req.preempt_emitted = True
+                        self._event("llm_engine.request_preempt",
+                                    "KV page pool exhausted; holding "
+                                    "at admission", req=req)
                     break
                 if outcome == "failed":
                     continue
             elif not self._admit_contiguous(req):
                 continue
+            self._event("llm_engine.request_admit", req=req, slot=req.slot,
+                        prompt_len=int(req.prompt.size))
             if req.prefix_id >= 0 or self._use_chunked(req.prompt.size):
                 self._prefilling.append(req)
             else:
@@ -1352,6 +1432,7 @@ class LLMEngine:
         req.generated += 1
         self.stats["tokens_generated"] += 1
         self._note_progress()   # watchdog: forward progress
+        self._tokens_unpublished += 1
         if req.first_token_ts is None:
             now = time.time()
             req.first_token_ts = now
@@ -1362,6 +1443,7 @@ class LLMEngine:
                 "emit_ms": max(0.0, (now - admit) * 1000
                                - req.prefill_dispatch_ms),
                 "total_ms": (now - req.submit_ts) * 1000})
+            self._m["ttft"].observe(now - req.submit_ts, tags=self._mtags)
         if req.hist is not None:
             req.hist.append(tok)
         # Bounded-wait put: a full out_queue means the consumer is slow
@@ -1380,10 +1462,25 @@ class LLMEngine:
                 now = time.time()
                 if parked_since is None:
                     parked_since = now
+                    # flag the stall while it is live
+                    self._event("sched.hang.suspected",
+                                "request output queue full; consumer "
+                                "stalled (TTL abort after "
+                                f"{self._CONSUMER_STALL_TTL_S:.0f}s)",
+                                req=req, kind="consumer_stalled")
                 elif now - parked_since > self._CONSUMER_STALL_TTL_S:
                     req.aborted = True
                     req.max_new_tokens = min(req.max_new_tokens,
                                              req.generated)
+                    self._event("llm_engine.request_abort", req=req,
+                                generated=req.generated,
+                                reason="consumer_stalled")
+                    self._event("sched.hang.resolved",
+                                f"consumer stalled "
+                                f"{now - parked_since:.0f}s; request "
+                                "aborted by the consumer-stall TTL",
+                                req=req, kind="consumer_stalled",
+                                stalled_s=round(now - parked_since, 1))
                     break
                 self._note_progress()
         if ((self.cfg.eos_token_id is not None
@@ -1447,15 +1544,36 @@ class LLMEngine:
                 self._pen_coef_dirty = True
                 req.slot = -1
             if req.first_token_ts is not None and req.generated > 1:
-                self._tpot_samples.append(
-                    (time.time() - req.first_token_ts)
-                    / (req.generated - 1))
+                tpot = ((time.time() - req.first_token_ts)
+                        / (req.generated - 1))
+                self._tpot_samples.append(tpot)
+                try:
+                    self._m["tpot"].observe(tpot, tags=self._mtags)
+                except Exception:  # noqa: BLE001 - telemetry only
+                    pass
         finally:
+            self._publish_tokens()
+            self._event("llm_engine.request_finish", req=req,
+                        generated=req.generated, aborted=req.aborted)
             _put_dropping_one(req.out_queue, _END)
+
+    def _publish_tokens(self) -> None:
+        """Add the tokens emitted since the last call to the registry's
+        token counter: once a loop step and before a request's end
+        marker, not once a token."""
+        n, self._tokens_unpublished = self._tokens_unpublished, 0
+        if n:
+            self._m["tokens"].inc(float(n), tags=self._mtags)
 
     def _shed_expired(self, req: _Request) -> None:
         """A queued request whose deadline passed: error its stream
         without taking a slot (load shedding)."""
+        self._event("serve.request.shed", req=req,
+                    reason="deadline_expired",
+                    late_s=round(time.time() - req.deadline_ts, 3))
+        events_mod.emit_safe(
+            counter="ray_tpu_serve_requests_shed_total",
+            counter_tags={"reason": "deadline_expired"})
         req.out_queue.put(("error", DeadlineExceededError(
             f"deadline expired {time.time() - req.deadline_ts:.3f}s "
             f"before engine admission of {req.request_id}")))
@@ -1790,6 +1908,15 @@ class LLMEngine:
         need_sync = allow is not None or spec_sync
         if self._active and (not need_sync or not inflight):
             self._dispatch_decode(inflight, allow, pen, spec_sync)
+        m = self._m = _engine_metrics()
+        self._publish_tokens()
+        m["active"].set(float(len(self._active)), tags=self._mtags)
+        m["waiting"].set(float(self._waiting.qsize()), tags=self._mtags)
+        m["occupancy"].set(len(self._active) / max(1, self.cfg.max_slots),
+                           tags=self._mtags)
+        if self._paged:
+            m["kv_util"].set((self._n_pages - len(self._free_pages))
+                             / max(1, self._n_pages), tags=self._mtags)
         if not inflight:
             self._in_dispatch = False
             time.sleep(0.002)

@@ -20,11 +20,19 @@ Layer map:
                    make_lora_train_step
   utils.py         prepare_module (a model onto a mesh),
                    iter_batches_sharded
+  trainer.py       TorchTrainer (the reference's JaxTrainer): a training
+                   loop on rank actors, with reports, checkpoints and
+                   FailureConfig restarts
+  session.py       report / get_context / TrainContext inside the loop
+  multihost.py     MultiHostSpmd: a torch.distributed world of rank
+                   actors (run, run_async, run_sharded, reform)
+  elastic.py       GangSupervisor, reshard_mesh_spec
+  spmd_trainer.py  ElasticSpmdTrainer: SpmdTrainer on a supervised gang
+                   that reforms and restores when a rank dies
 
-SpmdTrainer needs no runtime: it runs in each rank of `launch` or in a
-world of one. JaxTrainer, the multihost and elastic gangs
-(GangSupervisor, ElasticSpmdTrainer), the sessions and the dataset
-adapters need the runtime's actors and wait for a later slice.
+SpmdTrainer itself needs no runtime: it runs in each rank of `launch` or
+in a world of one. The dataset adapters (`prepare_loader`) wait for the
+data layer.
 """
 from . import adapters  # noqa: F401  (transformers only inside a call)
 from .backend import (TorchBackendConfig, detect_rank, detect_world_size,
@@ -33,13 +41,16 @@ from .checkpoint import (Checkpoint, CheckpointManager, restore_pytree,
                          save_pytree)
 from .config import (CheckpointConfig, FailureConfig, RunConfig,
                      ScalingConfig)
-from .elastic import reshard_mesh_spec
+from .elastic import GangSupervisor, reshard_mesh_spec
 from .lora import (DEFAULT_TARGETS, LoraConfig, init_lora, lora_param_count,
                    make_lora_train_step, merge_lora)
 from .optim import make_optimizer, warmup_cosine
 from .result import Result
 from .spmd import SpmdStep, TrainState, make_train_step, next_token_loss
-from .spmd_trainer import SpmdTrainer, SpmdTrainerConfig
+from .multihost import MultiHostSpmd
+from .session import TrainContext, get_context, report
+from .spmd_trainer import ElasticSpmdTrainer, SpmdTrainer, SpmdTrainerConfig
+from .trainer import TorchTrainer
 from .utils import prepare_module
 
 __all__ = ["adapters", "TrainState", "SpmdStep", "make_train_step",
@@ -51,4 +62,6 @@ __all__ = ["adapters", "TrainState", "SpmdStep", "make_train_step",
            "LoraConfig", "init_lora", "merge_lora", "lora_param_count",
            "make_lora_train_step", "DEFAULT_TARGETS", "ScalingConfig",
            "RunConfig", "FailureConfig", "CheckpointConfig", "Result",
-           "SpmdTrainer", "SpmdTrainerConfig", "reshard_mesh_spec"]
+           "SpmdTrainer", "SpmdTrainerConfig", "reshard_mesh_spec",
+           "TorchTrainer", "report", "get_context", "TrainContext",
+           "MultiHostSpmd", "GangSupervisor", "ElasticSpmdTrainer"]

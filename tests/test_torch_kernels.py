@@ -527,8 +527,55 @@ def test_port_imports_no_jax_and_no_ray_tpu():
                  "ray_tpu_torch.train.config", "ray_tpu_torch.train.result",
                  "ray_tpu_torch.train.elastic", "ray_tpu_torch.train.utils",
                  "ray_tpu_torch.data.device_loader",
-                 "ray_tpu_torch.observability.profiler"):
+                 "ray_tpu_torch.observability.profiler",
+                 # the runtime (its copy of ray_tpu/core, api, dag, the
+                 # util and observability modules it needs) and the
+                 # trainers over rank actors
+                 "ray_tpu_torch.api", "ray_tpu_torch.dag",
+                 "ray_tpu_torch._native.build",
+                 "ray_tpu_torch._native.store_binding",
+                 *(f"ray_tpu_torch.core.{m}" for m in (
+                     "actor", "autoscaler", "dag_channel", "dag_runtime",
+                     "device_store", "gcs", "ids", "jobs", "logging",
+                     "node", "object_ref", "object_store",
+                     "object_transfer", "persistence", "protocol",
+                     "resources", "runtime", "runtime_env", "scheduling",
+                     "serialization", "spilling", "task", "worker")),
+                 *(f"ray_tpu_torch.util.{m}" for m in (
+                     "netutil", "tracing", "events", "events_catalog",
+                     "metrics", "metrics_catalog", "waits",
+                     "placement_group", "collective", "state")),
+                 "ray_tpu_torch.observability.sampling_profiler",
+                 "ray_tpu_torch.observability.waitgraph",
+                 "ray_tpu_torch.observability.timeline",
+                 "ray_tpu_torch.observability.forensics",
+                 "ray_tpu_torch.train.session",
+                 "ray_tpu_torch.train.trainer",
+                 "ray_tpu_torch.train.multihost",
+                 "ray_tpu_torch.train._testing"):
         assert name in mods.split()
+
+
+def test_spawned_worker_imports_no_jax_and_no_ray_tpu():
+    """A worker process the port's runtime spawns runs a task and reports
+    its own modules: no jax, no ray_tpu / ray_tpu.*."""
+    code = (
+        "import sys\n"
+        "import ray_tpu_torch as rt\n"
+        "rt.init(num_cpus=1)\n"
+        "@rt.remote\n"
+        "def mods():\n"
+        "    import sys\n"
+        "    return sorted(sys.modules)\n"
+        "got = rt.get(mods.remote(), timeout=120)\n"
+        "rt.shutdown()\n"
+        "print('ray_tpu_torch.core.serialization' in got)\n"
+        "print(' '.join(got))\n")
+    res = _run_python(code)
+    assert res.returncode == 0, res.stderr
+    in_worker, mods = res.stdout.strip().splitlines()[-2:]
+    assert in_worker == "True"
+    assert _leaks(mods.split()) == []
 
 
 def test_chip_smoke_refuses_without_a_gpu():

@@ -221,14 +221,16 @@ def test_sac_machinery_on_pendulum(tmp_path):
 
 def test_remote_env_runners_raise():
     config = _ppo_config().env_runners(num_env_runners=2)
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(NotImplementedError,
+                       match="rllib's remote env runners"):
         config.build()
 
 
 def test_learner_group_over_several_devices_raises():
     algo = _ppo_config().build()
     learner = algo.learner_group.learner
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(NotImplementedError,
+                       match="LearnerGroup over a mesh"):
         tr.LearnerGroup(learner, mesh=["cpu", "cpu"])
     one = tr.LearnerGroup(learner, mesh=["cpu"])     # plain on one device
     assert one.params is learner.params
