@@ -5,7 +5,7 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
-It builds every CUDA kernel from `ray_tpu_torch/csrc/`, then runs fourteen
+It builds every CUDA kernel from `ray_tpu_torch/csrc/`, then runs fifteen
 phases and fails (non-zero exit, no result line) if any of them fails:
 
 1. kernels: each kernel against its plain PyTorch version at
@@ -173,6 +173,29 @@ phases and fails (non-zero exit, no result line) if any of them fails:
    once at full size after the dead process exited, restores, and every
    later loss equals an uninterrupted fit's (RUNTIME_RTOL); the reform
    time is printed. No worker process is left after shutdown.
+15. serve-deploy: the serve control plane on the card, in a runtime of
+   its own. (a) `build_openai_deployment` of the serve phase's model
+   (built in the replica from seed 0) and engine (paged, page 16, 8
+   slots), one replica with its default reservation, `num_gpus=1`,
+   `serve.run` and `start_proxy(port=0)`: the replica sees GPU [0],
+   CUDA_VISIBLE_DEVICES "0" and an engine on CUDA; the time to a
+   healthy app is printed. (b) The serve phase's 8 prompts (32 new
+   tokens, one at temperature 0.8 / top_p 0.9, one streamed as SSE)
+   sent at once to /v1/completions, one warm-up burst and 3 measured:
+   every reply 200 with 32 in-vocab token ids (the server has no
+   tokenizer: its text is the ids), the replica's K1 and K3 counters
+   (read in its process through a subclass of OpenAIServer) grown, its
+   engine slots free after; the medians of the client's time to the
+   first SSE chunk and to the whole unary reply, decode tokens/s and
+   the replica engine's TTFT and TPOT beside the serve phase's, and the
+   HTTP path's overhead on lone streamed requests. (d) The replica
+   killed (`serve.chaos.kill_replica`): the seconds to the first 200
+   reply, the replacement again on GPU [0], the old worker gone. (c)
+   The parity phase's fp32 model in a replica (TF32 off there), greedy
+   over HTTP, unary and SSE, token-identical to the parity phase's
+   plain loop. (e) After `serve.shutdown()` and `shutdown()` no worker
+   is left and the card's free memory is within 1 GiB of the phase's
+   start.
 
 The last three lines are a JSON object listing each kernel (with its
 launches on each path, the zoo's bursts and ViT's forward among them), the card's name and power limit as nvidia-smi
@@ -1088,7 +1111,8 @@ def phase_serve(torch, gpu_line):
     from seed 0, one model shared by four engine configurations: the
     paged burst (profiled a second time), then (i) the contiguous cache,
     (ii) paged with chunked prefill and decode_block=4, (iii) paged with
-    a registered 1000-token prefix. Returns each path's launches."""
+    a registered 1000-token prefix. Returns each path's launches and the
+    paged burst's engine TTFT p50, TPOT p50 and decode tokens/s."""
     import numpy as np
     from ray_tpu_torch.models import Llama, LlamaConfig
     from ray_tpu_torch.ops.kernels import flash_attention as fa
@@ -1128,6 +1152,9 @@ def phase_serve(torch, gpu_line):
     check(k1 > 0 and k3 > 0,
           f"kernels not launched on the main path: K1 {k1}, K3 {k3}")
     tpot_block1 = stats.get("tpot_p50_ms")
+    serve_stats = {"ttft_p50_ms": stats["ttft_breakdown_p50_ms"]["total_ms"],
+                   "tpot_p50_ms": tpot_block1,
+                   "decode_tok_s": stats["decode_tok_s"]}
     print(f"serve: main-path launches K1 {k1}, K3 {k3} (K1: one per layer "
           f"per prefill group; K3: one per layer per decode step); prefill "
           f"groups first dispatch ms {stats['prefill_first_dispatch_ms']}",
@@ -1197,7 +1224,7 @@ def phase_serve(torch, gpu_line):
     del model
     gc.collect()
     torch.cuda.empty_cache()
-    return launches
+    return launches, serve_stats
 
 
 PARITY_PLENS = (17, 60, 200, 300)
@@ -1250,7 +1277,8 @@ def phase_parity(torch):
     configuration against a full-recompute loop through the same model
     with no cache and its attention held to the einsum path. A prefix
     case registers the 300-token prompt's first PARITY_PREFIX tokens and
-    submits the rest with its prefix_id, beside the full prompt."""
+    submits the rest with its prefix_id, beside the full prompt. Returns
+    the prompts and the loop's tokens."""
     import numpy as np
     from ray_tpu_torch.models import Llama, LlamaConfig
 
@@ -1277,6 +1305,7 @@ def phase_parity(torch):
     del model
     gc.collect()
     torch.cuda.empty_cache()
+    return prompts, want
 
 
 # controls phase: the engine's request controls at the parity phase's
@@ -3605,7 +3634,6 @@ def phase_runtime(torch, gpu_line, train_stats):
     import shutil
     import tempfile
 
-    import psutil
     import ray_tpu_torch as rt
 
     release(torch)
@@ -3623,15 +3651,409 @@ def phase_runtime(torch, gpu_line, train_stats):
     finally:
         rt.shutdown()
         shutil.rmtree(root, ignore_errors=True)
-    deadline = time.time() + 30
+    wait_no_workers("runtime")
+    release(torch)
+    return launches
+
+
+# the serve-deploy phase: the serve phase's model and engine behind the
+# serve control plane and the HTTP proxy, one replica holding the card
+SERVE_DEPLOY_APP = "serve-deploy"
+SERVE_DEPLOY_BURSTS = 3   # measured bursts, after one warm-up burst
+SERVE_DEPLOY_ENGINE = dict(kv_page_size=16, max_slots=8, max_seq_len=2048,
+                           prefill_buckets=SERVE_BUCKETS,
+                           max_prefill_batch=4)
+SERVE_DEPLOY_PARITY_ENGINE = dict(kv_page_size=16, max_slots=4,
+                                  max_seq_len=2048,
+                                  prefill_buckets=(32, 64, 128, 256, 512))
+SERVE_DEPLOY_TIMEOUT_S = 600      # a client's wait for one reply
+SERVE_DEPLOY_LONE = 5             # lone streamed requests after (b)
+
+
+def serve_deploy_model():
+    """(a)'s model factory, run in the replica: the serve phase's model
+    (Llama-3-8B widths, 32 layers, bf16, random weights from seed 0)."""
+    import torch
+    from ray_tpu_torch.models import Llama, LlamaConfig
+    cfg = LlamaConfig.llama3_8b(dtype=torch.bfloat16,
+                                param_dtype=torch.bfloat16)
+    return Llama(cfg, device="cuda", seed=0), None
+
+
+def serve_deploy_parity_model():
+    """(c)'s model factory, run in the replica: the parity phase's model
+    (4 fp32 layers of Llama-3-8B widths, seed 1) with TF32 off in the
+    replica's process."""
+    import torch
+    from ray_tpu_torch.models import Llama, LlamaConfig
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = LlamaConfig.llama3_8b(n_layers=4, dtype=torch.float32,
+                                param_dtype=torch.float32, remat=False)
+    return Llama(cfg, device="cuda", seed=1), None
+
+
+def serve_deploy_server_cls():
+    """The phase's deployment class: OpenAIServer with methods that read,
+    in the replica's own process, its card, its engine's device and the
+    K1/K3 launch counters. Defined in a function so that the runtime
+    pickles it by value into the replica."""
+    from ray_tpu_torch.serve.llm.openai_api import OpenAIServer
+
+    class CountingOpenAIServer(OpenAIServer):
+        def __init__(self, *args, **kwargs):
+            t0 = time.time()
+            super().__init__(*args, **kwargs)
+            self.init_span = (t0, time.time())
+
+        def where(self, _body=None):
+            """The replica's card, engine device, pid, its process's
+            start and its __init__'s span (epoch seconds)."""
+            import psutil
+            from ray_tpu_torch import get_gpu_ids
+            return {"gpu_ids": get_gpu_ids(),
+                    "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+                    "device": str(self.engine.device), "pid": os.getpid(),
+                    "started": psutil.Process().create_time(),
+                    "init_span": self.init_span}
+
+        def launches(self, body=None):
+            """The K1/K3 counts; with {"zero": True} set to 0 after."""
+            from ray_tpu_torch.ops.kernels import flash_attention as fa
+            from ray_tpu_torch.ops.kernels import paged_attention as pa
+            out = {"flash_fwd (K1)": fa.flash_attention_fwd.launches,
+                   "paged_decode (K3)": pa.paged_decode_attention.launches}
+            if body and body.get("zero"):
+                fa.flash_attention_fwd.launches = 0
+                pa.paged_decode_attention.launches = 0
+            return out
+
+        def clear_samples(self, _body=None):
+            self.engine._ttft_samples.clear()
+            self.engine._tpot_samples.clear()
+            return True
+
+    return CountingOpenAIServer
+
+
+def http_completion(port, body):
+    """One request to /v1/completions: (token ids, completion_tokens,
+    seconds to the first SSE chunk or to the whole unary reply). Without
+    a tokenizer the server's text is the token ids, space-separated.
+    Fails on any status but 200, an error object, or an SSE stream that
+    does not end in [DONE]."""
+    import urllib.request
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}/v1/completions",
+        data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"})
+    t0 = time.time()
+    with urllib.request.urlopen(req, timeout=SERVE_DEPLOY_TIMEOUT_S) as r:
+        check(r.status == 200, f"HTTP {r.status}")
+        if not body.get("stream"):
+            out = json.loads(r.read())
+            t = time.time() - t0
+            check("error" not in out, f"error reply {out}")
+            return ([int(x) for x in out["choices"][0]["text"].split()],
+                    out["usage"]["completion_tokens"], t)
+        check("text/event-stream" in r.headers.get("Content-Type", ""),
+              f"stream content type {r.headers.get('Content-Type')}")
+        first, events = None, []
+        for line in r:
+            if line.startswith(b"data: "):
+                if first is None:
+                    first = time.time() - t0
+                events.append(line[len(b"data: "):].strip().decode())
+    check(events and events[-1] == "[DONE]", f"SSE ended with {events[-1:]}")
+    chunks = [json.loads(e) for e in events[:-1]]
+    check(all("error" not in c for c in chunks), f"SSE error {chunks}")
+    text = "".join(c["choices"][0]["text"] for c in chunks)
+    ids = [int(x) for x in text.split()]
+    return ids, len(ids), first
+
+
+def http_burst(port, bodies):
+    """Every body at once over HTTP, one thread each; fails if any
+    request fails or does not finish. Returns (results in order, wall
+    seconds)."""
+    results = [None] * len(bodies)
+    errors = []
+
+    def run(i):
+        try:
+            results[i] = http_completion(port, bodies[i])
+        except Exception as e:  # noqa: BLE001  reported below, then fails
+            errors.append((i, repr(e)))
+
+    threads = [threading.Thread(target=run, args=(i,))
+               for i in range(len(bodies))]
+    t0 = time.time()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(SERVE_DEPLOY_TIMEOUT_S)
+    wall = time.time() - t0
+    check(not errors, f"requests failed: {errors}")
+    check(all(not t.is_alive() for t in threads), "requests did not finish")
+    return results, wall
+
+
+def wait_http_200(port, body, timeout_s):
+    """Post `body` until a reply is 200; the seconds it took."""
+    import http.client
+    t0 = time.time()
     while True:
-        left = [p.pid for p in psutil.Process().children(recursive=True)
-                if "core.worker" in " ".join(p.cmdline())]
-        if not left or time.time() > deadline:
+        try:
+            http_completion(port, body)
+            return time.time() - t0
+        except (OSError, RuntimeError, http.client.HTTPException):
+            check(time.time() - t0 < timeout_s,
+                  f"no 200 reply within {timeout_s} s")
+            time.sleep(0.2)
+
+
+def worker_pids():
+    """Pids of this process's runtime workers that are not zombies."""
+    import psutil
+    out = []
+    for p in psutil.Process().children(recursive=True):
+        try:
+            if (p.status() != psutil.STATUS_ZOMBIE
+                    and "core.worker" in " ".join(p.cmdline())):
+                out.append(p.pid)
+        except psutil.NoSuchProcess:
+            pass
+    return out
+
+
+def wait_no_workers(label, timeout_s=30.0):
+    deadline = time.time() + timeout_s
+    left = worker_pids()
+    while left and time.time() < deadline:
+        time.sleep(0.2)
+        left = worker_pids()
+    check(not left, f"{label}: worker processes left after shutdown: {left}")
+
+
+def serve_deploy_bursts(handle, port, vocab, gpu_line, serve_stats):
+    """(b): the serve phase's 8 prompts over HTTP, one warm-up burst and
+    SERVE_DEPLOY_BURSTS measured ones; the replica's K1/K3 counters are
+    zeroed just before the measured bursts and read just after."""
+    import numpy as np
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(0, vocab, n).tolist() for n in SERVE_PLENS]
+    bodies = [{"prompt": p, "max_tokens": SERVE_NEW, "temperature": 0.0}
+              for p in prompts]
+    bodies[2].update(temperature=0.8, top_p=0.9)
+    bodies[5]["stream"] = True
+    http_burst(port, bodies)                              # warm-up
+    handle.launches.remote({"zero": True}).result(timeout_s=60)
+    rows = []
+    for b in range(SERVE_DEPLOY_BURSTS):
+        handle.clear_samples.remote().result(timeout_s=60)
+        results, wall = http_burst(port, bodies)
+        for i, (ids, n, _t) in enumerate(results):
+            check(n == SERVE_NEW and len(ids) == SERVE_NEW,
+                  f"serve-deploy (b): request {i} returned {n} tokens "
+                  f"({len(ids)} ids), want {SERVE_NEW}")
+            check(all(0 <= t < vocab for t in ids),
+                  f"serve-deploy (b): request {i} has out-of-vocab tokens")
+        st = handle.stats.remote().result(timeout_s=60)
+        unary = [t for (_i, _n, t), bd in zip(results, bodies)
+                 if not bd.get("stream")]
+        row = {"sse_first_ms": 1e3 * results[5][2],
+               "unary_p50_ms": 1e3 * statistics.median(unary),
+               "decode_tok_s": (len(bodies) * (SERVE_NEW - 1)) / wall,
+               "engine_ttft_p50_ms":
+                   st["ttft_breakdown_p50_ms"]["total_ms"],
+               "engine_tpot_p50_ms": st.get("tpot_p50_ms"),
+               "wall_s": wall}
+        rows.append(row)
+        print(f"serve-deploy (b): burst {b + 1}: " + json.dumps(
+            {k: round(v, 3) for k, v in row.items()}), flush=True)
+    launches = handle.launches.remote().result(timeout_s=60)
+    st = handle.stats.remote().result(timeout_s=60)
+    med = {k: statistics.median(r[k] for r in rows) for k in rows[0]}
+    print(f"serve-deploy (b): medians over {SERVE_DEPLOY_BURSTS} bursts of "
+          f"8 requests x {SERVE_NEW} tokens over HTTP (prompts "
+          f"{SERVE_PLENS}, one at temperature 0.8 / top_p 0.9, one "
+          f"streamed as SSE): client time to the first SSE chunk "
+          f"{med['sse_first_ms']:.1f} ms, client p50 time to the whole "
+          f"unary reply {med['unary_p50_ms']:.1f} ms, decode tokens/s "
+          f"{med['decode_tok_s']:.1f}, the replica engine's TTFT p50 "
+          f"{med['engine_ttft_p50_ms']} ms and TPOT p50 "
+          f"{med['engine_tpot_p50_ms']} ms, wall {med['wall_s']:.3f} s; "
+          f"the in-process serve phase (one burst, logprobs off; here the "
+          f"build_openai_deployment's logprobs=True): engine TTFT p50 "
+          f"{serve_stats['ttft_p50_ms']} ms, TPOT p50 "
+          f"{serve_stats['tpot_p50_ms']} ms, decode tokens/s "
+          f"{serve_stats['decode_tok_s']:.1f}; replica launches "
+          f"{json.dumps(launches)} [{gpu_line}]", flush=True)
+    check(launches["flash_fwd (K1)"] > 0 and launches["paged_decode (K3)"] > 0,
+          f"serve-deploy (b): the replica's kernels did not run: {launches}")
+    free_slots = st["free_slots"] == SERVE_DEPLOY_ENGINE["max_slots"]
+    check(st["active"] == 0 and st["waiting"] == 0 and free_slots
+          and st["kv_pages"]["in_use"] == 0,
+          f"serve-deploy (b): engine slots not free after the bursts: {st}")
+    lone = []
+    for _ in range(SERVE_DEPLOY_LONE):
+        handle.clear_samples.remote().result(timeout_s=60)
+        _ids, _n, first = http_completion(port, {
+            "prompt": prompts[0], "max_tokens": 4, "temperature": 0.0,
+            "stream": True})
+        eng = handle.stats.remote().result(timeout_s=60)
+        lone.append((1e3 * first,
+                     eng["ttft_breakdown_p50_ms"]["total_ms"]))
+    print(f"serve-deploy (b): {SERVE_DEPLOY_LONE} lone streamed requests "
+          f"({SERVE_PLENS[0]}-token prompt): median client time to the "
+          f"first SSE chunk {statistics.median(c for c, _ in lone):.1f} ms, "
+          f"the engine's TTFT {statistics.median(e for _, e in lone):.1f} "
+          f"ms, the HTTP path's overhead (client minus engine, median) "
+          f"{statistics.median(c - e for c, e in lone):.1f} ms [{gpu_line}]",
+          flush=True)
+    return launches
+
+
+def serve_deploy_recovery(handle, port, chaos, gpu_line):
+    """(d): kill (a)'s replica; poll with requests until one is 200; the
+    replacement holds GPU 0 and the old worker process is gone."""
+    import psutil
+    old = handle.where.remote().result(timeout_s=60)
+    t0 = time.time()
+    chaos.kill_replica(SERVE_DEPLOY_APP, "OpenAIServer")
+    recover_s = wait_http_200(port, {"prompt": [1, 2, 3], "max_tokens": 2,
+                                     "temperature": 0.0}, 300)
+    new = handle.where.remote().result(timeout_s=60)
+    deadline = time.time() + 30
+    while psutil.pid_exists(old["pid"]) and time.time() < deadline:
+        try:
+            if psutil.Process(old["pid"]).status() == psutil.STATUS_ZOMBIE:
+                break
+        except psutil.NoSuchProcess:
             break
         time.sleep(0.2)
-    check(not left, f"runtime: worker processes left after shutdown: {left}")
+    gone = old["pid"] not in worker_pids()
+    init0, init1 = new["init_span"]
+    print(f"serve-deploy (d): replica killed (pid {old['pid']}); kill to the "
+          f"first 200 reply {recover_s:.2f} s; the replacement's process "
+          f"started at +{new['started'] - t0:.2f} s, its __init__ ran from "
+          f"+{init0 - t0:.2f} s for {init1 - init0:.2f} s; the replacement: "
+          f"pid "
+          f"{new['pid']}, get_gpu_ids {new['gpu_ids']}, CUDA_VISIBLE_DEVICES "
+          f"{new['visible']!r}, engine on {new['device']}; the old worker "
+          f"gone {gone} [{gpu_line}]", flush=True)
+    check(new["pid"] != old["pid"] and new["gpu_ids"] == [0]
+          and new["visible"] == "0" and new["device"].startswith("cuda"),
+          f"serve-deploy (d): the replacement {new}")
+    check(gone, f"serve-deploy (d): the killed worker {old['pid']} remains")
+
+
+def serve_deploy_parity(serve, build, cls, port, parity):
+    """(c): the parity phase's model in a replica (fp32, TF32 off there),
+    greedy over HTTP, unary and SSE, against plain_greedy's tokens from
+    the parity phase (the einsum path, no kernel)."""
+    prompts, want = parity
+    handle = serve.run(build(serve_deploy_parity_model,
+                             engine_config=dict(SERVE_DEPLOY_PARITY_ENGINE),
+                             server_cls=cls),
+                       name=SERVE_DEPLOY_APP + "-parity",
+                       wait_for_ready_timeout_s=600)
+    wait_http_200(port, {"prompt": [1, 2, 3], "max_tokens": 1,
+                         "temperature": 0.0}, 120)
+    handle.launches.remote({"zero": True}).result(timeout_s=60)
+    got = {}
+    for mode in ("unary", "sse"):
+        bodies = [{"prompt": p, "max_tokens": PARITY_NEW,
+                   "temperature": 0.0, "stream": mode == "sse"}
+                  for p in prompts]
+        results, _ = http_burst(port, bodies)
+        got[mode] = [ids for ids, _n, _t in results]
+    launches = handle.launches.remote().result(timeout_s=60)
+    for mode, toks in got.items():
+        for i, (g, w) in enumerate(zip(toks, want)):
+            if g != w:
+                print(f"serve-deploy (c): {mode} request {i} served {g} "
+                      f"plain {w}", flush=True)
+    print(f"serve-deploy (c): fp32 deployment (4 layers of Llama-3-8B "
+          f"widths, TF32 off in the replica), {len(prompts)} greedy prompts "
+          f"{[len(p) for p in prompts]} over HTTP, unary equal to the plain "
+          f"loop {got['unary'] == want}, SSE equal {got['sse'] == want}; "
+          f"replica launches {json.dumps(launches)}", flush=True)
+    check(got["unary"] == want and got["sse"] == want,
+          "serve-deploy (c): served greedy tokens differ from the plain "
+          "full-recompute loop")
+    check(launches["flash_fwd (K1)"] > 0 and launches["paged_decode (K3)"] > 0,
+          f"serve-deploy (c): the replica's kernels did not run: {launches}")
+    return launches
+
+
+def phase_serve_deploy(torch, gpu_line, serve_stats, parity):
+    """15. serve-deploy: (a) build_openai_deployment of the serve phase's
+    model and engine, one replica with the default GPU reservation, and
+    the HTTP proxy; (b) bursts over HTTP; (d) the replica killed and
+    replaced; (c) the fp32 deployment against the plain loop; (e)
+    shutdown frees the card. Returns the replica's K1/K3 launches of (b)
+    and (c)."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.models import LlamaConfig
+    from ray_tpu_torch.serve import chaos
+    from ray_tpu_torch.serve.http_proxy import start_proxy
+    from ray_tpu_torch.serve.llm.openai_api import build_openai_deployment
+
+    t_phase = time.time()
     release(torch)
+    free0, total = torch.cuda.mem_get_info()
+    print(f"serve-deploy: card memory free {free0 / 2**30:.2f} of "
+          f"{total / 2**30:.2f} GiB before the phase", flush=True)
+    cls = serve_deploy_server_cls()
+    launches = {}
+    rt.init()
+    try:
+        t0 = time.time()
+        handle = serve.run(
+            build_openai_deployment(serve_deploy_model,
+                                    engine_config=dict(SERVE_DEPLOY_ENGINE),
+                                    server_cls=cls),
+            name=SERVE_DEPLOY_APP, wait_for_ready_timeout_s=600)
+        ready_s = time.time() - t0
+        _proxy, port = start_proxy(port=0)
+        where = handle.where.remote().result(timeout_s=60)
+        first_s = wait_http_200(port, {"prompt": [1, 2, 3], "max_tokens": 2,
+                                       "temperature": 0.0}, 120)
+        init0, init1 = where["init_span"]
+        print(f"serve-deploy (a): serve.run to a healthy app {ready_s:.2f} s: "
+              f"the replica's process started at +{where['started'] - t0:.2f}"
+              f" s, its __init__ (imports, CUDA, the 8B model built from "
+              f"seed 0, the engine) ran from +{init0 - t0:.2f} s for "
+              f"{init1 - init0:.2f} s; the proxy's first 200 reply "
+              f"{first_s:.2f} s after; the replica: get_gpu_ids "
+              f"{where['gpu_ids']}, CUDA_VISIBLE_DEVICES "
+              f"{where['visible']!r}, engine on {where['device']} "
+              f"[{gpu_line}]", flush=True)
+        check(where["gpu_ids"] == [0] and where["visible"] == "0"
+              and where["device"].startswith("cuda"),
+              f"serve-deploy (a): the replica {where}")
+        launches["serve-deploy"] = serve_deploy_bursts(
+            handle, port, LlamaConfig.llama3_8b().vocab_size, gpu_line,
+            serve_stats)
+        serve_deploy_recovery(handle, port, chaos, gpu_line)
+        serve.delete(SERVE_DEPLOY_APP)
+        launches["serve-deploy-parity"] = serve_deploy_parity(
+            serve, build_openai_deployment, cls, port, parity)
+    finally:
+        serve.shutdown()
+        rt.shutdown()
+    wait_no_workers("serve-deploy (e)")
+    release(torch)
+    free1, _ = torch.cuda.mem_get_info()
+    print(f"serve-deploy (e): after serve.shutdown() and shutdown() no "
+          f"worker process is left; card memory free {free1 / 2**30:.2f} GiB "
+          f"(before the phase {free0 / 2**30:.2f}); phase wall "
+          f"{time.time() - t_phase:.1f} s [{gpu_line}]", flush=True)
+    check(free1 >= free0 - 2**30,
+          f"serve-deploy (e): card memory not freed: {free1 / 2**30:.2f} GiB "
+          f"free, {free0 / 2**30:.2f} before")
     return launches
 
 
@@ -3709,8 +4131,8 @@ def main() -> None:
     check_spills(build)
 
     rows = phase_kernels(torch)
-    launches = phase_serve(torch, gpu_line)
-    phase_parity(torch)
+    launches, serve_stats = phase_serve(torch, gpu_line)
+    parity = phase_parity(torch)
     phase_controls(torch)
     phase_routes(torch)
     launches.update(phase_zoo(torch, gpu_line))
@@ -3722,6 +4144,7 @@ def main() -> None:
     launches["north-star-grpo"] = phase_north_star(torch)
     launches["parallel"] = phase_parallel(torch, gpu_line, train_stats)
     launches["runtime-trainer"] = phase_runtime(torch, gpu_line, train_stats)
+    launches.update(phase_serve_deploy(torch, gpu_line, serve_stats, parity))
 
     # each kernel's launches on the main paths (the serve bursts, train,
     # GRPO full, LoRA, the north star's and the mesh train step); K4 is

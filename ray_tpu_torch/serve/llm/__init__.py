@@ -5,9 +5,16 @@
 `cached_prefixes` and dynamic `register_prefix`, and passes the request
 deadline of `serve.context` to the engine; `OpenAIServer`
 (`openai_api.py`) speaks the OpenAI completions and chat schema over it.
-The deployment builders (`build_llm_deployment`,
-`build_openai_deployment`) need the serve control plane and wait for a
-later slice.
+`build_llm_deployment` and `build_openai_deployment` make either a
+serve deployment: `serve.run(build_openai_deployment(factory))` runs
+each server in a replica actor of the serve control plane, and
+`serve.http_proxy.start_proxy` puts it behind HTTP.
+
+Deliberate difference: both take `device=` (default "cuda") and
+`ray_actor_options=`. On a CUDA device with no options given, each
+replica reserves `{"num_gpus": 1}`: the runtime hides the cards from a
+worker granted none, so the engine could not reach one. `device="cpu"`
+reserves none.
 """
 from __future__ import annotations
 
@@ -15,10 +22,12 @@ import threading
 from typing import Any, Dict, Optional
 
 import numpy as np
+import torch
 
 from ...exceptions import EngineWedgedError
 from ...util.device import DeviceLike
 from ..context import get_request_deadline
+from ..deployment import Application, deployment_decorator
 from .engine import LLMEngine, LLMEngineConfig
 from .guided import (GuidedSpec, TokenFSM, compile_guided,
                      json_schema_to_regex)
@@ -179,13 +188,46 @@ class LLMServer:
         self.engine.shutdown()
 
 
+def build_llm_deployment(model_factory, *, engine_config=None,
+                         tokenizer=None, name: str = "LLMServer",
+                         num_replicas: int = 1,
+                         max_ongoing_requests: int = 32,
+                         cached_prefixes=None,
+                         server_cls=None, server_kwargs=None,
+                         route_prefix: str = "/",
+                         device: DeviceLike = "cuda",
+                         ray_actor_options: Optional[dict] = None
+                         ) -> Application:
+    """Build a ready-to-run LLM serving app:
+    `serve.run(build_llm_deployment(factory))`. `server_cls` swaps the
+    deployment class (e.g. openai_api.OpenAIServer); `cached_prefixes`
+    registers shared prompt prefixes for engine prefix caching.
+    `model_factory` runs in each replica. `device` is the engine's;
+    `ray_actor_options` defaults to one GPU on a CUDA device, none on
+    the CPU."""
+    if ray_actor_options is None:
+        # a worker granted no card runs with the cards hidden
+        ray_actor_options = ({"num_gpus": 1}
+                             if torch.device(device).type == "cuda" else {})
+    dep = deployment_decorator(
+        server_cls or LLMServer, name=name, num_replicas=num_replicas,
+        max_ongoing_requests=max_ongoing_requests,
+        route_prefix=route_prefix,
+        ray_actor_options=dict(ray_actor_options))
+    return dep.bind(model_factory, engine_config=engine_config,
+                    tokenizer=tokenizer,
+                    cached_prefixes=cached_prefixes, device=device,
+                    **(server_kwargs or {}))
+
+
 def __getattr__(name):
-    if name == "OpenAIServer":
+    if name in ("OpenAIServer", "build_openai_deployment"):
         from . import openai_api
-        return openai_api.OpenAIServer
+        return getattr(openai_api, name)
     raise AttributeError(name)
 
 
 __all__ = ["LLMEngine", "LLMEngineConfig", "LLMServer", "GuidedSpec",
            "TokenFSM", "compile_guided", "json_schema_to_regex",
-           "OpenAIServer"]
+           "build_llm_deployment", "OpenAIServer",
+           "build_openai_deployment"]

@@ -18,8 +18,7 @@ logprobs=True), `presence_penalty`, `frequency_penalty`, `logit_bias`
 and guided output (`guided_choice`, `guided_regex`, `guided_json`).
 Invalid requests come back as OpenAI error objects.
 
-The deployment builder (`build_openai_deployment`) needs the serve
-control plane and waits for a later slice.
+`build_openai_deployment` makes it a serve deployment under "/v1".
 """
 from __future__ import annotations
 
@@ -29,7 +28,8 @@ from typing import Any, Dict, List, Optional, Tuple
 
 from ...util.device import DeviceLike
 from ..context import get_request_deadline
-from . import LLMServer
+from ..deployment import Application
+from . import LLMServer, build_llm_deployment
 
 _req_ids = itertools.count()
 
@@ -443,4 +443,37 @@ class OpenAIServer(LLMServer):
         return gen()
 
 
-__all__ = ["OpenAIServer"]
+def build_openai_deployment(model_factory, *, engine_config=None,
+                            tokenizer=None, model_name="ray-tpu-llm",
+                            name: str = "OpenAIServer",
+                            num_replicas: int = 1,
+                            route_prefix: str = "/v1",
+                            cached_prefixes=None,
+                            max_ongoing_requests: int = 64,
+                            device: DeviceLike = "cuda",
+                            ray_actor_options: Optional[dict] = None,
+                            server_cls: type = OpenAIServer
+                            ) -> Application:
+    """An Application serving /v1/completions + /v1/chat/completions.
+
+    cached_prefixes: shared prompt prefixes (e.g. the system prompt's
+    token ids or text) prefilled once at startup; any request starting
+    with one adopts its KV instead of re-prefilling (prefix caching).
+    `device` and `ray_actor_options` as in `build_llm_deployment`: on
+    CUDA each replica reserves one GPU unless options are given.
+    `server_cls` may be a subclass of OpenAIServer."""
+    engine_config = dict(engine_config or {})
+    # the completions `logprobs` field needs the engine to fetch them
+    engine_config.setdefault("logprobs", True)
+    return build_llm_deployment(
+        model_factory, engine_config=engine_config, tokenizer=tokenizer,
+        name=name, num_replicas=num_replicas,
+        max_ongoing_requests=max_ongoing_requests,
+        cached_prefixes=cached_prefixes,
+        server_cls=server_cls,
+        server_kwargs={"model_name": model_name},
+        route_prefix=route_prefix, device=device,
+        ray_actor_options=ray_actor_options)
+
+
+__all__ = ["OpenAIServer", "build_openai_deployment"]

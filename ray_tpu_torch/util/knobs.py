@@ -340,6 +340,27 @@ _declare("RAY_TPU_ENGINE_WATCHDOG_S", "float", 30,
          "LLM engine no-forward-progress watchdog; in-dispatch "
          "stalls get 10x grace for first-use jit compiles "
          "(<= 0 disables).", "serve")
+_declare("RAY_TPU_SERVE_HEALTH_PERIOD_S", "float", None,
+         "Cluster-wide health-probe period override (unset: each "
+         "deployment's health_check_period_s wins; read by "
+         "serve/controller.py).", "serve")
+_declare("RAY_TPU_SERVE_HEALTH_TIMEOUT_S", "float", None,
+         "Cluster-wide health-probe timeout override (read by "
+         "serve/controller.py).", "serve")
+_declare("RAY_TPU_SERVE_HEALTH_THRESHOLD", "float", None,
+         "Cluster-wide consecutive-failure threshold override (read by "
+         "serve/controller.py).", "serve")
+_declare("RAY_TPU_SERVE_REQUEST_TIMEOUT_S", "float", 60,
+         "Per-request budget when the client supplies no deadline "
+         "(HTTP X-Serve-Timeout-S; read by serve/config.py for the "
+         "HTTP proxy).", "serve")
+_declare("RAY_TPU_SERVE_AFFINITY_BOUND", "float", 2.0,
+         "Consistent-hash bounded-load factor c: an affinity home "
+         "over c*(mean+1) in-flight diverts to the ring walk (read by "
+         "serve/router.py).", "serve")
+_declare("RAY_TPU_SERVE_AFFINITY_SESSIONS", "int", 4096,
+         "Session/prefix bindings kept per handle (LRU beyond it; read "
+         "by serve/router.py).", "serve")
 
 # ---------------------------------------------------------------------------
 # train plane (docs/FAULT_TOLERANCE.md, elastic gangs)

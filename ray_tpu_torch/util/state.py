@@ -325,12 +325,11 @@ def persistence_summary() -> Dict[str, Any]:
 
 
 def _serve_controller(timeout: float = 0.2):
-    """The serve controller actor. The port has no serve control plane
-    yet (ROADMAP: "the serve deployment builders with the serve control
-    plane"), so there is none to look up."""
-    raise NotImplementedError(
-        "ray_tpu_torch has no serve controller yet (ROADMAP: the serve "
-        "deployment builders with the serve control plane)")
+    """The running serve controller actor (serve/controller.py); raises
+    when `serve.start`/`serve.run` has not started one."""
+    import ray_tpu_torch
+    from ..serve.controller import CONTROLLER_NAME
+    return ray_tpu_torch.get_actor(CONTROLLER_NAME, timeout=timeout)
 
 
 def serve_router_table() -> Dict[str, Any]:

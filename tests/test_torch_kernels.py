@@ -552,7 +552,13 @@ def test_port_imports_no_jax_and_no_ray_tpu():
                  "ray_tpu_torch.train.session",
                  "ray_tpu_torch.train.trainer",
                  "ray_tpu_torch.train.multihost",
-                 "ray_tpu_torch.train._testing"):
+                 "ray_tpu_torch.train._testing",
+                 # the serve control plane
+                 *(f"ray_tpu_torch.serve.{m}" for m in (
+                     "config", "deployment", "batching", "multiplex",
+                     "router", "handle", "replica", "autoscaler",
+                     "controller", "api", "asgi", "_proxy_util",
+                     "http_proxy", "chaos", "_testing"))):
         assert name in mods.split()
 
 
@@ -576,6 +582,42 @@ def test_spawned_worker_imports_no_jax_and_no_ray_tpu():
     in_worker, mods = res.stdout.strip().splitlines()[-2:]
     assert in_worker == "True"
     assert _leaks(mods.split()) == []
+
+
+def test_replica_worker_imports_no_jax_and_no_ray_tpu():
+    """A serve replica worker hosting `build_llm_deployment`'s server (a
+    tiny Llama on the CPU) reports its own modules: the engine and the
+    serve plane are there, and no jax, no ray_tpu / ray_tpu.*."""
+    code = (
+        "import functools\n"
+        "import ray_tpu_torch as rt\n"
+        "from ray_tpu_torch import serve\n"
+        "from ray_tpu_torch.serve import _testing\n"
+        "from ray_tpu_torch.serve.llm import LLMServer, "
+        "build_llm_deployment\n"
+        "class Server(LLMServer):\n"
+        "    def modules(self, _body=None):\n"
+        "        import sys\n"
+        "        return sorted(sys.modules)\n"
+        "w = dict(vocab_size=64, d_model=16, n_layers=1, n_heads=2,\n"
+        "         n_kv_heads=1, d_ff=32, max_seq_len=64)\n"
+        "rt.init(num_cpus=3)\n"
+        "h = serve.run(build_llm_deployment(\n"
+        "    functools.partial(_testing.llama_factory, w),\n"
+        "    engine_config={'max_slots': 1, 'max_seq_len': 64,\n"
+        "                   'prefill_buckets': (16,)},\n"
+        "    server_cls=Server, device='cpu'))\n"
+        "got = h.modules.remote().result(timeout_s=120)\n"
+        "serve.shutdown()\n"
+        "rt.shutdown()\n"
+        "print(' '.join(got))\n")
+    res = _run_python(code)
+    assert res.returncode == 0, res.stderr
+    mods = res.stdout.strip().splitlines()[-1].split()
+    for name in ("ray_tpu_torch.serve.replica",
+                 "ray_tpu_torch.serve.llm.engine", "torch"):
+        assert name in mods
+    assert _leaks(mods) == []
 
 
 def test_chip_smoke_refuses_without_a_gpu():

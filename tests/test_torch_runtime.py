@@ -13,6 +13,8 @@ import os
 import subprocess
 import sys
 
+import pytest
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 PROGRAM = r'''
@@ -167,22 +169,49 @@ def test_same_program_same_results_and_nothing_left():
     assert port["shm_left"] == []
 
 
+def _knob_readers(root_dir):
+    """{knob: [files under root_dir that name it outside a _declare]}."""
+    from ray_tpu_torch.util import knobs
+    readers = {}
+    for root, _, files in os.walk(root_dir):
+        for name in files:
+            if not name.endswith(".py"):
+                continue
+            path = os.path.join(root, name)
+            with open(path) as f:
+                tree = ast.parse(f.read())
+            declared = {id(c.args[0]) for c in ast.walk(tree)
+                        if isinstance(c, ast.Call)
+                        and getattr(c.func, "id", None) == "_declare"}
+            for c in ast.walk(tree):
+                if (isinstance(c, ast.Constant) and c.value in knobs.REGISTRY
+                        and id(c) not in declared):
+                    readers.setdefault(c.value, []).append(
+                        os.path.relpath(path, REPO))
+    return readers
+
+
 def test_every_declared_knob_has_a_reader():
     """`python -m ray_tpu_torch.util.knobs` publishes every declared knob,
     so a declaration that no port module reads tells users they control
     something they do not."""
     from ray_tpu_torch.util import knobs
-    read = set()
-    for root, _, files in os.walk(os.path.join(REPO, "ray_tpu_torch")):
-        for name in files:
-            if not name.endswith(".py"):
-                continue
-            with open(os.path.join(root, name)) as f:
-                tree = ast.parse(f.read())
-            declared = {id(c.args[0]) for c in ast.walk(tree)
-                        if isinstance(c, ast.Call)
-                        and getattr(c.func, "id", None) == "_declare"}
-            read |= {c.value for c in ast.walk(tree)
-                     if isinstance(c, ast.Constant)
-                     and c.value in knobs.REGISTRY and id(c) not in declared}
-    assert sorted(set(knobs.REGISTRY) - read) == []
+    read = _knob_readers(os.path.join(REPO, "ray_tpu_torch"))
+    assert sorted(set(knobs.REGISTRY) - set(read)) == []
+
+
+@pytest.mark.parametrize("knob,reader", [
+    ("RAY_TPU_SERVE_HEALTH_PERIOD_S", "serve/controller.py"),
+    ("RAY_TPU_SERVE_HEALTH_TIMEOUT_S", "serve/controller.py"),
+    ("RAY_TPU_SERVE_HEALTH_THRESHOLD", "serve/controller.py"),
+    ("RAY_TPU_SERVE_REQUEST_TIMEOUT_S", "serve/config.py"),
+    ("RAY_TPU_SERVE_AFFINITY_BOUND", "serve/router.py"),
+    ("RAY_TPU_SERVE_AFFINITY_SESSIONS", "serve/router.py")])
+def test_serve_knobs_declared_beside_their_readers(knob, reader):
+    """The serve plane's six knobs (the reference's names) are declared
+    and read by the serve module that uses them."""
+    from ray_tpu_torch.util import knobs
+    assert knob in knobs.REGISTRY
+    assert reader in knobs.REGISTRY[knob].doc
+    read = _knob_readers(os.path.join(REPO, "ray_tpu_torch", "serve"))
+    assert os.path.join("ray_tpu_torch", reader) in read.get(knob, [])
