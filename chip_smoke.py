@@ -5,7 +5,7 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
-It builds every CUDA kernel from `ray_tpu_torch/csrc/`, then runs fifteen
+It builds every CUDA kernel from `ray_tpu_torch/csrc/`, then runs seventeen
 phases and fails (non-zero exit, no result line) if any of them fails:
 
 1. kernels: each kernel against its plain PyTorch version at
@@ -196,6 +196,37 @@ phases and fails (non-zero exit, no result line) if any of them fails:
    plain loop. (e) After `serve.shutdown()` and `shutdown()` no worker
    is left and the card's free memory is within 1 GiB of the phase's
    start.
+16. data: (b) the loader alone: 32 batches of ViT-base's input (64 x
+   224 x 224 x 3 uint8, seed 1) through `from_numpy(...)
+   .iter_device_batches(prefetch=2)`, its GB/s against a bare pinned
+   host-to-card `copy_` of one batch, every batch on the card equal to
+   its host rows. Then in a runtime of its own: (a) 256 text rows of
+   2049 Zipf token ids (seed 0) -> `read_text` (32 rows a block) ->
+   `tokenize_dataset` with a plain callable -> `random_shuffle(seed=0)`
+   handed to `TorchTrainer(datasets=)` with one rank actor on the card,
+   whose loop reads its shard through `prepare_loader` (batch 2) and
+   trains the train phase's model (8 layers, bf16 compute, fp32
+   master, remat, adamw at lr 1e-5) for 8 steps: fit() to the first
+   batch on the card, the median step beside the runtime phase's
+   rank-actor step, the median wait in the loader's next(), the
+   executor's in-flight peak, the exchange run in the rank, K1/K2a/K2b
+   counted in the rank; its rows on the card equal the same pipeline's
+   rows on the driver bit for bit (int32 ids, int8 mask), its losses
+   the in-process step's on those batches (RUNTIME_RTOL). (c) The
+   pipeline before its shuffle (the service refuses an exchange)
+   registered with `to_service(world_size=1)` and read on the card
+   through the service iterator's `iter_device_batches`: the time to
+   the first batch, the set of rows (a)'s, no service actor left after
+   `shutdown_service`.
+17. tune: in a runtime of its own, `Tuner(with_resources(trial, {"CPU":
+   1, "GPU": 1}))` over lr 1e-5, 3e-5, 1e-4, 3e-4 with ASHA (mode min,
+   max_t 8, grace 2, rf 2); each trial builds 2 layers of the 8B widths
+   on the card (seed 0, bf16/fp32, remat, adamw) and reports the loss
+   of up to 8 steps on one fixed 2 x 2048-token Zipf batch: each trial
+   on GPU [0], one at a time, finding the card free; its losses the
+   same lr's in-process steps' (RUNTIME_RTOL); its stop where ASHA fed
+   those in-process losses on the host stops it; the best result the
+   lowest last loss; no trial actor left, the card's memory back.
 
 The last three lines are a JSON object listing each kernel (with its
 launches on each path, the zoo's bursts and ViT's forward among them), the card's name and power limit as nvidia-smi
@@ -3527,7 +3558,7 @@ def runtime_trainer(torch, rt, root, gpu_line, train_stats):
                                 "flash_bwd_dq (K2a)": n,
                                 "flash_bwd_dkv (K2b)": n},
           f"runtime (c): unexpected launch counts {final['launches']}")
-    return final["launches"]
+    return final["launches"], med
 
 
 def runtime_elastic(torch, rt, handle, root, gpu_line):
@@ -3630,7 +3661,8 @@ def runtime_elastic(torch, rt, handle, root, gpu_line):
 
 def phase_runtime(torch, gpu_line, train_stats):
     """14. runtime: the port's runtime on the card, (a)-(d) (see the
-    module docstring). Returns the rank actor's K1/K2a/K2b launches."""
+    module docstring). Returns the rank actor's K1/K2a/K2b launches and
+    its median step in ms."""
     import shutil
     import tempfile
 
@@ -3646,14 +3678,15 @@ def phase_runtime(torch, gpu_line, train_stats):
     try:
         probe = runtime_resources(torch, rt)
         runtime_device_objects(torch, rt, probe)
-        launches = runtime_trainer(torch, rt, root, gpu_line, train_stats)
+        launches, rank_ms = runtime_trainer(torch, rt, root, gpu_line,
+                                            train_stats)
         runtime_elastic(torch, rt, handle, root, gpu_line)
     finally:
         rt.shutdown()
         shutil.rmtree(root, ignore_errors=True)
     wait_no_workers("runtime")
     release(torch)
-    return launches
+    return launches, rank_ms
 
 
 # the serve-deploy phase: the serve phase's model and engine behind the
@@ -4057,6 +4090,496 @@ def phase_serve_deploy(torch, gpu_line, serve_stats, parity):
     return launches
 
 
+# the data phase: (a) text to the train cell's step in a rank actor
+# through the runtime, (b) the loader alone, (c) the data service
+DATA_ROWS = 256            # (a): text rows of TRAIN_SEQ + 1 token ids,
+DATA_BLOCK_ROWS = 32       # ... read 32 rows a block (8 blocks)
+DATA_STEPS = 8             # ... train steps of TRAIN_BATCH rows each
+DATA_LR = 1e-5             # ... adamw's constant lr
+DATA_JOB = "chip-smoke-data"
+LOADER_BATCHES = 32        # (b): batches of ViT-base's input,
+LOADER_SHAPE = (64, 224, 224, 3)   # ... uint8 images from seed 1
+LOADER_COPIES = 20         # ... bare pinned copies of one batch timed
+# the tune phase: trials of TUNE_LAYERS layers at the 8B widths, each
+# holding the card, one at a time
+TUNE_LAYERS = 2
+TUNE_STEPS = 8
+TUNE_LRS = (1e-5, 3e-5, 1e-4, 3e-4)
+TUNE_GRACE, TUNE_RF = 2, 2  # ASHA's grace period and reduction factor
+
+
+def data_text_file(root, vocab):
+    """DATA_ROWS lines of TRAIN_SEQ + 1 space-separated token ids, Zipf
+    over the whole vocabulary (trainer_batches, seed 0)."""
+    rows = next(trainer_batches(DATA_ROWS, TRAIN_SEQ, 0, vocab))["tokens"]
+    path = os.path.join(root, "tokens.txt")
+    with open(path, "w") as f:
+        for r in rows:
+            f.write(" ".join(map(str, r.tolist())) + "\n")
+    return path
+
+
+def data_pipeline(rd, adapters, path):
+    """read_text -> tokenize_dataset with a plain callable (the ids as
+    written), TRAIN_SEQ + 1 ids a row: input_ids int32, attention_mask
+    int8."""
+    return adapters.tokenize_dataset(
+        rd.read_text(path, block_rows=DATA_BLOCK_ROWS),
+        lambda s: [int(t) for t in s.split()], max_length=TRAIN_SEQ + 1)
+
+
+def data_train_loop(config):
+    """TorchTrainer's loop for data (a), in its rank actor: the rank's
+    shard through prepare_loader onto the card (the first batch timed
+    from the driver's fit), then the train cell's model (seed 0, built
+    while the loader prefetches) and DATA_STEPS steps, each step and each
+    wait in the loader's next() timed; K1/K2a/K2b zeroed just before the
+    steps and read just after."""
+    import inspect
+
+    import torch
+    from ray_tpu_torch import get_gpu_ids
+    from ray_tpu_torch.models import Llama, LlamaConfig
+    from ray_tpu_torch.ops.kernels import flash_attention as fa
+    from ray_tpu_torch.train import make_optimizer, make_train_step, report
+    from ray_tpu_torch.train.utils import prepare_loader
+
+    t_loop = time.time()
+    shard = config["datasets"]["train"]
+    it = prepare_loader(shard, rank=0, world_size=1, batch_size=TRAIN_BATCH)
+    b = next(it)
+    torch.cuda.current_stream().synchronize()
+    t_first = time.time()
+    cfg = LlamaConfig.llama3_8b(n_layers=TRAIN_LAYERS, dtype=torch.bfloat16,
+                                param_dtype=torch.float32)
+    model = Llama(cfg, device="cuda", seed=0)
+    tx = make_optimizer("adamw", learning_rate=DATA_LR)
+    state, step = make_train_step(model, tx)({"tokens": b["input_ids"]})
+    torch.cuda.synchronize()
+    rows, waits, times, losses = [], [], [], []
+    zero_counters(fa)
+    for i in range(DATA_STEPS):
+        if i:
+            t0 = time.perf_counter()
+            b = next(it)
+            waits.append(time.perf_counter() - t0)
+        rows.append(b["input_ids"])
+        t1 = time.time()
+        state, m = step(state, {"tokens": b["input_ids"]})
+        torch.cuda.synchronize()
+        times.append(time.time() - t1)
+        losses.append(float(m["loss"]))
+    launches = read_counters(fa)
+    it.close()
+    # the shard re-streams the rank's copy of the dataset: its stats
+    # hold the plan's backpressure and the exchange, which records its
+    # own once the loader's thread has closed the stream
+    parent = inspect.getclosurevars(shard._source.make_blocks).nonlocals[
+        "parent"]
+    st = parent.stats_object()
+    deadline = time.time() + 30
+    while "random_shuffle" not in st.exchange and time.time() < deadline:
+        time.sleep(0.05)
+    report({"t_loop": t_loop, "t_first": t_first, "losses": losses,
+            "times": times,
+            "waits": waits, "launches": launches, "layers": cfg.n_layers,
+            "rows": torch.cat(rows).cpu().numpy(),
+            "dtypes": [str(b["input_ids"].dtype),
+                       str(b["attention_mask"].dtype)],
+            "backpressure": st.backpressure, "exchange": st.exchange,
+            "gpu_ids": get_gpu_ids(), "pid": os.getpid()})
+
+
+def data_trainer(torch, rd, adapters, path, root, gpu_line, rank_ms):
+    """(a): TorchTrainer with datasets={"train": ds}, ds the pipeline
+    shuffled (seed 0) by the exchange; the rank's rows against the same
+    pipeline's on the driver, its losses against the in-process step's
+    on those batches. Returns (the rank's K1/K2a/K2b launches, every row
+    of the dataset on the driver)."""
+    import numpy as np
+    from ray_tpu_torch.models import Llama, LlamaConfig
+    from ray_tpu_torch.train import (RunConfig, ScalingConfig, TorchTrainer,
+                                     make_optimizer, make_train_step)
+    from ray_tpu_torch.train.multihost import _wait_exited
+
+    ds = data_pipeline(rd, adapters, path).random_shuffle(seed=0)
+    t0 = time.time()
+    res = TorchTrainer(data_train_loop, datasets={"train": ds},
+                       scaling_config=ScalingConfig(num_workers=1,
+                                                    use_gpu=True),
+                       run_config=RunConfig(name="data_trainer",
+                                            storage_path=root)).fit()
+    t_fit = time.time() - t0
+    check(res.error is None, f"data (a): the fit failed: {res.error!r}")
+    out = res.metrics_history[-1]
+    # the rank's card memory is free once its process has exited
+    _wait_exited([out["pid"]], time.monotonic() + 60)
+    # the same pipeline on the driver: every row, in the rank's order
+    everything = np.concatenate([b["input_ids"] for b in ds.split_for_worker(
+        0, 1).iter_batches(batch_size=64)])
+    host = everything[:DATA_STEPS * TRAIN_BATCH]
+    same_rows = (out["rows"].dtype == host.dtype == np.int32
+                 and np.array_equal(out["rows"], host))
+    release(torch)
+    cfg = LlamaConfig.llama3_8b(n_layers=TRAIN_LAYERS, dtype=torch.bfloat16,
+                                param_dtype=torch.float32)
+    model = Llama(cfg, device="cuda", seed=0)
+    batches = [{"tokens": torch.from_numpy(
+        host[i * TRAIN_BATCH:(i + 1) * TRAIN_BATCH]).cuda()}
+        for i in range(DATA_STEPS)]
+    state, step = make_train_step(
+        model, make_optimizer("adamw", learning_rate=DATA_LR))(batches[0])
+    want = []
+    for b in batches:
+        state, m = step(state, b)
+        want.append(float(m["loss"]))
+    del state, step, model, batches
+    release(torch)
+    losses = out["losses"]
+    rel = max(abs(x - w) / abs(w) for x, w in zip(losses, want))
+    med = statistics.median(out["times"][1:]) * 1e3
+    wait = statistics.median(out["waits"]) * 1e3
+    bp = {k: v["peak_inflight_bytes"] for k, v in out["backpressure"].items()}
+    budget = {v["budget_bytes"] for v in out["backpressure"].values()}
+    n = out["layers"] * DATA_STEPS
+    print(f"data (a): read_text ({DATA_ROWS} rows of {TRAIN_SEQ + 1} Zipf "
+          f"ids, {DATA_BLOCK_ROWS} a block) -> tokenize_dataset -> "
+          f"random_shuffle(seed=0) -> TorchTrainer, one rank actor "
+          f"(get_gpu_ids {out['gpu_ids']}) reading its shard through "
+          f"prepare_loader (batch {TRAIN_BATCH}; {out['dtypes']} on the "
+          f"card): fit() to the first batch on the card "
+          f"{out['t_first'] - t0:.2f} s (to the loop's start "
+          f"{out['t_loop'] - t0:.2f} s: the rank's process, imports and "
+          f"arguments; the pipeline in the rank the rest), fit "
+          f"{t_fit:.1f} s; median step "
+          f"{med:.1f} ms (steps 2-{DATA_STEPS}; each "
+          f"{[round(x * 1e3, 1) for x in out['times']]}) beside the "
+          f"runtime phase's rank-actor step {rank_ms:.1f} ms; median wait "
+          f"in the loader's next() {wait:.3f} ms (each "
+          f"{[round(x * 1e3, 3) for x in out['waits']]}); the executor's "
+          f"in-flight peak {bp} B of a {sorted(budget)} B budget; the "
+          f"exchange in the rank {json.dumps(out['exchange'])}; launches "
+          f"{json.dumps(out['launches'])} [{gpu_line}]", flush=True)
+    print(f"data (a): the rank's {len(out['rows'])} rows on the card equal "
+          f"the driver's rows of the same pipeline bit for bit: "
+          f"{same_rows}; losses {[round(x, 6) for x in losses]} against the "
+          f"in-process step's on those batches "
+          f"{[round(x, 6) for x in want]}, max relative difference "
+          f"{rel:.3g} (bit for bit {losses == want})", flush=True)
+    check(same_rows, "data (a): the rank's rows differ from the driver's")
+    check(out["dtypes"] == ["torch.int32", "torch.int8"],
+          f"data (a): dtypes on the card {out['dtypes']}")
+    check(len(losses) == DATA_STEPS and rel <= RUNTIME_RTOL,
+          "data (a): the rank's losses differ from the in-process step's")
+    check(all(map(math.isfinite, losses)), "data (a): a non-finite loss")
+    check(out["exchange"].get("random_shuffle", {}).get("map_tasks")
+          == DATA_ROWS // DATA_BLOCK_ROWS,
+          f"data (a): the exchange did not run in the rank: "
+          f"{out['exchange']}")
+    check(out["launches"] == {"flash_fwd (K1)": 2 * n,
+                              "flash_bwd_dq (K2a)": n,
+                              "flash_bwd_dkv (K2b)": n},
+          f"data (a): unexpected launch counts {out['launches']}")
+    return out["launches"], everything
+
+
+def data_loader_alone(torch, rd, gpu_line):
+    """(b): LOADER_BATCHES batches of ViT-base's uint8 input through
+    from_numpy(...).iter_device_batches(prefetch=2), timed to the last
+    batch on the card, against a bare pinned host-to-card copy_ of one
+    batch; every batch on the card equal to its host rows."""
+    import numpy as np
+    rng = np.random.RandomState(1)
+    per = LOADER_SHAPE[0]
+    images = rng.randint(0, 256, (LOADER_BATCHES * per,) + LOADER_SHAPE[1:],
+                         dtype=np.uint8)
+    ds = rd.from_numpy({"image": images}, block_rows=per)
+    got = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in ds.iter_device_batches(batch_size=per, prefetch=2):
+        got.append(b["image"])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    pinned = torch.from_numpy(images[:per]).pin_memory()
+    dst = torch.empty(pinned.shape, dtype=pinned.dtype, device="cuda")
+    for _ in range(3):
+        dst.copy_(pinned, non_blocking=True)
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(LOADER_COPIES):
+        dst.copy_(pinned, non_blocking=True)
+    e1.record()
+    torch.cuda.synchronize()
+    bare = LOADER_COPIES * pinned.numel() / (e0.elapsed_time(e1) / 1e3)
+    ok = len(got) == LOADER_BATCHES and all(
+        g.is_cuda and g.dtype == torch.uint8
+        and np.array_equal(g.cpu().numpy(), images[i * per:(i + 1) * per])
+        for i, g in enumerate(got))
+    print(f"data (b): {LOADER_BATCHES} batches of {LOADER_SHAPE} uint8 "
+          f"({images.nbytes / 2**20:.0f} MiB) through "
+          f"from_numpy().iter_device_batches(prefetch=2): {dt:.3f} s, "
+          f"{images.nbytes / dt / 1e9:.2f} GB/s, against a bare pinned "
+          f"copy_ of one batch {bare / 1e9:.2f} GB/s ({LOADER_COPIES} "
+          f"copies, CUDA events); every batch on the card equals its host "
+          f"rows: {ok} [{gpu_line}]", flush=True)
+    check(ok, "data (b): a batch on the card differs from its host rows")
+    del got, dst, pinned, images
+
+
+def data_service_workers():
+    from ray_tpu_torch.util import state as state_api
+    rows = state_api.list_actors(filters=[("state", "=", "ALIVE")],
+                                 limit=1000)
+    return sorted(r["class_name"] for r in rows if r["class_name"] in (
+        "_DataWorkerImpl", "DataServiceDispatcher"))
+
+
+def data_service_phase(torch, rd, adapters, path, everything, gpu_line):
+    """(c): (a)'s pipeline up to the shuffle (the service refuses a
+    cross-slice exchange) registered with to_service(world_size=1), read
+    on the card through the service iterator's iter_device_batches: the
+    time to the first batch, the set of rows equal to (a)'s, nothing
+    left after shutdown_service."""
+    import numpy as np
+    from ray_tpu_torch.data import service
+
+    t0 = time.time()
+    data_pipeline(rd, adapters, path).to_service(DATA_JOB, world_size=1)
+    t_reg = time.time() - t0
+    it = service.iterator(DATA_JOB)
+    rows, first = [], None
+    for b in it.iter_device_batches(prefetch=2):
+        if first is None:
+            torch.cuda.current_stream().synchronize()
+            first = time.time() - t0
+        rows.append(b["input_ids"].cpu().numpy())
+    t_all = time.time() - t0
+    rows = np.concatenate(rows)
+    same = (len(rows) == len(everything)
+            and {r.tobytes() for r in rows}
+            == {r.tobytes() for r in everything}
+            and len({r.tobytes() for r in rows}) == len(rows))
+    stats = dict(it.stats)
+    before = data_service_workers()
+    service.shutdown_service()
+    deadline = time.time() + 30
+    left = data_service_workers()
+    while left and time.time() < deadline:
+        time.sleep(0.2)
+        left = data_service_workers()
+    print(f"data (c): to_service(world_size=1) of (a)'s pipeline before its "
+          f"shuffle, read through the service iterator's "
+          f"iter_device_batches: register to the first batch on the card "
+          f"{first:.2f} s (to_service itself {t_reg:.2f} s), all "
+          f"{len(rows)} rows {t_all:.2f} s (iterator "
+          f"{json.dumps(stats)}); the set of rows equals (a)'s: {same}; "
+          f"service actors up {before}, after shutdown_service {left} "
+          f"[{gpu_line}]", flush=True)
+    check(same, "data (c): the service's rows differ from (a)'s")
+    check(stats["relay_bytes"] == 0, f"data (c): relayed bytes {stats}")
+    check(not left, f"data (c): service actors left: {left}")
+
+
+def phase_data(torch, gpu_line, rank_ms):
+    """16. data: (b) the loader alone, then in a runtime of its own (a)
+    the pipeline from text to the train cell's step in a rank actor and
+    (c) the data service. Returns the rank's K1/K2a/K2b launches."""
+    import shutil
+    import tempfile
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import data as rd
+    from ray_tpu_torch.models import LlamaConfig
+    from ray_tpu_torch.train import adapters
+
+    t_phase = time.time()
+    release(torch)
+    data_loader_alone(torch, rd, gpu_line)
+    release(torch)
+    root = tempfile.mkdtemp(prefix="chip_smoke_data_")
+    path = data_text_file(root, LlamaConfig.llama3_8b().vocab_size)
+    rt.init()
+    try:
+        launches, everything = data_trainer(torch, rd, adapters, path, root,
+                                            gpu_line, rank_ms)
+        data_service_phase(torch, rd, adapters, path, everything, gpu_line)
+    finally:
+        rt.shutdown()
+        shutil.rmtree(root, ignore_errors=True)
+    wait_no_workers("data")
+    release(torch)
+    print(f"data: phase wall {time.time() - t_phase:.1f} s", flush=True)
+    return launches
+
+
+def tune_batch(vocab):
+    """The tune phase's fixed batch: TRAIN_BATCH x (TRAIN_SEQ + 1) Zipf
+    ids (trainer_batches, seed 2)."""
+    return next(trainer_batches(TRAIN_BATCH, TRAIN_SEQ, 2, vocab))["tokens"]
+
+
+def tune_model(torch):
+    from ray_tpu_torch.models import Llama, LlamaConfig
+    cfg = LlamaConfig.llama3_8b(n_layers=TUNE_LAYERS, dtype=torch.bfloat16,
+                                param_dtype=torch.float32)
+    return Llama(cfg, device="cuda", seed=0), cfg
+
+
+def tune_trial(config):
+    """One trial, in its actor holding the card: TUNE_LAYERS layers at
+    the 8B widths (seed 0, bf16 compute, fp32 master, remat), adamw at
+    the trial's lr, up to TUNE_STEPS steps on the fixed batch, each
+    reported; the card's free memory at entry, K1/K2a/K2b so far."""
+    import torch
+    from ray_tpu_torch import get_gpu_ids, tune
+    from ray_tpu_torch.ops.kernels import flash_attention as fa
+    from ray_tpu_torch.train import make_optimizer, make_train_step
+
+    t_enter = time.time()
+    free, _ = torch.cuda.mem_get_info()
+    model, cfg = tune_model(torch)
+    batch = {"tokens": torch.from_numpy(tune_batch(cfg.vocab_size)).cuda()}
+    state, step = make_train_step(
+        model, make_optimizer("adamw", learning_rate=config["lr"]))(batch)
+    torch.cuda.synchronize()
+    zero_counters(fa)
+    for i in range(TUNE_STEPS):
+        state, m = step(state, batch)
+        tune.report({"loss": float(m["loss"]), "step": i + 1,
+                     "t": time.time(), "t_enter": t_enter,
+                     "free_gib": free / 2**30, "gpus": get_gpu_ids(),
+                     "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+                     "launches": read_counters(fa), "pid": os.getpid()})
+
+
+def tune_losses(torch, lr):
+    """The trial's steps in this process on the card: its losses."""
+    from ray_tpu_torch.train import make_optimizer, make_train_step
+    model, cfg = tune_model(torch)
+    batch = {"tokens": torch.from_numpy(tune_batch(cfg.vocab_size)).cuda()}
+    state, step = make_train_step(
+        model, make_optimizer("adamw", learning_rate=lr))(batch)
+    out = []
+    for _ in range(TUNE_STEPS):
+        state, m = step(state, batch)
+        out.append(float(m["loss"]))
+    del state, step, model, batch
+    release(torch)
+    return out
+
+
+def phase_tune(torch, gpu_line):
+    """17. tune: a Tuner over TUNE_LRS, each trial reserving the card
+    ({"CPU": 1, "GPU": 1}), ASHA stopping on the loss; the trials one at
+    a time on GPU [0], their losses the in-process steps', ASHA's stops
+    reproduced on the host, the best result the lowest last loss, no
+    trial actor left. Returns the trials' K1/K2a/K2b launches."""
+    import shutil
+    import tempfile
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import tune
+    from ray_tpu_torch.train import RunConfig
+    from ray_tpu_torch.util import state as state_api
+
+    t_phase = time.time()
+    release(torch)
+    free0, total = torch.cuda.mem_get_info()
+    root = tempfile.mkdtemp(prefix="chip_smoke_tune_")
+    rt.init()
+    try:
+        t0 = time.time()
+        grid = tune.Tuner(
+            tune.with_resources(tune_trial, {"CPU": 1, "GPU": 1}),
+            param_space={"lr": tune.grid_search(list(TUNE_LRS))},
+            tune_config=tune.TuneConfig(
+                metric="loss", mode="min",
+                scheduler=tune.ASHAScheduler(
+                    mode="min", max_t=TUNE_STEPS, grace_period=TUNE_GRACE,
+                    reduction_factor=TUNE_RF)),
+            run_config=RunConfig(name="tune", storage_path=root)).fit()
+        t_fit = time.time() - t0
+        left = [a for a in state_api.list_actors(
+            filters=[("state", "=", "ALIVE")], limit=100)
+            if a["class_name"] == "_TrialActor"]
+        best = grid.get_best_result()
+    finally:
+        rt.shutdown()
+        shutil.rmtree(root, ignore_errors=True)
+    wait_no_workers("tune")
+    release(torch)
+    free1, _ = torch.cuda.mem_get_info()
+    trials = [(t.config["lr"], t.status, t.iteration, t.history)
+              for t in grid.trials]
+    want = {lr: tune_losses(torch, lr) for lr in TUNE_LRS}
+    # ASHA fed the in-process losses in the trials' order (one at a time)
+    asha = tune.ASHAScheduler(mode="min", max_t=TUNE_STEPS,
+                              grace_period=TUNE_GRACE,
+                              reduction_factor=TUNE_RF)
+    decided = {}
+    for lr in TUNE_LRS:
+        for i, loss in enumerate(want[lr], 1):
+            if asha.on_result(f"lr={lr}", i, loss) == "STOP":
+                break
+        decided[lr] = i
+    launches = {}
+    spans = []
+    rel = 0.0
+    for lr, status, iters, hist in trials:
+        last = hist[-1]
+        for k, v in last["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+        got = [m["loss"] for m in hist]
+        rel = max([rel] + [abs(x - w) / abs(w)
+                           for x, w in zip(got, want[lr])])
+        gaps = [b["t"] - a["t"] for a, b in zip(hist, hist[1:])]
+        spans.append((hist[0]["t_enter"], last["t"]))
+        print(f"tune: trial lr {lr}: {status} after {iters} steps (ASHA on "
+              f"the host: {decided[lr]}); entry to its first report "
+              f"{hist[0]['t'] - hist[0]['t_enter']:.2f} s, median step "
+              f"{statistics.median(gaps) * 1e3:.1f} ms (report to report, "
+              f"steps 2-{iters}); get_gpu_ids {last['gpus']}, "
+              f"CUDA_VISIBLE_DEVICES {last['visible']!r}, card free at entry "
+              f"{last['free_gib']:.2f} GiB; losses "
+              f"{[round(x, 6) for x in got]}", flush=True)
+        check(last["gpus"] == [0] and last["visible"] == "0",
+              f"tune: trial lr {lr} saw {last['gpus']}")
+        check(status == "STOPPED" and iters == decided[lr] == len(hist),
+              f"tune: trial lr {lr} stopped at {iters} ({status}), ASHA on "
+              f"the host says {decided[lr]}")
+        check(last["free_gib"] >= free0 / 2**30 - 2,
+              f"tune: trial lr {lr} found the card held: "
+              f"{last['free_gib']:.2f} GiB free")
+        n = TUNE_LAYERS * iters
+        check(last["launches"] == {"flash_fwd (K1)": 2 * n,
+                                   "flash_bwd_dq (K2a)": n,
+                                   "flash_bwd_dkv (K2b)": n},
+              f"tune: trial lr {lr} launches {last['launches']}")
+    spans.sort()
+    apart = all(a[1] < b[0] for a, b in zip(spans, spans[1:]))
+    lowest = min(trials, key=lambda t: t[3][-1]["loss"])[0]
+    print(f"tune: Tuner.fit of {len(trials)} trials ({TUNE_LAYERS} layers of "
+          f"the 8B widths, bf16/fp32, remat, adamw; ASHA max_t "
+          f"{TUNE_STEPS}, grace {TUNE_GRACE}, rf {TUNE_RF}) {t_fit:.1f} s; "
+          f"one trial on the card at a time: {apart}; losses against the "
+          f"in-process steps' max relative difference {rel:.3g}; best "
+          f"result lr {best.config['lr']} (lowest last loss: lr {lowest}); "
+          f"trial actors left {len(left)}; card free {free0 / 2**30:.2f} "
+          f"GiB before, {free1 / 2**30:.2f} after, of "
+          f"{total / 2**30:.2f}; launches {json.dumps(launches)}; phase "
+          f"wall {time.time() - t_phase:.1f} s [{gpu_line}]", flush=True)
+    check(apart, "tune: two trials held the card at once")
+    check(rel <= RUNTIME_RTOL, "tune: a trial's losses differ from the "
+                               "in-process steps'")
+    check(best.config["lr"] == lowest, f"tune: best result {best.config}")
+    check(not left, f"tune: trial actors left: {left}")
+    check(free1 >= free0 - 2**30, f"tune: card memory not freed: "
+                                  f"{free1 / 2**30:.2f} GiB free")
+    return launches
+
+
 def check_spills(build) -> None:
     """Registers and spills of the wgmma kernels (K1's forward, K2a's and
     K2b's backward at D 64 and 128) and of every K4 kernel, from the
@@ -4143,8 +4666,11 @@ def main() -> None:
     launches.update(phase_grpo(torch, gpu_line))
     launches["north-star-grpo"] = phase_north_star(torch)
     launches["parallel"] = phase_parallel(torch, gpu_line, train_stats)
-    launches["runtime-trainer"] = phase_runtime(torch, gpu_line, train_stats)
+    launches["runtime-trainer"], rank_ms = phase_runtime(torch, gpu_line,
+                                                        train_stats)
     launches.update(phase_serve_deploy(torch, gpu_line, serve_stats, parity))
+    launches["data-trainer"] = phase_data(torch, gpu_line, rank_ms)
+    launches["tune"] = phase_tune(torch, gpu_line)
 
     # each kernel's launches on the main paths (the serve bursts, train,
     # GRPO full, LoRA, the north star's and the mesh train step); K4 is

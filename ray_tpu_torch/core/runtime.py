@@ -1287,6 +1287,8 @@ class DriverRuntime:
         elif mtype == "object_unreachable":
             self._on_object_unreachable(m[1], m[2],
                                         m[3] if len(m) > 3 else None)
+        elif mtype == "free":
+            self._free(m[1])
         elif mtype == "cancel":
             # Workers cancel by OBJECT id (mirroring ray.cancel(ref));
             # resolve to the producing task like the driver's
@@ -2439,6 +2441,11 @@ class DriverRuntime:
             self.actor_queues.setdefault(spec.actor_id,
                                          collections.deque()).append(spec)
         else:
+            # a task a worker submitted re-queues like the driver's when
+            # its lease slot is reclaimed or its worker dies (the
+            # reference keeps only the driver's specs, so a reclaimed
+            # nested task is fenced on its worker and never runs)
+            self._respawnable_specs.setdefault(spec.task_id, spec)
             self.pending_tasks.append(spec)
 
     def _register_actor_creation(self, acspec: ActorCreationSpec):

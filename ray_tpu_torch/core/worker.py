@@ -1151,6 +1151,13 @@ class WorkerRuntime:
         self._batch.flush()
         self.conn.send(("cancel", task_id, force))
 
+    def free(self, refs: List[ObjectRef]) -> None:
+        """Drop objects from the store, as the driver's `free` does (a
+        data exchange run inside an actor frees its pieces as it drains
+        them; the reference's worker has no `free`)."""
+        self._batch.flush()   # the puts that made them land first
+        self.conn.send(("free", [r.id for r in refs]))
+
     def report(self, channel: str, payload: Any) -> None:
         """Out-of-band message to the driver (train session, metrics...)."""
         self.conn.send(("report", channel, payload))

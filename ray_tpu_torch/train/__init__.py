@@ -16,10 +16,12 @@ Layer map:
   config.py        ScalingConfig/RunConfig/FailureConfig/CheckpointConfig
   result.py        Result
   adapters.py      HF weight import (GPT-2, Llama) + tokenizer glue
+                   (tokenize_dataset, hf_dataset_to_ray)
   lora.py          LoRA adapters over a frozen base (sharded on a mesh),
                    make_lora_train_step
   utils.py         prepare_module (a model onto a mesh),
-                   iter_batches_sharded
+                   prepare_loader (a rank's Dataset shard as device
+                   batches), iter_batches_sharded
   trainer.py       TorchTrainer (the reference's JaxTrainer): a training
                    loop on rank actors, with reports, checkpoints and
                    FailureConfig restarts
@@ -31,8 +33,7 @@ Layer map:
                    that reforms and restores when a rank dies
 
 SpmdTrainer itself needs no runtime: it runs in each rank of `launch` or
-in a world of one. The dataset adapters (`prepare_loader`) wait for the
-data layer.
+in a world of one.
 """
 from . import adapters  # noqa: F401  (transformers only inside a call)
 from .backend import (TorchBackendConfig, detect_rank, detect_world_size,
@@ -51,12 +52,12 @@ from .multihost import MultiHostSpmd
 from .session import TrainContext, get_context, report
 from .spmd_trainer import ElasticSpmdTrainer, SpmdTrainer, SpmdTrainerConfig
 from .trainer import TorchTrainer
-from .utils import prepare_module
+from .utils import prepare_loader, prepare_module
 
 __all__ = ["adapters", "TrainState", "SpmdStep", "make_train_step",
            "next_token_loss", "TorchBackendConfig", "setup_worker",
            "form_mesh", "worker_env", "detect_rank", "detect_world_size",
-           "launch", "prepare_module",
+           "launch", "prepare_module", "prepare_loader",
            "make_optimizer", "warmup_cosine", "Checkpoint",
            "CheckpointManager", "save_pytree", "restore_pytree",
            "LoraConfig", "init_lora", "merge_lora", "lora_param_count",

@@ -5,6 +5,10 @@ ray_tpu/train/adapters.py).
 `transformers` model (or its state_dict) onto the port's GPT2 / Llama
 state_dict and return it with the matching config. `transformers` is
 imported only by `load_tokenizer`; nothing here needs it to import.
+`tokenize_dataset` maps a Dataset of text rows to fixed-length token
+ids with any tokenizer (a callable or an object with `encode`), and
+`hf_dataset_to_ray` turns a `datasets` Dataset (anything with
+`column_names` that iterates over row dicts) into a port Dataset.
 
 Layouts: HF GPT-2's Conv1D stores [in, out] and the port's Dense
 [out, in], so every GPT-2 projection transposes; HF Llama's nn.Linear is
@@ -13,7 +17,7 @@ epsilon (`layer_norm_epsilon`, `rms_norm_eps`).
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Callable, Dict, Iterable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -121,5 +125,41 @@ def load_tokenizer(name_or_path: str, **kwargs):
     return AutoTokenizer.from_pretrained(name_or_path, **kwargs)
 
 
+def tokenize_dataset(ds, tokenizer: Callable, *, text_column: str = "text",
+                     max_length: int = 512, pad_id: int = 0):
+    """Map a ray_tpu_torch.data Dataset of text rows to fixed-length
+    token ids.
+
+    tokenizer: HF tokenizer or any callable str -> list[int] (encode).
+    Produces columns input_ids [L] int32 and attention_mask [L] int8.
+    """
+    def encode_batch(batch: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+        texts = [str(t) for t in batch[text_column]]
+        ids_rows, mask_rows = [], []
+        for t in texts:
+            if hasattr(tokenizer, "encode"):
+                ids = tokenizer.encode(t)
+            else:
+                ids = tokenizer(t)
+            ids = list(ids)[:max_length]
+            mask = [1] * len(ids) + [0] * (max_length - len(ids))
+            ids = ids + [pad_id] * (max_length - len(ids))
+            ids_rows.append(ids)
+            mask_rows.append(mask)
+        return {"input_ids": np.asarray(ids_rows, np.int32),
+                "attention_mask": np.asarray(mask_rows, np.int8)}
+
+    return ds.map_batches(encode_batch)
+
+
+def hf_dataset_to_ray(hf_dataset, columns: Optional[Iterable[str]] = None):
+    """`datasets` Dataset -> ray_tpu_torch.data Dataset (columnar numpy)."""
+    from ..data import from_items
+    cols = list(columns) if columns else hf_dataset.column_names
+    rows = [{c: ex[c] for c in cols} for ex in hf_dataset]
+    return from_items(rows)
+
+
 __all__ = ["torch_state_dict_to_numpy", "import_hf_gpt2_weights",
-           "import_hf_llama_weights", "load_tokenizer"]
+           "import_hf_llama_weights", "load_tokenizer", "tokenize_dataset",
+           "hf_dataset_to_ray"]

@@ -2,14 +2,14 @@
 
 `prepare_module` shards a model onto the mesh by the rule table, the
 counterpart of the reference's device_put with NamedShardings;
-`iter_batches_sharded` prefetches any host-batch iterator onto the
-device, this rank's share of each batch only. The reference's
-`prepare_loader` splits a `ray_tpu.data` Dataset per worker; it waits
-for a port of the data layer.
+`prepare_loader` gives each worker its rank's shard of a Dataset as
+batches prefetched onto the device; `iter_batches_sharded` prefetches
+any host-batch iterator onto the device, this rank's share of each
+batch only.
 """
 from __future__ import annotations
 
-from typing import Any, Iterator
+from typing import Any, Iterable, Iterator
 
 from torch import nn
 
@@ -27,6 +27,20 @@ def prepare_module(model: nn.Module, mesh=None, *, rules=None,
     return shard_module(model, mesh, rules)
 
 
+def prepare_loader(dataset, *, rank: int, world_size: int,
+                   batch_size: int, sharding=None, prefetch: int = 2,
+                   device: DeviceLike = "cuda") -> Iterable:
+    """Per-worker shard of a `ray_tpu_torch.data` Dataset as device
+    batches (reference: ray.train.torch.prepare_data_loader): rank-split,
+    batch, then double-buffered host->device prefetch
+    (data.device_loader)."""
+    from ..data.device_loader import device_put_iterator
+    shard = dataset.split_for_worker(rank, world_size)
+    return device_put_iterator(shard.iter_batches(batch_size=batch_size),
+                               sharding=sharding, prefetch=prefetch,
+                               device=device)
+
+
 def iter_batches_sharded(arrays_iter: Iterator[Any], sharding,
                          prefetch: int = 2, *,
                          device: DeviceLike = "cuda") -> Iterator[Any]:
@@ -37,4 +51,4 @@ def iter_batches_sharded(arrays_iter: Iterator[Any], sharding,
                                prefetch=prefetch, device=device)
 
 
-__all__ = ["prepare_module", "iter_batches_sharded"]
+__all__ = ["prepare_module", "prepare_loader", "iter_batches_sharded"]

@@ -390,9 +390,36 @@ _declare("RAY_TPU_COORDINATOR", "str", None,
 # ---------------------------------------------------------------------------
 # data plane
 
+_declare("RAY_TPU_DATA_INFLIGHT_BYTES", "int", 256 << 20,
+         "Streaming-executor backpressure budget: bytes of blocks in "
+         "flight per stage (read by data/executor.py).", "data")
 _declare("RAY_TPU_DATA_PREFETCH_DEPTH", "int", 2,
          "device_put_iterator prefetch depth: host batches staged "
          "into device memory ahead of the consumer.", "data")
+_declare("RAY_TPU_DATA_SERVICE_MIN_WORKERS", "int", 1,
+         "Data service: minimum data-worker actors kept alive per "
+         "service (read by data/service.py).", "data")
+_declare("RAY_TPU_DATA_SERVICE_MAX_WORKERS", "int", 4,
+         "Data service: maximum data-worker actors per service; also "
+         "the default slice count for registered datasets (read by "
+         "data/service.py).", "data")
+_declare("RAY_TPU_DATA_SERVICE_LEASE_S", "float", 10.0,
+         "Data service: consumer lease duration. A consumer silent "
+         "longer than this is fenced and its outstanding shard grants "
+         "are revoked back to the pool (read by data/service.py).",
+         "data")
+_declare("RAY_TPU_DATA_SERVICE_TICK_S", "float", 0.2,
+         "Data service: dispatcher housekeeping period (autoscaling, "
+         "worker liveness, lease expiry, metrics; read by "
+         "data/service.py).", "data")
+_declare("RAY_TPU_DATA_SERVICE_PRODUCE_AHEAD", "int", 64,
+         "Data service: per-worker produce-ahead bound — a data worker "
+         "pauses when this many of its blocks sit unconsumed (read by "
+         "data/service.py).", "data")
+_declare("RAY_TPU_DATA_SERVICE_POLL_S", "float", 0.05,
+         "Data service: consumer-side poll interval while waiting for "
+         "a shard grant (epoch barrier / production lag; read by "
+         "data/service.py).", "data")
 
 # ---------------------------------------------------------------------------
 # GPU topology

@@ -558,7 +558,14 @@ def test_port_imports_no_jax_and_no_ray_tpu():
                      "config", "deployment", "batching", "multiplex",
                      "router", "handle", "replica", "autoscaler",
                      "controller", "api", "asgi", "_proxy_util",
-                     "http_proxy", "chaos", "_testing"))):
+                     "http_proxy", "chaos", "_testing")),
+                 # the data layer and Tune
+                 *(f"ray_tpu_torch.data.{m}" for m in (
+                     "block", "plan", "executor", "exchange", "dataset",
+                     "preprocessors", "service")),
+                 *(f"ray_tpu_torch.tune.{m}" for m in (
+                     "space", "search", "schedulers", "stoppers",
+                     "session", "trainable", "loggers", "tuner"))):
         assert name in mods.split()
 
 
@@ -582,6 +589,35 @@ def test_spawned_worker_imports_no_jax_and_no_ray_tpu():
     in_worker, mods = res.stdout.strip().splitlines()[-2:]
     assert in_worker == "True"
     assert _leaks(mods.split()) == []
+
+
+def test_trial_worker_imports_no_jax_and_no_ray_tpu():
+    """A Tune trial actor's worker, reserving a (declared) GPU, reports
+    its own modules after reading a Dataset: the Tune and data modules
+    are there, and no jax, no ray_tpu / ray_tpu.*."""
+    code = (
+        "import ray_tpu_torch as rt\n"
+        "from ray_tpu_torch import data, tune\n"
+        "def trial(config):\n"
+        "    import sys\n"
+        "    n = data.range(8).random_shuffle(seed=0).count()\n"
+        "    tune.report({'n': n, 'mods': ' '.join(sorted(sys.modules))})\n"
+        "rt.init(num_cpus=2)\n"
+        "grid = tune.Tuner(tune.with_resources(trial, {'CPU': 1, 'GPU': 1}),\n"
+        "                  tune_config=tune.TuneConfig(metric='n')).fit()\n"
+        "m = grid.trials[0].last_metrics\n"
+        "rt.shutdown()\n"
+        "print(m['n'])\n"
+        "print(m['mods'])\n")
+    res = _run_python(code, dict(os.environ, RAY_TPU_GPUS="1"))
+    assert res.returncode == 0, res.stderr
+    n, mods = res.stdout.strip().splitlines()[-2:]
+    assert n == "8"
+    mods = mods.split()
+    for name in ("ray_tpu_torch.tune.session", "ray_tpu_torch.data.dataset",
+                 "ray_tpu_torch.data.exchange"):
+        assert name in mods
+    assert _leaks(mods) == []
 
 
 def test_replica_worker_imports_no_jax_and_no_ray_tpu():

@@ -201,6 +201,24 @@ def test_every_declared_knob_has_a_reader():
 
 
 @pytest.mark.parametrize("knob,reader", [
+    ("RAY_TPU_DATA_INFLIGHT_BYTES", "data/executor.py"),
+    ("RAY_TPU_DATA_SERVICE_MIN_WORKERS", "data/service.py"),
+    ("RAY_TPU_DATA_SERVICE_MAX_WORKERS", "data/service.py"),
+    ("RAY_TPU_DATA_SERVICE_LEASE_S", "data/service.py"),
+    ("RAY_TPU_DATA_SERVICE_TICK_S", "data/service.py"),
+    ("RAY_TPU_DATA_SERVICE_PRODUCE_AHEAD", "data/service.py"),
+    ("RAY_TPU_DATA_SERVICE_POLL_S", "data/service.py")])
+def test_data_knobs_declared_beside_their_readers(knob, reader):
+    """The data plane's seven knobs (the reference's names) are declared
+    and read by the data module that uses them."""
+    from ray_tpu_torch.util import knobs
+    assert knob in knobs.REGISTRY
+    assert reader in knobs.REGISTRY[knob].doc
+    read = _knob_readers(os.path.join(REPO, "ray_tpu_torch", "data"))
+    assert os.path.join("ray_tpu_torch", reader) in read.get(knob, [])
+
+
+@pytest.mark.parametrize("knob,reader", [
     ("RAY_TPU_SERVE_HEALTH_PERIOD_S", "serve/controller.py"),
     ("RAY_TPU_SERVE_HEALTH_TIMEOUT_S", "serve/controller.py"),
     ("RAY_TPU_SERVE_HEALTH_THRESHOLD", "serve/controller.py"),
