@@ -5,7 +5,7 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
-It builds every CUDA kernel from `ray_tpu_torch/csrc/`, then runs seventeen
+It builds every CUDA kernel from `ray_tpu_torch/csrc/`, then runs eighteen
 phases and fails (non-zero exit, no result line) if any of them fails:
 
 1. kernels: each kernel against its plain PyTorch version at
@@ -227,9 +227,50 @@ phases and fails (non-zero exit, no result line) if any of them fails:
    same lr's in-process steps' (RUNTIME_RTOL); its stop where ASHA fed
    those in-process losses on the host stops it; the best result the
    lowest last loss; no trial actor left, the card's memory back.
+18. front doors: how users reach the system, through its entry points
+   and processes. In a runtime of its own: (a) `start_dashboard(port=0)`
+   and a num_gpus=1 actor holding 64 MiB of bf16 on its card; `python -m
+   ray_tpu_torch --address URL` status, list actors and workers, summary
+   tasks, metrics and timeline: the cluster's GPU 1, the actor's worker
+   on gpu_ids [0], its RSS in `memory_summary()`; `python -m
+   ray_tpu_torch lint` reports 0 findings. (c) A job script (a driver
+   with its own `init()`: 4 steps at lr 1e-5 of the tune phase's model
+   in one TorchTrainer rank on the card) sent with `job submit --remote`
+   through (a)'s dashboard, read with `job logs --follow`, `job status`
+   and `job list`: SUCCEEDED, its losses the tune phase's in-process
+   losses at that lr (RUNTIME_RTOL), K1/K2a/K2b as the step predicts,
+   the time from submit to its first step; `job stop` ends a sleeping
+   CPU job. (e) PPO on GridWorld with 2 remote env runners (2 envs x 8
+   steps each) and the learner on the card, 2 iterations:
+   timesteps_total 32 then 64, each runner's process with
+   CUDA_VISIBLE_DEVICES "", the learner's params on the card. Then (b)
+   `python -m ray_tpu_torch serve run frontapp:app --port 0
+   --dashboard-port 0` of an app module written to a temporary
+   directory on PYTHONPATH: build_openai_deployment of the parity
+   phase's fp32 model (TF32 off in the replica) with a counting server:
+   the seconds from its start to the first 200 reply; over HTTP, unary
+   and SSE, the parity phase's plain loop's greedy tokens; K1 and K3
+   counted in the replica; `serve status` through its dashboard lists
+   the app; SIGINT ends it, and a second run is ended by SIGTERM: each
+   leaves no process and the card's memory comes back. (d) A client
+   host (`python -m ray_tpu_torch.client.server --num-gpus 1`) and two
+   client processes, one seeing the card and one with
+   CUDA_VISIBLE_DEVICES="": each `init(address="ray://...")` and a
+   num_gpus=1 task running 2 layers of the 8B widths in bf16 over a
+   2048-token prompt (K1 counted) that returns its last row of logits as
+   a CUDA tensor: on the client's card with the task's checksum, or on
+   the client's CPU with the same bytes and CUDA never initialised; the
+   median round trip of a small task; a named num_gpus=1 actor sees
+   get_gpu_ids() == [0]; the host outlives both and leaves no process
+   after SIGTERM. (f) `cluster_utils.Cluster`, the head and one agent
+   (num_gpus 0): one GPU in the cluster, a num_gpus=1 task on the head's
+   node, a CPU task pinned to the agent with
+   NodeAffinitySchedulingStrategy there, no agent after shutdown.
 
 The last three lines are a JSON object listing each kernel (with its
-launches on each path, the zoo's bursts and ViT's forward among them), the card's name and power limit as nvidia-smi
+launches on each path, the zoo's bursts and ViT's forward among them,
+and the front doors' `cli-serve`, `job` and `client`), the card's name
+and power limit as nvidia-smi
 gives them, and {"ok": true, "device": {...}}. Imports nothing of JAX
 or ray_tpu.
 """
@@ -4475,7 +4516,8 @@ def phase_tune(torch, gpu_line):
     ({"CPU": 1, "GPU": 1}), ASHA stopping on the loss; the trials one at
     a time on GPU [0], their losses the in-process steps', ASHA's stops
     reproduced on the host, the best result the lowest last loss, no
-    trial actor left. Returns the trials' K1/K2a/K2b launches."""
+    trial actor left. Returns the trials' K1/K2a/K2b launches and each
+    lr's in-process losses."""
     import shutil
     import tempfile
 
@@ -4577,6 +4619,792 @@ def phase_tune(torch, gpu_line):
     check(not left, f"tune: trial actors left: {left}")
     check(free1 >= free0 - 2**30, f"tune: card memory not freed: "
                                   f"{free1 / 2**30:.2f} GiB free")
+    return launches, want
+
+
+# the front-doors phase: the dashboard and the CLI, `serve run`, jobs, the
+# thin client, rllib's remote env runners and the local cluster
+FRONT_HOLD_ELEMS = 32 * 2**20     # (a): the GPU actor's bf16 tensor, 64 MiB
+FRONT_JOB_STEPS = 4               # (c): the job's steps of the tune model,
+FRONT_JOB_LR = 1e-5               # ... at the tune phase's lowest lr
+FRONT_APP = "frontapp"            # (b): the app module `serve run` imports
+FRONT_CLIENT_SEQ = 2048           # (d): the client task's prompt
+FRONT_CLIENT_TRIPS = 20           # ... round trips of a small task timed
+FRONT_RL_ITERS = 2                # (e): PPO iterations
+FRONT_WAIT_S = 600                # a subprocess's longest wait
+
+FRONT_APP_SOURCE = '''"""The app `python -m ray_tpu_torch serve run {app}:app`
+serves: the parity phase's fp32 model (4 layers of Llama-3-8B widths,
+seed 1, TF32 off in the replica) behind build_openai_deployment, with a
+server that answers {{"launches": ...}} bodies with the replica's K1/K3
+counts."""
+import os
+import time
+
+from ray_tpu_torch.serve.llm.openai_api import (OpenAIServer,
+                                                build_openai_deployment)
+
+
+def parity_model():
+    import torch
+    from ray_tpu_torch.models import Llama, LlamaConfig
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = LlamaConfig.llama3_8b(n_layers=4, dtype=torch.float32,
+                                param_dtype=torch.float32, remat=False)
+    return Llama(cfg, device="cuda", seed=1), None
+
+
+class CountingServer(OpenAIServer):
+    def __init__(self, *args, **kwargs):
+        t0 = time.time()
+        super().__init__(*args, **kwargs)
+        self.init_span = (t0, time.time())
+
+    def __call__(self, body):
+        if isinstance(body, dict) and "launches" in body:
+            import psutil
+            from ray_tpu_torch import get_gpu_ids
+            from ray_tpu_torch.ops.kernels import flash_attention as fa
+            from ray_tpu_torch.ops.kernels import paged_attention as pa
+            out = {{"flash_fwd (K1)": fa.flash_attention_fwd.launches,
+                   "paged_decode (K3)": pa.paged_decode_attention.launches,
+                   "gpu_ids": get_gpu_ids(), "pid": os.getpid(),
+                   "started": psutil.Process().create_time(),
+                   "init_span": self.init_span}}
+            if body["launches"] == "zero":
+                fa.flash_attention_fwd.launches = 0
+                pa.paged_decode_attention.launches = 0
+            return out
+        return super().__call__(body)
+
+
+app = build_openai_deployment(parity_model, engine_config={engine!r},
+                              server_cls=CountingServer)
+'''
+
+FRONT_JOB_SOURCE = '''"""The job chip_smoke.py submits: a driver of its own that
+trains the tune phase's model in one TorchTrainer rank holding the card."""
+import json
+import sys
+import time
+
+t_start = time.time()
+sys.path.insert(0, {here!r})
+import chip_smoke  # noqa: E402
+
+import ray_tpu_torch as rt  # noqa: E402
+from ray_tpu_torch.train import ScalingConfig, TorchTrainer  # noqa: E402
+
+rt.init()
+t_init = time.time()
+res = TorchTrainer(chip_smoke.front_job_loop,
+                   scaling_config=ScalingConfig(num_workers=1)).fit()
+rt.shutdown()
+if res.error is not None:
+    raise SystemExit(f"job: TorchTrainer failed: {{res.error!r}}")
+steps = [m for m in res.metrics_history if "loss" in m]
+final = [m for m in res.metrics_history if "launches" in m][-1]
+print("JOB " + json.dumps({{"losses": [m["loss"] for m in steps],
+                           "t": [m["t"] for m in steps], "t_start": t_start,
+                           "t_init": t_init, **final}}), flush=True)
+'''
+
+FRONT_CLIENT_SOURCE = '''"""A thin client of chip_smoke.py's client host: runs the
+forward task, times small round trips and reaches a named GPU actor."""
+import hashlib
+import json
+import os
+import statistics
+import sys
+import time
+
+sys.path.insert(0, {here!r})
+import chip_smoke  # noqa: E402
+
+import ray_tpu_torch as rt  # noqa: E402
+
+t0 = time.time()
+import torch  # noqa: E402
+out = {{"visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+        "torch_import_s": time.time() - t0}}
+rt.init(address=sys.argv[1])
+forward = rt.remote(num_gpus=1)(chip_smoke.front_client_forward)
+t0 = time.time()
+ref = forward.remote()
+rt.wait([ref], timeout=600)
+t_ready = time.time()
+row, checksum, launches, task = rt.get(ref, timeout=600)
+out.update(t0=t0, t_ready=t_ready, t_got=time.time(), device=str(row.device),
+           dtype=str(row.dtype), shape=list(row.shape),
+           sha=hashlib.sha256(row.cpu().numpy().tobytes()).hexdigest(),
+           checksum=checksum, launches=launches, task=task)
+if row.is_cuda:
+    out["client_checksum"] = float(row.double().sum())
+noop = rt.remote(chip_smoke.front_noop)
+rt.get(noop.remote())
+trips = []
+for _ in range(chip_smoke.FRONT_CLIENT_TRIPS):
+    t1 = time.perf_counter()
+    rt.get(noop.remote())
+    trips.append((time.perf_counter() - t1) * 1e3)
+out["round_trip_ms"] = statistics.median(trips)
+probe = rt.remote(num_gpus=1)(chip_smoke.FrontClientProbe)
+probe.options(name="front-probe").remote()
+handle = rt.get_actor("front-probe")
+out["actor"] = rt.get(handle.info.remote(), timeout=300)
+rt.kill(handle)
+out["cuda_initialized"] = torch.cuda.is_initialized()
+rt.shutdown()
+print("CLIENT " + json.dumps(out), flush=True)
+'''
+
+
+class FrontDoorProbe:
+    """(a)'s GPU actor (made remote with num_gpus=1): holds a bf16
+    tensor on its card."""
+
+    def hold(self, n):
+        import torch
+        from ray_tpu_torch import get_gpu_ids
+        self.t = torch.ones(n, device="cuda", dtype=torch.bfloat16)
+        return {"gpu_ids": get_gpu_ids(), "pid": os.getpid(),
+                "bytes": self.t.numel() * self.t.element_size()}
+
+
+class FrontClientProbe:
+    """(d)'s named actor, created through the client with num_gpus=1."""
+
+    def info(self):
+        from ray_tpu_torch import get_gpu_ids
+        return {"gpu_ids": get_gpu_ids(),
+                "visible": os.environ.get("CUDA_VISIBLE_DEVICES")}
+
+
+def front_noop():
+    return None
+
+
+def front_client_forward():
+    """(d)'s task, on the card it reserved: 2 layers of the 8B widths in
+    bf16 (seed 0) forward over a FRONT_CLIENT_SEQ-token prompt (seed 3);
+    the last row's logits as an fp32 CUDA tensor, their sum taken on the
+    card, K1's launches (zeroed just before) and the task's GPU ids."""
+    import psutil
+    import torch
+    from ray_tpu_torch import get_gpu_ids
+    from ray_tpu_torch.models import Llama, LlamaConfig
+    from ray_tpu_torch.ops.kernels import flash_attention as fa
+    t_enter = time.time()
+    cfg = LlamaConfig.llama3_8b(n_layers=2, dtype=torch.bfloat16,
+                                param_dtype=torch.bfloat16)
+    model = Llama(cfg, device="cuda", seed=0)
+    torch.cuda.synchronize()
+    t_built = time.time()
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    tokens = torch.randint(0, cfg.vocab_size, (1, FRONT_CLIENT_SEQ),
+                           device="cuda", generator=gen)
+    zero_counters(fa)
+    with torch.no_grad():
+        out = model(tokens)
+    logits = out[0] if isinstance(out, tuple) else out
+    row = logits[0, -1].float().clone()
+    checksum = float(row.double().sum())
+    return row, checksum, fa.flash_attention_fwd.launches, {
+        "gpu_ids": get_gpu_ids(), "pid": os.getpid(),
+        "started": psutil.Process().create_time(), "t_enter": t_enter,
+        "t_built": t_built, "t_done": time.time()}
+
+
+def front_job_loop(config):
+    """(c)'s job, in its TorchTrainer rank on the card: the tune phase's
+    model and batch, adamw at FRONT_JOB_LR, FRONT_JOB_STEPS steps, each
+    reported with its end time; K1/K2a/K2b zeroed just before the steps
+    and read just after."""
+    import psutil
+    import torch
+    from ray_tpu_torch import get_gpu_ids
+    from ray_tpu_torch.ops.kernels import flash_attention as fa
+    from ray_tpu_torch.train import make_optimizer, make_train_step, report
+    t_loop = time.time()
+    model, cfg = tune_model(torch)
+    batch = {"tokens": torch.from_numpy(tune_batch(cfg.vocab_size)).cuda()}
+    state, step = make_train_step(
+        model, make_optimizer("adamw", learning_rate=FRONT_JOB_LR))(batch)
+    torch.cuda.synchronize()
+    t_built = time.time()
+    zero_counters(fa)
+    for i in range(FRONT_JOB_STEPS):
+        state, m = step(state, batch)
+        report({"step": i + 1, "loss": float(m["loss"]), "t": time.time()})
+    report({"launches": read_counters(fa), "gpu_ids": get_gpu_ids(),
+            "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+            "started": psutil.Process().create_time(), "t_loop": t_loop,
+            "t_built": t_built})
+
+
+def front_env(**extra):
+    """The environment of a process this phase starts: the checkout on
+    PYTHONPATH."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (HERE, env.get("PYTHONPATH")) if p)
+    env.update(extra)
+    return env
+
+
+def front_cli(*argv, timeout=120):
+    """`python -m ray_tpu_torch <argv>`; fails unless it exits 0."""
+    res = subprocess.run([sys.executable, "-m", "ray_tpu_torch", *argv],
+                         cwd=HERE, env=front_env(), capture_output=True,
+                         text=True, timeout=timeout)
+    check(res.returncode == 0,
+          f"front doors: `ray_tpu_torch {' '.join(argv)}` exited "
+          f"{res.returncode}:\n{res.stdout[-2000:]}\n{res.stderr[-2000:]}")
+    return res.stdout
+
+
+def front_descendants(pid):
+    import psutil
+    try:
+        return psutil.Process(pid).children(recursive=True)
+    except psutil.NoSuchProcess:
+        return []
+
+
+def front_gone(procs, label, timeout_s=30.0):
+    """Fails unless every process of `procs` has exited within
+    timeout_s."""
+    import psutil
+    deadline = time.time() + timeout_s
+    while True:
+        alive = []
+        for p in procs:
+            try:
+                if p.is_running() and p.status() != psutil.STATUS_ZOMBIE:
+                    alive.append(p.pid)
+            except psutil.NoSuchProcess:
+                pass
+        if not alive or time.time() > deadline:
+            break
+        time.sleep(0.2)
+    check(not alive, f"{label}: processes left: {alive}")
+
+
+def front_memory_back(torch, free0, label, timeout_s=30.0):
+    """Fails unless the card's free memory is back within 1 GiB of
+    free0 within timeout_s; returns it."""
+    deadline = time.time() + timeout_s
+    while True:
+        free, _ = torch.cuda.mem_get_info()
+        if free >= free0 - 2**30 or time.time() > deadline:
+            break
+        time.sleep(0.5)
+    check(free >= free0 - 2**30,
+          f"{label}: card memory not freed: {free / 2**30:.2f} GiB free, "
+          f"{free0 / 2**30:.2f} before")
+    return free
+
+
+def front_dashboard_cli(torch, rt, gpu_line):
+    """(a): a num_gpus=1 actor holding FRONT_HOLD_ELEMS bf16 on its card,
+    the dashboard and the CLI's state verbs against it, memory_summary,
+    and `lint`. Returns the dashboard's URL and the actor."""
+    import tempfile
+
+    from ray_tpu_torch.observability import memory_summary, start_dashboard
+    t0 = time.time()
+    dash = start_dashboard(port=0)
+    holder = rt.remote(num_gpus=1)(FrontDoorProbe).remote()
+    held = rt.get(holder.hold.remote(FRONT_HOLD_ELEMS), timeout=300)
+    t_actor = time.time() - t0
+    url = dash.url
+    t1 = time.time()
+    status = json.loads(front_cli("--address", url, "status"))
+    actors = json.loads(front_cli("--address", url, "list", "actors",
+                                  "--json"))
+    workers = json.loads(front_cli("--address", url, "list", "workers",
+                                   "--json"))
+    table = front_cli("--address", url, "list", "workers")
+    summary = json.loads(front_cli("--address", url, "summary", "tasks"))
+    metrics = front_cli("--address", url, "metrics")
+    with tempfile.TemporaryDirectory() as root:
+        path = os.path.join(root, "timeline.json")
+        front_cli("--address", url, "timeline", "-o", path)
+        with open(path) as f:
+            events = json.load(f)
+    t_cli = time.time() - t1
+    actor = next(a for a in actors if a["class_name"] == "FrontDoorProbe")
+    worker = next(w for w in workers if w["worker_id"] == actor["worker_id"])
+    mem = memory_summary()
+    rss = {w["worker_id"]: w["rss_bytes"] for w in mem["workers"]}
+    t2 = time.time()
+    lint = front_cli("lint", timeout=300).strip().splitlines()[-1]
+    t_lint = time.time() - t2
+    print(f"front doors (a): dashboard {url}; a num_gpus=1 actor holding "
+          f"{held['bytes'] / 2**20:.0f} MiB of bf16 on its card (ready "
+          f"{t_actor:.2f} s after the dashboard); the CLI's status, list "
+          f"actors/workers, summary tasks, metrics and timeline "
+          f"({len(events)} events) in {t_cli:.2f} s: cluster resources "
+          f"{status['resources_total']}, the actor {actor['state']} on "
+          f"worker {worker['worker_id']} with gpu_ids {worker['gpu_ids']} "
+          f"(its RSS {rss.get(worker['worker_id'], 0) / 2**20:.0f} MiB in "
+          f"memory_summary), {summary['total']} tasks; `lint`: {lint} in "
+          f"{t_lint:.2f} s [{gpu_line}]", flush=True)
+    check(status["resources_total"].get("GPU") == 1,
+          f"front doors (a): /api/cluster resources {status}")
+    check(actor["state"] == "ALIVE" and worker["gpu_ids"] == [0]
+          and held["gpu_ids"] == [0],
+          f"front doors (a): the actor {actor}, its worker {worker}")
+    check("gpu_ids" in table.splitlines()[0],
+          f"front doors (a): `list workers` header {table.splitlines()[0]}")
+    check(rss.get(worker["worker_id"], 0) > 0,
+          f"front doors (a): memory_summary has no RSS of the actor's "
+          f"worker: {mem['workers']}")
+    check(events and "(counter)" in metrics,
+          "front doors (a): empty timeline or metrics")
+    check(" 0 findings" in lint, f"front doors (a): lint: {lint}")
+    return url, holder
+
+
+def front_jobs(torch, rt, url, job_losses, gpu_line):
+    """(c): the job script submitted with `job submit --remote` through
+    (a)'s dashboard, followed with `job logs --follow`, then `job status`
+    and `job list`; its losses against the same steps in-process, its
+    K1/K2a/K2b against the step's. Then `job stop` of a sleeping CPU job.
+    Returns the job's launches."""
+    import shutil
+    import tempfile
+    root = tempfile.mkdtemp(prefix="chip_smoke_job_")
+    try:
+        path = os.path.join(root, "job.py")
+        with open(path, "w") as f:
+            f.write(FRONT_JOB_SOURCE.format(here=HERE))
+        t_submit = time.time()
+        sid = front_cli("--address", url, "job", "submit", "--remote",
+                        "--no-wait", "--", sys.executable, path).strip()
+        logs = front_cli("--address", url, "job", "logs", "--follow", sid,
+                         timeout=FRONT_WAIT_S)
+        t_end = time.time()
+        status = front_cli("--address", url, "job", "status", sid).strip()
+        listed = front_cli("--address", url, "job", "list")
+        lines = [ln for ln in logs.splitlines() if ln.strip()]
+        check(status == "SUCCEEDED" and lines
+              and lines[-1].startswith("JOB "),
+              f"front doors (c): job {sid} {status}:\n{logs[-3000:]}")
+        job = json.loads(lines[-1][len("JOB "):])
+        losses, want = job["losses"], job_losses[:FRONT_JOB_STEPS]
+        rel = max(abs(x - w) / abs(w) for x, w in zip(losses, want))
+        n = TUNE_LAYERS * FRONT_JOB_STEPS
+        print(f"front doors (c): job {sid} ({TUNE_LAYERS} layers of the 8B "
+              f"widths, {FRONT_JOB_STEPS} steps at lr {FRONT_JOB_LR} in one "
+              f"TorchTrainer rank on get_gpu_ids {job['gpu_ids']}, "
+              f"CUDA_VISIBLE_DEVICES {job['visible']!r}): {status}; submit "
+              f"to the first step's end {job['t'][0] - t_submit:.2f} s (the "
+              f"job's script started at +{job['t_start'] - t_submit:.2f} s, "
+              f"its init() done at +{job['t_init'] - t_submit:.2f}, the "
+              f"rank's process started at +{job['started'] - t_submit:.2f}, "
+              f"its loop at +{job['t_loop'] - t_submit:.2f}, the model and "
+              f"step built at +{job['t_built'] - t_submit:.2f}), submit to "
+              f"`job logs --follow` returning {t_end - t_submit:.2f} s; "
+              f"losses "
+              f"{[round(x, 6) for x in losses]} against the in-process "
+              f"steps' {[round(x, 6) for x in want]}, max relative "
+              f"difference {rel:.3g} (bit for bit {losses == want}); "
+              f"launches {json.dumps(job['launches'])} [{gpu_line}]",
+              flush=True)
+        check(sid in listed, f"front doors (c): `job list` lacks {sid}")
+        check(job["gpu_ids"] == [0] and job["visible"] == "0",
+              f"front doors (c): the job's rank saw {job['gpu_ids']}")
+        check(len(losses) == FRONT_JOB_STEPS and rel <= RUNTIME_RTOL,
+              "front doors (c): the job's losses differ from the "
+              "in-process steps'")
+        check(job["launches"] == {"flash_fwd (K1)": 2 * n,
+                                  "flash_bwd_dq (K2a)": n,
+                                  "flash_bwd_dkv (K2b)": n},
+              f"front doors (c): the job's launches {job['launches']}")
+        sleeper = front_cli(
+            "--address", url, "job", "submit", "--remote", "--no-wait",
+            "--", sys.executable, "-c",
+            "'import time; time.sleep(600)'").strip()
+        deadline = time.time() + 30
+        while (front_cli("--address", url, "job", "status",
+                         sleeper).strip() != "RUNNING"
+               and time.time() < deadline):
+            time.sleep(0.2)
+        t0 = time.time()
+        stopped = front_cli("--address", url, "job", "stop", sleeper).strip()
+        after = front_cli("--address", url, "job", "status", sleeper).strip()
+        print(f"front doors (c): `job stop` of a sleeping CPU job: "
+              f"{stopped!r}, then {after} in {time.time() - t0:.2f} s",
+              flush=True)
+        check(after == "STOPPED", f"front doors (c): stopped job {after}")
+        return job["launches"]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def front_rllib(torch, rt, gpu_line):
+    """(e): PPO on GridWorld with 2 remote env runners (2 envs x 8 steps
+    each) and the learner on the card, FRONT_RL_ITERS iterations; each
+    runner's process sees no card, the learner's params stay on it, and
+    stop() kills the runners."""
+    from ray_tpu_torch import rllib
+    from ray_tpu_torch.rllib.rl_module import tree_leaves
+    from ray_tpu_torch.util import state as state_api
+    t0 = time.time()
+    algo = (rllib.PPOConfig().environment(rllib.GridWorld)
+            .env_runners(num_env_runners=2, num_envs_per_env_runner=2,
+                         rollout_fragment_length=8)
+            .training(num_epochs=1, minibatch_size=16).debugging(seed=0)
+            .build())
+    totals = [algo.train()["timesteps_total"] for _ in range(FRONT_RL_ITERS)]
+    t_fit = time.time() - t0
+    on_card = all(t.is_cuda for _, t in tree_leaves(algo.params))
+    rows = state_api.list_actors(
+        filters=[("class_name", "=", "_RemoteRunner"),
+                 ("state", "=", "ALIVE")], limit=100)
+    pids = {w["worker_id"]: w["pid"]
+            for w in state_api.list_workers(limit=1000)}
+    visible = []
+    for r in rows:
+        with open(f"/proc/{pids[r['worker_id']]}/environ", "rb") as f:
+            env = dict(kv.split(b"=", 1) for kv in f.read().split(b"\0")
+                       if b"=" in kv)
+        visible.append(env.get(b"CUDA_VISIBLE_DEVICES", b"unset").decode())
+    algo.stop()
+    deadline = time.time() + 30
+    while time.time() < deadline and state_api.list_actors(
+            filters=[("class_name", "=", "_RemoteRunner"),
+                     ("state", "=", "ALIVE")], limit=100):
+        time.sleep(0.2)
+    left = state_api.list_actors(
+        filters=[("class_name", "=", "_RemoteRunner"),
+                 ("state", "=", "ALIVE")], limit=100)
+    print(f"front doors (e): PPO on GridWorld, 2 remote env runners x 2 "
+          f"envs x 8 steps, the learner on {algo.device}: timesteps_total "
+          f"{totals} in {t_fit:.2f} s (build included); the runners' "
+          f"CUDA_VISIBLE_DEVICES {visible}; the learner's params on the "
+          f"card {on_card}; runners alive after stop() {len(left)} "
+          f"[{gpu_line}]", flush=True)
+    check(totals == [32 * (i + 1) for i in range(FRONT_RL_ITERS)],
+          f"front doors (e): timesteps_total {totals}")
+    check(visible == ["", ""], f"front doors (e): runners saw {visible}")
+    check(on_card, "front doors (e): the learner's params left the card")
+    check(not left, f"front doors (e): runners left after stop(): {left}")
+
+
+class FrontServeRun:
+    """(b): one `python -m ray_tpu_torch serve run frontapp:app --port 0
+    --dashboard-port 0` process, started at construction from `root`
+    (the app module's directory, also on its PYTHONPATH)."""
+
+    def __init__(self, root):
+        env = front_env()
+        env["PYTHONPATH"] = os.pathsep.join([root, env["PYTHONPATH"]])
+        self.t0 = time.time()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "ray_tpu_torch", "serve", "run",
+             f"{FRONT_APP}:app", "--port", "0", "--dashboard-port", "0"],
+            cwd=root, env=env, stdout=subprocess.PIPE, text=True)
+
+    @staticmethod
+    def write_app(root):
+        with open(os.path.join(root, f"{FRONT_APP}.py"), "w") as f:
+            f.write(FRONT_APP_SOURCE.format(
+                app=FRONT_APP, engine=dict(SERVE_DEPLOY_PARITY_ENGINE)))
+
+    def ready(self):
+        """Reads the banner and the dashboard's URL, then polls until a
+        reply is 200; the seconds from the process's start to then."""
+        banner = self.proc.stdout.readline().strip()
+        self.t_banner = time.time()
+        self.dash = self.proc.stdout.readline().strip().rsplit(" ", 1)[-1]
+        check(banner.startswith(f"serving {FRONT_APP}:app on http://"),
+              f"front doors (b): serve run printed {banner!r}")
+        self.port = int(banner.rsplit(":", 1)[-1])
+        wait_http_200(self.port, {"prompt": [1, 2, 3], "max_tokens": 1,
+                                  "temperature": 0.0}, FRONT_WAIT_S)
+        self.t_first = time.time() - self.t0
+        return self.t_first
+
+    def post(self, body):
+        import urllib.request
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{self.port}/v1/completions",
+            data=json.dumps(body).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=60) as r:
+            return json.loads(r.read())
+
+    def parity(self, parity, gpu_line):
+        """The fp32 app's greedy tokens over HTTP (unary and SSE) against
+        the plain loop, K1/K3 counted in the replica (zeroed just before)
+        and `serve status` through its dashboard. Returns the replica's
+        launches."""
+        prompts, want = parity
+        self.post({"launches": "zero"})
+        got = {}
+        for mode in ("unary", "sse"):
+            bodies = [{"prompt": p, "max_tokens": PARITY_NEW,
+                       "temperature": 0.0, "stream": mode == "sse"}
+                      for p in prompts]
+            results, _ = http_burst(self.port, bodies)
+            got[mode] = [ids for ids, _n, _t in results]
+        counts = self.post({"launches": "read"})
+        launches = {k: counts[k] for k in ("flash_fwd (K1)",
+                                           "paged_decode (K3)")}
+        init0, init1 = counts["init_span"]
+        status = json.loads(front_cli("--address", self.dash, "serve",
+                                      "status"))
+        t0 = self.t0
+        print(f"front doors (b): `serve run {FRONT_APP}:app` (the parity "
+              f"phase's fp32 model, TF32 off in the replica): process start "
+              f"to the first 200 reply {self.t_first:.2f} s (its banner at "
+              f"+{self.t_banner - t0:.2f} s; the replica's process started "
+              f"at +{counts['started'] - t0:.2f} s, its __init__ ran from "
+              f"+{init0 - t0:.2f} s for {init1 - init0:.2f} s); "
+              f"{len(prompts)} greedy prompts over HTTP, unary equal to "
+              f"the plain loop {got['unary'] == want}, SSE equal "
+              f"{got['sse'] == want}; the replica on get_gpu_ids "
+              f"{counts['gpu_ids']}, launches {json.dumps(launches)}; "
+              f"`serve status` through its dashboard: running "
+              f"{status.get('running')}, apps "
+              f"{sorted(status.get('applications', {}))} [{gpu_line}]",
+              flush=True)
+        check(got["unary"] == want and got["sse"] == want,
+              "front doors (b): served greedy tokens differ from the plain "
+              "full-recompute loop")
+        check(launches["flash_fwd (K1)"] > 0
+              and launches["paged_decode (K3)"] > 0,
+              f"front doors (b): the replica's kernels did not run: "
+              f"{launches}")
+        check(counts["gpu_ids"] == [0],
+              f"front doors (b): the replica saw {counts['gpu_ids']}")
+        check(status.get("running") is True
+              and "default" in status.get("applications", {}),
+              f"front doors (b): serve status {status}")
+        return launches
+
+    def stop(self, torch, sig, free0, gpu_line):
+        """Signal `sig`: the process exits, leaves no process and the
+        card's memory comes back."""
+        import signal
+        name = signal.Signals(sig).name
+        kids = front_descendants(self.proc.pid)
+        check(any("core.worker" in " ".join(k.cmdline()) for k in kids),
+              "front doors (b): serve run has no worker process")
+        t1 = time.time()
+        self.proc.send_signal(sig)
+        rc = self.proc.wait(timeout=60)
+        front_gone(kids, f"front doors (b): serve run after {name}")
+        free = front_memory_back(torch, free0,
+                                 f"front doors (b) after {name}")
+        print(f"front doors (b): {name} to serve run: exit code {rc}, its "
+              f"{len(kids)} processes gone and the card's memory back "
+              f"({free / 2**30:.2f} GiB free, {free0 / 2**30:.2f} before) in "
+              f"{time.time() - t1:.2f} s [{gpu_line}]", flush=True)
+
+    def kill(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+
+
+def front_client(torch, gpu_line):
+    """(d): a client host with one card, a client that sees the card and
+    one that does not (CUDA_VISIBLE_DEVICES=""), each running the forward
+    task through init(address="ray://..."); a named GPU actor reached
+    through each client; the host outlives its clients and leaves no
+    process when terminated (the card's memory is checked after (b)'s
+    second run, which overlaps this). Returns the task's K1 launches."""
+    import shutil
+    import tempfile
+
+    from ray_tpu_torch.models import LlamaConfig
+    vocab = LlamaConfig.llama3_8b().vocab_size
+    root = tempfile.mkdtemp(prefix="chip_smoke_client_")
+    host = None
+    try:
+        path = os.path.join(root, "client.py")
+        with open(path, "w") as f:
+            f.write(FRONT_CLIENT_SOURCE.format(here=HERE))
+        t0 = time.time()
+        host = subprocess.Popen(
+            [sys.executable, "-m", "ray_tpu_torch.client.server", "--listen",
+             "127.0.0.1:0", "--num-gpus", "1"], cwd=HERE, env=front_env(),
+            stdout=subprocess.PIPE, text=True)
+        address = host.stdout.readline().strip()
+        t_host = time.time() - t0
+        check(address.startswith("ray://"),
+              f"front doors (d): the host printed {address!r}")
+        runs = {}
+        for label, extra in (("card", {}),
+                             ("cpu", {"CUDA_VISIBLE_DEVICES": ""})):
+            t1 = time.time()
+            res = subprocess.run([sys.executable, path, address], cwd=HERE,
+                                 env=front_env(**extra), capture_output=True,
+                                 text=True, timeout=FRONT_WAIT_S)
+            lines = [ln for ln in res.stdout.splitlines()
+                     if ln.startswith("CLIENT ")]
+            check(res.returncode == 0 and lines,
+                  f"front doors (d): the {label} client failed:\n"
+                  f"{res.stdout[-2000:]}\n{res.stderr[-3000:]}")
+            runs[label] = json.loads(lines[-1][len("CLIENT "):])
+            runs[label]["wall_s"] = time.time() - t1
+        card, cpu = runs["card"], runs["cpu"]
+        check(host.poll() is None, "front doors (d): the host exited")
+        kids = front_descendants(host.pid)
+        host.terminate()
+        rc = host.wait(timeout=60)
+        front_gone(kids, "front doors (d): the client host after SIGTERM")
+        for label, r in runs.items():
+            task = r["task"]
+            print(f"front doors (d): the {label} client "
+                  f"(CUDA_VISIBLE_DEVICES {r['visible']!r}): the task "
+                  f"(get_gpu_ids {task['gpu_ids']}, worker pid "
+                  f"{task['pid']}, K1 {r['launches']}) returned a "
+                  f"{r['dtype']} {r['shape']} tensor on {r['device']} "
+                  f"{r['t_got'] - r['t0']:.2f} s after its submit: the "
+                  f"worker's process started at "
+                  f"{task['started'] - r['t0']:+.2f} s, the task entered at "
+                  f"+{task['t_enter'] - r['t0']:.2f} s, built the model in "
+                  f"{task['t_built'] - task['t_enter']:.2f} s and ran the "
+                  f"forward in {task['t_done'] - task['t_built']:.2f} s, "
+                  f"the client's wait returned "
+                  f"{r['t_ready'] - task['t_done']:.2f} s later and its get "
+                  f"{r['t_got'] - r['t_ready']:.2f} s after that (the "
+                  f"client imported torch in {r['torch_import_s']:.2f} s "
+                  f"before it submitted); CUDA initialised "
+                  f"in the client {r['cuda_initialized']}; median round trip "
+                  f"of a small task {r['round_trip_ms']:.2f} ms over "
+                  f"{FRONT_CLIENT_TRIPS}; the named actor saw "
+                  f"{r['actor']}; the client's wall {r['wall_s']:.2f} s "
+                  f"[{gpu_line}]", flush=True)
+        print(f"front doors (d): host up in {t_host:.2f} s and alive after "
+              f"both clients; SIGTERM: exit code {rc}, its {len(kids)} "
+              f"processes gone; the card "
+              f"client's checksum on its card {card.get('client_checksum')} "
+              f"against the task's {card['checksum']}; the two clients' "
+              f"bytes equal {card['sha'] == cpu['sha']}", flush=True)
+        check(card["device"].startswith("cuda")
+              and card.get("client_checksum") == card["checksum"],
+              f"front doors (d): the card client got {card}")
+        check(cpu["device"] == "cpu" and cpu["cuda_initialized"] is False
+              and cpu["sha"] == card["sha"],
+              f"front doors (d): the CPU client got {cpu}")
+        for r in (card, cpu):
+            check(r["task"]["gpu_ids"] == [0] and r["launches"] == 2
+                  and r["actor"] == {"gpu_ids": [0], "visible": "0"}
+                  and r["shape"] == [vocab],
+                  f"front doors (d): {r}")
+        return {"flash_fwd (K1)": card["launches"] + cpu["launches"]}
+    finally:
+        if host is not None and host.poll() is None:
+            host.kill()
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def front_cluster(torch, rt, gpu_line):
+    """(f): cluster_utils.Cluster with the head (counting the host's
+    card) and one agent (num_gpus 0): the cluster's one GPU, a num_gpus=1
+    task on the head's node, a CPU task pinned to the agent there, and
+    no agent left after shutdown."""
+    from ray_tpu_torch.cluster_utils import Cluster
+    from ray_tpu_torch.util.scheduling_strategies import \
+        NodeAffinitySchedulingStrategy
+
+    @rt.remote(num_gpus=1)
+    def gpu_where():
+        from ray_tpu_torch import get_gpu_ids
+        return os.environ.get("RAY_TPU_NODE_ID"), get_gpu_ids()
+
+    @rt.remote(num_cpus=1)
+    def cpu_where():
+        return os.environ.get("RAY_TPU_NODE_ID")
+
+    t0 = time.time()
+    cluster = Cluster(head_cpus=4)
+    try:
+        head = cluster._rt.node_id
+        agent = cluster.add_node(num_cpus=2)
+        t_up = time.time() - t0
+        res = rt.cluster_resources()
+        node, ids = rt.get(gpu_where.remote(), timeout=300)
+        on_agent = rt.get(cpu_where.options(
+            scheduling_strategy=NodeAffinitySchedulingStrategy(
+                agent, soft=False)).remote(), timeout=300)
+    finally:
+        agents = list(cluster._agents)
+        cluster.shutdown()
+    left = [p.pid for p in agents if p.poll() is None]
+    print(f"front doors (f): a head and one agent (--num-gpus 0) up in "
+          f"{t_up:.2f} s: cluster resources GPU {res.get('GPU')}, CPU "
+          f"{res.get('CPU')}; the num_gpus=1 task on the head "
+          f"{node == head} with get_gpu_ids {ids}; the pinned CPU task on "
+          f"the agent {on_agent == agent}; agents left after shutdown "
+          f"{left} [{gpu_line}]", flush=True)
+    check(res.get("GPU") == 1, f"front doors (f): cluster resources {res}")
+    check(node == head and ids == [0],
+          f"front doors (f): the GPU task ran on {node} with {ids}")
+    check(on_agent == agent, f"front doors (f): the pinned task ran on "
+                             f"{on_agent}, not the agent {agent}")
+    check(not left, f"front doors (f): agents left: {left}")
+
+
+def phase_front_doors(torch, gpu_line, parity, job_losses):
+    """18. front doors: (a) the dashboard and the CLI, (c) a job, (e)
+    rllib's remote env runners in one runtime; then (b) `serve run`
+    twice (SIGINT; then SIGTERM, the second run coming up while (d)'s
+    clients run), (d) the thin client and (f) the local cluster. Returns
+    the launches of `serve run`'s replica, the job and the client's
+    task."""
+    import shutil
+    import signal
+    import tempfile
+
+    import ray_tpu_torch as rt
+
+    t_phase = time.time()
+    release(torch)
+    free0, total = torch.cuda.mem_get_info()
+    print(f"front doors: card memory free {free0 / 2**30:.2f} of "
+          f"{total / 2**30:.2f} GiB before the phase", flush=True)
+    launches = {}
+    rt.init()
+    try:
+        url, holder = front_dashboard_cli(torch, rt, gpu_line)
+        rt.kill(holder)          # the job's own runtime takes the card
+        launches["job"] = front_jobs(torch, rt, url, job_losses, gpu_line)
+        front_rllib(torch, rt, gpu_line)
+    finally:
+        from ray_tpu_torch.observability import stop_dashboard
+        stop_dashboard()
+        rt.shutdown()
+    wait_no_workers("front doors (a, c, e)")
+    release(torch)
+    root = tempfile.mkdtemp(prefix="chip_smoke_serve_run_")
+    runs = []
+    try:
+        FrontServeRun.write_app(root)
+        runs.append(FrontServeRun(root))
+        runs[0].ready()
+        launches["cli-serve"] = runs[0].parity(parity, gpu_line)
+        runs[0].stop(torch, signal.SIGINT, free0, gpu_line)
+        # the second run, ended by SIGTERM, comes up while the clients run
+        runs.append(FrontServeRun(root))
+        launches["client"] = front_client(torch, gpu_line)
+        runs[1].ready()
+        runs[1].stop(torch, signal.SIGTERM, free0, gpu_line)
+    finally:
+        for run in runs:
+            run.kill()
+        shutil.rmtree(root, ignore_errors=True)
+    front_cluster(torch, rt, gpu_line)
+    wait_no_workers("front doors (f)")
+    release(torch)
+    front_memory_back(torch, free0, "front doors")
+    print(f"front doors: phase wall {time.time() - t_phase:.1f} s "
+          f"[{gpu_line}]", flush=True)
     return launches
 
 
@@ -4670,7 +5498,9 @@ def main() -> None:
                                                         train_stats)
     launches.update(phase_serve_deploy(torch, gpu_line, serve_stats, parity))
     launches["data-trainer"] = phase_data(torch, gpu_line, rank_ms)
-    launches["tune"] = phase_tune(torch, gpu_line)
+    launches["tune"], tune_want = phase_tune(torch, gpu_line)
+    launches.update(phase_front_doors(torch, gpu_line, parity,
+                                      tune_want[FRONT_JOB_LR]))
 
     # each kernel's launches on the main paths (the serve bursts, train,
     # GRPO full, LoRA, the north star's and the mesh train step); K4 is

@@ -30,7 +30,10 @@ attention (`ops/ring_attention.py`), GPipe, Mixtral over ep and
 and placement groups with GPU resources (`num_gpus=`, `get_gpu_ids`),
 torch tensors kept on the device between tasks of one worker, and
 training over rank actors (`train.TorchTrainer`, `train.MultiHostSpmd`,
-`train.ElasticSpmdTrainer`).
+`train.ElasticSpmdTrainer`) — and the front doors: `python -m
+ray_tpu_torch` (`cli.py`), the dashboard, job submission, the thin
+client (`init(address="ray://...")`, `client/`) and the local cluster
+(`cluster_utils.py`).
 
 The runtime loads at first use: `import ray_tpu_torch` imports no
 runtime module until an API name (`init`, `remote`, ...) is read.
@@ -49,7 +52,7 @@ _CORE = {"ObjectRef": "core.object_ref", "ObjectRefGenerator":
          "core.object_ref", "ActorHandle": "core.actor"}
 _LAZY_SUBMODULES = ("train", "serve", "rllib", "util", "models", "ops",
                     "parallel", "observability", "dag", "data",
-                    "exceptions")
+                    "exceptions", "tune", "job_submission", "experimental")
 
 
 def __getattr__(name):

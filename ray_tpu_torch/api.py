@@ -33,9 +33,9 @@ def init(*, address=None, num_cpus=None, num_gpus=None, resources=None,
     """Start the ray_tpu_torch runtime in this (driver) process.
 
     num_gpus (default: the host's cards, core/resources.py detect_gpus)
-    is the node's "GPU" resource. address="ray://host:port", the
-    reference's thin client, raises NotImplementedError until the client
-    is ported.
+    is the node's "GPU" resource. address="ray://host:port" makes this
+    process a thin client of the cluster a `ray_tpu_torch.client.server`
+    hosts (client/__init__.py); it counts no cards and touches no CUDA.
 
     listen="host:port" (port 0 = ephemeral) additionally opens a TCP
     listener so remote hosts can join with
@@ -57,9 +57,27 @@ def init(*, address=None, num_cpus=None, num_gpus=None, resources=None,
                 return runtime_mod.get_runtime()
             raise RuntimeError("ray_tpu_torch.init() already called")
         if address is not None:
-            raise NotImplementedError(
-                "init(address='ray://...'): the thin client is not ported "
-                "yet (ROADMAP: the thin client)")
+            if not str(address).startswith("ray://"):
+                raise ValueError(
+                    "init(address=...) expects a 'ray://host:port' client "
+                    "address (start one with ray_tpu_torch.client.server)")
+            sizing = {"num_cpus": num_cpus, "num_gpus": num_gpus,
+                      "resources": resources,
+                      "object_store_memory": object_store_memory,
+                      "max_workers": max_workers, "listen": listen,
+                      "state_dir": state_dir,
+                      "resume": resume or None}
+            bad = [k for k, v in sizing.items() if v is not None]
+            if bad:
+                raise ValueError(
+                    f"init(address='ray://...') connects to an EXISTING "
+                    f"cluster; cluster-sizing options {bad} don't apply "
+                    f"(reference semantics: ray.init with a ray:// "
+                    f"address rejects local-cluster kwargs)")
+            from .client import ClientRuntime  # noqa: PLC0415
+            crt = ClientRuntime(address, namespace=namespace)
+            runtime_mod.set_runtime(crt)
+            return crt
         rt = DriverRuntime(num_cpus=num_cpus, num_gpus=num_gpus,
                            resources=resources,
                            object_store_memory=object_store_memory,

@@ -21,20 +21,29 @@ tensor is copied to the host once. The reader rebuilds a tensor that
 came from a card on its own default device: the card in a process that
 holds a GPU (CUDA_VISIBLE_DEVICES names one and CUDA is available), the
 CPU otherwise. torch's own pickling would put the storage in-band and,
-for a CUDA tensor, raise in a reader without a GPU.
+for a CUDA tensor, raise in a reader without a GPU. A process that only
+relays values (`relaying()`: the thin client's host) keeps such a
+tensor on the host, marked, and sends it on as one from a card.
 """
 from __future__ import annotations
 
+import contextlib
 import io
 import os
 import pickle
 import struct
 import sys
+import threading
 from typing import Any, List, Tuple
 
 import cloudpickle
 
 ALIGN = 64
+
+# the relaying() flag of this thread
+_relay = threading.local()
+# the mark of a tensor a relaying process kept on the host
+_FROM_CUDA = "_rtpt_from_cuda"
 
 
 def _align(n: int) -> int:
@@ -70,13 +79,30 @@ def _rebuild_tensor(buf, dtype: str, shape: tuple, requires_grad: bool,
         # shared memory: the tensor aliases it, as a numpy array does
         flat = torch.frombuffer(mv, dtype=torch.uint8)
     t = flat.view(dt).reshape(shape)
-    if from_cuda and _holds_gpu():
+    relayed = from_cuda and getattr(_relay, "on", False)
+    if from_cuda and not relayed and _holds_gpu():
         t = t.to("cuda")
     if parameter:
-        return torch.nn.Parameter(t, requires_grad=requires_grad)
-    if requires_grad:
+        t = torch.nn.Parameter(t, requires_grad=requires_grad)
+    elif requires_grad:
         t.requires_grad_(True)
+    if relayed:
+        setattr(t, _FROM_CUDA, True)
     return t
+
+
+@contextlib.contextmanager
+def relaying():
+    """Values unpacked in this thread meanwhile are passed on, not used:
+    a tensor that came from a card stays on the host, marked, and
+    packing it again sends it on as one from a card, so the relaying
+    process never touches CUDA for it."""
+    prev = getattr(_relay, "on", False)
+    _relay.on = True
+    try:
+        yield
+    finally:
+        _relay.on = prev
 
 
 class _TensorPickler(cloudpickle.CloudPickler):
@@ -91,7 +117,8 @@ class _TensorPickler(cloudpickle.CloudPickler):
                 and obj.device.type in ("cpu", "cuda")
                 and not obj.is_quantized):
             t = obj.detach()
-            from_cuda = t.device.type == "cuda"
+            from_cuda = t.device.type == "cuda" or getattr(obj, _FROM_CUDA,
+                                                           False)
             host = t.to("cpu").contiguous()
             raw = host.reshape(-1).view(torch.uint8).numpy()
             return (_rebuild_tensor,

@@ -145,9 +145,9 @@ def _iterate(host_batches, sharding, depth, dtypes, dev):
 
     try:
         while True:
-            # the producer's finally ALWAYS posts the sentinel (even on
-            # error), and a full queue drains as this consumer iterates:
-            # the get cannot park forever
+            # raylint: disable=RT003 the producer's finally ALWAYS posts
+            # the sentinel (even on error), and a full queue drains as
+            # this consumer iterates: the get cannot park forever
             item = q.get()
             if item is _SENTINEL:
                 if err:

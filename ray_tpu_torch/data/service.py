@@ -985,6 +985,8 @@ class DataServiceDispatcher:
                       max_workers=self._max_workers)
         now = time.time()
         with self._lock:
+            if self._shutdown.is_set():
+                return
             alive = [n for n, w in self._workers.items()
                      if w["state"] == "alive"]
             pending = sum(
@@ -1024,9 +1026,15 @@ class DataServiceDispatcher:
                 h = cls.options(name=name).remote(
                     SERVICE_ACTOR_NAME, name)
                 with self._lock:
-                    self._workers[name] = {
-                        "handle": h, "state": "alive", "busy": None,
-                        "idle_since": time.time()}
+                    # graceful_shutdown sets the event before it takes
+                    # the lock: a worker spawned across it is killed
+                    late = self._shutdown.is_set()
+                    if not late:
+                        self._workers[name] = {
+                            "handle": h, "state": "alive", "busy": None,
+                            "idle_since": time.time()}
+                if late:
+                    api.kill(h)
             except Exception:  # noqa: BLE001 — retried next tick
                 import traceback  # noqa: PLC0415
                 traceback.print_exc()
@@ -1130,8 +1138,9 @@ class DataServiceDispatcher:
     def graceful_shutdown(self) -> Dict[str, Any]:
         self._shutdown.set()
         with self._lock:
-            handles = [w["handle"] for w in self._workers.values()
-                       if w["state"] == "alive"]
+            # a worker marked dead after a missed ping may only have
+            # been wedged (a cold import) and is still up: kill it too
+            handles = [w["handle"] for w in self._workers.values()]
             self._workers = {}
         api = _api()
         for h in handles:

@@ -461,7 +461,8 @@ def foreign_modules() -> List[str]:
 
 def rank_env() -> str:
     """This rank's RAY_TPU_TRAIN_RANK, as the launcher set it."""
-    return os.environ.get("RAY_TPU_TRAIN_RANK")
+    from ..util import knobs  # noqa: PLC0415
+    return knobs.get_raw(knobs.TRAIN_RANK)
 
 
 __all__ = ["train_cases", "lora_case", "int8_forward", "checkpoint_case",

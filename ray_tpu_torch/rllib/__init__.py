@@ -7,10 +7,9 @@ on the config's device (CUDA unless the caller asks for the CPU). GRPO
 samples through the port's serve engine and trains full parameters or
 LoRA adapters (train/lora.py).
 
-Not ported: remote env runners (`num_env_runners > 0`, actors of the
-runtime; ROADMAP's "rllib's remote env runners") and a LearnerGroup
-over several devices (ROADMAP's "LearnerGroup over a mesh"); both
-raise.
+With `num_env_runners > 0` rollouts run on EnvRunner actors of the
+runtime, each on its CPU. Not ported: a LearnerGroup over several
+devices (ROADMAP's "LearnerGroup over a mesh"); it raises.
 """
 from .algorithm import Algorithm, AlgorithmConfig
 from .dqn import DQN, DQNConfig

@@ -6,25 +6,26 @@ algorithm_config.py. Fluent config (.environment().env_runners()
 .training().evaluation()) -> .build() -> Algorithm with .train()
 iterations, .save()/.restore(), periodic deterministic evaluation.
 
-Rollouts run on the local EnvRunner; the learner update runs on the
-config's device (`.resources(device=...)`, CUDA unless the caller asks
-for the CPU). The reference's remote runners (`num_env_runners > 0`)
-are actors of the runtime, not ported yet: they raise (ROADMAP's
-"rllib's remote env runners").
+Rollouts run on the local EnvRunner, or with `num_env_runners > 0` on
+that many EnvRunner actors of the runtime; the learner update runs on
+the config's device (`.resources(device=...)`, CUDA unless the caller
+asks for the CPU). A remote runner reserves no GPU and builds its
+policy on the CPU; it gets the learner's params as CPU tensors.
 """
 from __future__ import annotations
 
 import copy
 import os
+import pickle
 import time
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
 
 from .env_runner import EnvRunner
 from .rl_module import tree_copy_, tree_to_cpu
-from .sample_batch import SampleBatch
+from .sample_batch import SampleBatch, concat_samples
 
 STATE_NAME = "algorithm_state.pt"
 
@@ -121,6 +122,22 @@ def _make_runner(cfg: AlgorithmConfig, seed_offset: int) -> EnvRunner:
         lam=getattr(cfg, "lambda_", 0.95), device=cfg.device)
 
 
+class _RemoteRunner:
+    """Actor wrapper so EnvRunner runs over the core runtime
+    (reference: RolloutWorker as a ray actor). The actor holds no GPU
+    (its process sees none), so its policy runs on the CPU whatever the
+    learner's device."""
+
+    def __init__(self, cfg_bytes: bytes, seed_offset: int):
+        cfg = pickle.loads(cfg_bytes)
+        cfg.device = "cpu"
+        self.runner = _make_runner(cfg, seed_offset)
+
+    def sample(self, params):
+        batch = self.runner.sample(params)
+        return batch.as_numpy(), self.runner.pop_episode_stats()
+
+
 class Algorithm:
     """Base training loop. Subclasses implement training_step(batch)."""
 
@@ -128,22 +145,45 @@ class Algorithm:
         self.config = config
         if config.env is None:
             raise ValueError("config.environment(env=...) is required")
-        if config.num_env_runners > 0:
-            raise NotImplementedError(
-                "num_env_runners > 0 runs EnvRunners as actors of the "
-                "runtime, which are not ported yet (ROADMAP: rllib's "
-                "remote env runners); use num_env_runners=0 (the local "
-                "runner)")
         # local runner always exists: module spec source + evaluation
         self.local_runner = _make_runner(config, 0)
         self.module = self.local_runner.module
         self.device = self.module.device
         self.params = self.module.init(config.seed)
+        self._remote_runners: List[Any] = []
+        if config.num_env_runners > 0:
+            import ray_tpu_torch
+            if not ray_tpu_torch.is_initialized():
+                raise RuntimeError(
+                    "num_env_runners>0 needs ray_tpu_torch.init() first")
+            RemoteCls = ray_tpu_torch.remote(_RemoteRunner)
+            blob = pickle.dumps(config)
+            self._remote_runners = [RemoteCls.remote(blob, i + 1)
+                                    for i in range(config.num_env_runners)]
         self.iteration = 0
         self._timesteps_total = 0
 
     # -- rollout collection --
     def _collect(self) -> (SampleBatch, Dict[str, Any]):
+        if self._remote_runners:
+            import ray_tpu_torch
+            host_params = tree_to_cpu(self.params)
+            outs = ray_tpu_torch.get([r.sample.remote(host_params)
+                                      for r in self._remote_runners])
+            batches = [SampleBatch(b) for b, _ in outs]
+            stats_list = [s for _, s in outs]
+            rets = [s["episode_return_mean"] for s in stats_list
+                    if s["episode_return_mean"] is not None]
+            lens = [s["episode_len_mean"] for s in stats_list
+                    if s["episode_len_mean"] is not None]
+            stats = {
+                "episodes_this_iter": sum(s["episodes_this_iter"]
+                                          for s in stats_list),
+                "episode_return_mean": float(np.mean(rets)) if rets
+                else None,
+                "episode_len_mean": float(np.mean(lens)) if lens else None,
+            }
+            return concat_samples(batches), stats
         batch = self.local_runner.sample(self.params)
         return batch, self.local_runner.pop_episode_stats()
 
@@ -212,4 +252,10 @@ class Algorithm:
         pass
 
     def stop(self):
-        pass
+        for r in self._remote_runners:
+            try:
+                import ray_tpu_torch
+                ray_tpu_torch.kill(r)
+            except Exception:
+                pass
+        self._remote_runners = []

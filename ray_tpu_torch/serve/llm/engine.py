@@ -939,6 +939,11 @@ class LLMEngine:
             raise KeyError(request_id)
         try:
             while True:
+                # raylint: disable=RT003 the engine loop cannot exit with
+                # this request registered: its catch-all errors every
+                # active request's queue, failed admits error theirs, and
+                # the watchdog aborts stalled requests, while a timeout
+                # here would kill a legitimate long first prefill
                 kind, payload = req.out_queue.get()
                 if kind == "token":
                     yield payload

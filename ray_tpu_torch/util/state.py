@@ -137,6 +137,7 @@ def list_workers(filters=None, limit: int = 100) -> ListResult:
             "worker_id": w.worker_id, "pid": w.pid, "state": w.state,
             "current_task": w.current_task, "actor_id": w.actor_id,
             "gpu_capable": w.gpu_capable,
+            "gpu_ids": list(w.held_gpu_ids),
             "uptime_s": time.time() - w.started_at,
         })
     return _clip(rows, filters, limit)

@@ -311,3 +311,50 @@ def test_consumer_batches_on_the_device_and_nothing_left(runs):
     # the dispatcher and its data workers were up, and are gone
     assert port["out"]["shutdown"] == [True, []]
     assert port["workers_left"] == 0
+
+
+# graceful_shutdown kills every data worker the dispatcher spawned: one
+# it marked dead after a missed ping (it may only have been wedged, and
+# is still up), and its ticks spawn none after it. The reference kills
+# only the workers still marked alive, so a wedged worker outlives its
+# service (a deliberate difference; the port's program only).
+DEAD_WORKER_PROGRAM = r'''
+import json, time
+import ray_tpu_torch as rt
+from ray_tpu_torch.data import service
+from ray_tpu_torch.util import state
+rt.init(num_cpus=4)
+
+
+def alive():
+    rows = state.list_actors(filters=[("state", "=", "ALIVE")], limit=1000)
+    return sorted(r["actor_id"] for r in rows
+                  if r["class_name"] == "_DataWorkerImpl")
+
+
+def wait(pred, timeout=30):
+    deadline = time.time() + timeout
+    while time.time() < deadline and not pred():
+        time.sleep(0.1)
+    return pred()
+
+
+# the dispatcher as a plain object: its tick thread keeps two workers
+d = service.DataServiceDispatcher(min_workers=2, max_workers=2)
+up = wait(lambda: len(d._workers) == 2 and len(alive()) == 2)
+name = sorted(d._workers)[0]
+victim = d._workers[name]["handle"]._actor_id
+d._on_worker_dead(name)          # what a missed ping leads to
+marked = d._workers[name]["state"] == "dead" and victim in alive()
+d.graceful_shutdown()
+d._scale_workers()               # a tick that runs after the shutdown
+wait(lambda: not alive())
+left = alive()
+rt.shutdown()
+print("RESULT " + json.dumps({"up": up, "marked": marked, "left": left}))
+'''
+
+
+def test_shutdown_kills_dead_marked_and_late_workers():
+    (port,) = _run(DEAD_WORKER_PROGRAM, "ray_tpu_torch")
+    assert port == {"up": True, "marked": True, "left": []}

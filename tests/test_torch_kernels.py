@@ -565,30 +565,63 @@ def test_port_imports_no_jax_and_no_ray_tpu():
                      "preprocessors", "service")),
                  *(f"ray_tpu_torch.tune.{m}" for m in (
                      "space", "search", "schedulers", "stoppers",
-                     "session", "trainable", "loggers", "tuner"))):
+                     "session", "trainable", "loggers", "tuner")),
+                 # the front doors: the CLI, the dashboard, jobs, the thin
+                 # client, the local cluster, util and experimental
+                 "ray_tpu_torch.__main__", "ray_tpu_torch.cli",
+                 "ray_tpu_torch.client", "ray_tpu_torch.client.server",
+                 "ray_tpu_torch.cluster_utils",
+                 "ray_tpu_torch.job_submission",
+                 "ray_tpu_torch.observability.dashboard",
+                 "ray_tpu_torch.observability.memory_monitor",
+                 *(f"ray_tpu_torch.util.{m}" for m in (
+                     "actor_pool", "queue", "multiprocessing",
+                     "joblib_backend", "check_serialize",
+                     "scheduling_strategies")),
+                 "ray_tpu_torch.experimental",
+                 "ray_tpu_torch.experimental.internal_kv",
+                 "ray_tpu_torch.experimental.tqdm_ray",
+                 "ray_tpu_torch.rllib._testing"):
         assert name in mods.split()
 
 
 def test_spawned_worker_imports_no_jax_and_no_ray_tpu():
     """A worker process the port's runtime spawns runs a task and reports
-    its own modules: no jax, no ray_tpu / ray_tpu.*."""
+    its own modules: no jax, no ray_tpu / ray_tpu.*. So does a remote env
+    runner actor (the port's _RemoteRunner, here with a report of its
+    process), which samples on the CPU and sees no card."""
     code = (
-        "import sys\n"
+        "import pickle, sys\n"
         "import ray_tpu_torch as rt\n"
-        "rt.init(num_cpus=1)\n"
+        "from ray_tpu_torch import rllib as tr\n"
+        "from ray_tpu_torch.rllib._testing import ProbedRunner\n"
+        "rt.init(num_cpus=2)\n"
         "@rt.remote\n"
         "def mods():\n"
         "    import sys\n"
         "    return sorted(sys.modules)\n"
         "got = rt.get(mods.remote(), timeout=120)\n"
+        "cfg = (tr.PPOConfig().environment(tr.GridWorld)\n"
+        "       .env_runners(num_envs_per_env_runner=2,\n"
+        "                    rollout_fragment_length=4))\n"
+        "cfg.device = 'cpu'\n"
+        "params = tr.EnvRunner(tr.GridWorld, device='cpu').module.init(0)\n"
+        "runner = rt.remote(ProbedRunner).remote(pickle.dumps(cfg), 1)\n"
+        "batch, _ = rt.get(runner.sample.remote(params), timeout=120)\n"
+        "info = rt.get(runner.probe.remote(), timeout=60)\n"
         "rt.shutdown()\n"
         "print('ray_tpu_torch.core.serialization' in got)\n"
-        "print(' '.join(got))\n")
+        "print(' '.join(got))\n"
+        "print(len(batch['obs']), repr(info['visible']), info['device'])\n"
+        "print(' '.join(info['modules']))\n")
     res = _run_python(code)
     assert res.returncode == 0, res.stderr
-    in_worker, mods = res.stdout.strip().splitlines()[-2:]
+    in_worker, mods, head, runner_mods = res.stdout.strip().splitlines()[-4:]
     assert in_worker == "True"
     assert _leaks(mods.split()) == []
+    assert head == "8 '' cpu"
+    assert "ray_tpu_torch.rllib.env_runner" in runner_mods.split()
+    assert _leaks(runner_mods.split()) == []
 
 
 def test_trial_worker_imports_no_jax_and_no_ray_tpu():
@@ -653,6 +686,79 @@ def test_replica_worker_imports_no_jax_and_no_ray_tpu():
     for name in ("ray_tpu_torch.serve.replica",
                  "ray_tpu_torch.serve.llm.engine", "torch"):
         assert name in mods
+    assert _leaks(mods) == []
+
+
+def _imported(importtime_log):
+    """Module names a `python -X importtime` process imported."""
+    return sorted({ln.rsplit("|", 1)[-1].strip()
+                   for ln in importtime_log.splitlines()
+                   if ln.startswith("import time:") and "|" in ln}
+                  - {"imported package"})
+
+
+def test_client_host_and_client_import_no_jax_and_no_ray_tpu():
+    """A client host (`python -m ray_tpu_torch.client.server`, run with
+    -X importtime) serves a client that runs a task: neither the host's
+    imports nor the client's modules hold jax or ray_tpu / ray_tpu.*."""
+    code = (
+        "import subprocess, sys\n"
+        "host = subprocess.Popen([sys.executable, '-X', 'importtime', '-m',\n"
+        "    'ray_tpu_torch.client.server', '--listen', '127.0.0.1:0',\n"
+        "    '--num-cpus', '1', '--num-gpus', '0'],\n"
+        "    stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)\n"
+        "import ray_tpu_torch as rt\n"
+        "rt.init(address=host.stdout.readline().strip())\n"
+        "@rt.remote\n"
+        "def one():\n"
+        "    return 1\n"
+        "got = rt.get(one.remote(), timeout=120)\n"
+        "rt.shutdown()\n"
+        "host.terminate()\n"
+        "_, log = host.communicate(timeout=30)\n"
+        "print(got)\n"
+        "print(' '.join(sorted(sys.modules)))\n"
+        "print(log.replace('\\n', '@@'))\n")
+    res = _run_python(code)
+    assert res.returncode == 0, res.stderr
+    got, mods, log = res.stdout.strip().splitlines()[-3:]
+    assert got == "1"
+    assert "ray_tpu_torch.client" in mods.split()
+    assert _leaks(mods.split()) == []
+    host_mods = _imported(log.replace("@@", "\n"))
+    assert {"ray_tpu_torch.client", "ray_tpu_torch.core.runtime"} <= set(
+        host_mods)
+    assert _leaks(host_mods) == []
+
+
+def test_job_driver_imports_no_jax_and_no_ray_tpu(tmp_path):
+    """A job submitted through the port's job submission is a driver of
+    its own: it inits a runtime, runs a task and reports its modules."""
+    job = tmp_path / "job.py"
+    job.write_text(
+        "import sys\n"
+        "import ray_tpu_torch as rt\n"
+        "rt.init(num_cpus=1)\n"
+        "@rt.remote\n"
+        "def one():\n"
+        "    return 1\n"
+        "assert rt.get(one.remote(), timeout=120) == 1\n"
+        "rt.shutdown()\n"
+        "print('MODULES ' + ' '.join(sorted(sys.modules)))\n")
+    code = (
+        "import sys\n"
+        "from ray_tpu_torch.job_submission import JobSubmissionClient\n"
+        "client = JobSubmissionClient()\n"
+        f"sid = client.submit_job(entrypoint=sys.executable + ' {job}')\n"
+        "print(client.wait_until_finished(sid, timeout=120))\n"
+        "print([ln for ln in client.get_job_logs(sid).splitlines()\n"
+        "       if ln.startswith('MODULES ')][-1])\n")
+    res = _run_python(code)
+    assert res.returncode == 0, res.stderr
+    status, mods = res.stdout.strip().splitlines()[-2:]
+    assert status == "SUCCEEDED"
+    mods = mods.split()[1:]
+    assert "ray_tpu_torch.core.runtime" in mods
     assert _leaks(mods) == []
 
 

@@ -217,13 +217,72 @@ def test_sac_machinery_on_pendulum(tmp_path):
                                algo2.compute_single_action(obs), rtol=1e-5)
 
 
-# ---------- what the port does not have raises ----------
+# ---------- remote env runners ----------
 
 def test_remote_env_runners_raise():
+    """Without a runtime, remote env runners raise, as the reference's
+    do."""
+    from ray_tpu_torch.core import runtime as runtime_mod
+    assert not runtime_mod.runtime_initialized()
     config = _ppo_config().env_runners(num_env_runners=2)
-    with pytest.raises(NotImplementedError,
-                       match="rllib's remote env runners"):
+    with pytest.raises(RuntimeError, match="needs ray_tpu_torch.init"):
         config.build()
+
+
+REMOTE_PPO = r'''
+import json, os
+import numpy as np
+import ray_tpu_torch as rt
+from ray_tpu_torch import rllib as tr
+from ray_tpu_torch.rllib.algorithm import _make_runner
+from ray_tpu_torch.rllib.rl_module import tree_clone
+from ray_tpu_torch.rllib.sample_batch import concat_samples
+rt.init(num_cpus=3)
+cfg = (tr.PPOConfig().environment(tr.GridWorld)
+       .env_runners(num_env_runners=2, num_envs_per_env_runner=2,
+                    rollout_fragment_length=8)
+       .training(num_epochs=1, minibatch_size=16).resources(device="cpu"))
+algo = cfg.build()
+seen = []
+step = algo.training_step
+algo.training_step = lambda batch: (seen.append(batch), step(batch))[1]
+params = tree_clone(algo.params)
+res = algo.train()
+local = concat_samples([_make_runner(cfg, i).sample(params) for i in (1, 2)])
+got = seen[0]
+equal = (sorted(got) == sorted(local)
+         and all(np.array_equal(got[k], local[k]) for k in local))
+algo.stop()
+rt.shutdown()
+print("RESULT " + json.dumps({"equal": bool(equal), "count": got.count,
+                              "timesteps_total": res["timesteps_total"],
+                              "runners_left": len(algo._remote_runners)}))
+'''
+
+
+def test_ppo_with_remote_env_runners_samples_as_local_runners():
+    """PPO with 2 remote runners on the CPU (in a subprocess: its own
+    runtime): the batch it trains on equals, bit for bit, the batches of
+    _make_runner(cfg, 1) and _make_runner(cfg, 2) sampled in-process with
+    the same params; one iteration counts 2 x 2 envs x 8 steps."""
+    import json
+    import os
+    import subprocess
+    import sys
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    res = subprocess.run([sys.executable, "-c", REMOTE_PPO], cwd=repo,
+                         env=dict(os.environ, PYTHONPATH=repo),
+                         capture_output=True, text=True, timeout=120)
+    lines = [ln for ln in res.stdout.splitlines()
+             if ln.startswith("RESULT ")]
+    assert res.returncode == 0 and lines, res.stdout[-2000:] + \
+        res.stderr[-2000:]
+    assert json.loads(lines[-1][len("RESULT "):]) == {
+        "equal": True, "count": 32, "timesteps_total": 32,
+        "runners_left": 0}
+
+
+# ---------- what the port does not have raises ----------
 
 
 def test_learner_group_over_several_devices_raises():
