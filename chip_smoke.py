@@ -5,7 +5,7 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
-It builds every CUDA kernel from `ray_tpu_torch/csrc/`, then runs eighteen
+It builds every CUDA kernel from `ray_tpu_torch/csrc/`, then runs nineteen
 phases and fails (non-zero exit, no result line) if any of them fails:
 
 1. kernels: each kernel against its plain PyTorch version at
@@ -172,7 +172,9 @@ phases and fails (non-zero exit, no result line) if any of them fails:
    is killed once its second checkpoint is committed, the gang reforms
    once at full size after the dead process exited, restores, and every
    later loss equals an uninterrupted fit's (RUNTIME_RTOL); the reform
-   time is printed. No worker process is left after shutdown.
+   time is printed; with RAY_TPU_ELASTIC_TRACE set (phase 19's (e)) the
+   rank's `<path>.r0` holds its enter line for generations 0 and 1. No
+   worker process is left after shutdown.
 15. serve-deploy: the serve control plane on the card, in a runtime of
    its own. (a) `build_openai_deployment` of the serve phase's model
    (built in the replica from seed 0) and engine (paged, page 16, 8
@@ -266,10 +268,38 @@ phases and fails (non-zero exit, no result line) if any of them fails:
    (num_gpus 0): one GPU in the cluster, a num_gpus=1 task on the head's
    node, a CPU task pinned to the agent with
    NodeAffinitySchedulingStrategy there, no agent after shutdown.
+19. pinned routes and the rest: (a) the parity phase's fp32 model built
+   under each `attn_impl` on the paged engine: "xla" with
+   RAY_TPU_PAGED_ATTN_IMPL=gather (K1 and K3 launched 0 times),
+   "pallas" with the knob at "pallas" (both launched), "dpa" (K1 0) and
+   "auto", each token-identical to the parity phase's plain loop; 3 fp32
+   sgd steps of 2 flagship layers under "xla", "pallas" and "dpa" agree
+   within PARITY_RTOL (K2a/K2b under "pallas" only); "pallas" at head
+   dim 96 (the routes phase's Phi-3 widths, through the model and the
+   op) and in fp16, and "dpa" with Sq != Sk, raise and launch nothing.
+   (b) The crossover: one causal bf16 attention call at Llama-3-8B
+   widths (B 1, Hq 32, Hkv 8, D 128) timed under "xla" (einsum),
+   "pallas" (K1) and "dpa" (SDPA) at S 128, 512, 2048 and 4096, forward
+   plus backward at 512 and 2048; printed only. In a runtime of its
+   own: (c) a durable workflow of three num_gpus=1 steps (a 2048-token
+   prompt embedded, 2 layers of the 8B widths in bf16, the last row's
+   checksum): a rerun with its id runs no step and returns the same
+   output; a step raising on its first attempt leaves FAILED and
+   `resume` runs only that step; a process with CUDA_VISIBLE_DEVICES=""
+   reads the output as a CPU tensor with the same bytes, CUDA never
+   initialised. (d) Two num_gpus=0.5 actors, each holding 2 layers of
+   the 8B widths in bf16, on GPU [0], their forwards at the same time
+   (K1 in each); a third waits until one is killed; the GPU resource
+   reads 0.0, 0.5 and 1.0; no worker left, the card's memory back. (e)
+   rides the runtime phase's (d). The gRPC proxy and C++ tasks do not
+   run here: the card's machine has no `grpc`, and C++ tasks do not
+   touch the card.
 
 The last three lines are a JSON object listing each kernel (with its
 launches on each path, the zoo's bursts and ViT's forward among them,
-and the front doors' `cli-serve`, `job` and `client`), the card's name
+the front doors' `cli-serve`, `job` and `client`, and phase 19's
+`pinned-pallas`, `pinned-xla`, `pinned-dpa`, `workflow` and
+`fractional`), the card's name
 and power limit as nvidia-smi
 gives them, and {"ok": true, "device": {...}}. Imports nothing of JAX
 or ray_tpu.
@@ -1316,6 +1346,13 @@ PARITY_CASES = [
 ]
 
 
+def einsum_only(q, k, v, *, impl="auto", **kw):
+    """`multi_head_attention` held to the einsum path whatever route the
+    model's attn_impl names: the plain loops' attention."""
+    from ray_tpu_torch.ops import einsum_attention
+    return einsum_attention(q, k, v, **kw)
+
+
 def plain_greedy(torch, model, prompts, module=None):
     """PARITY_NEW greedy tokens of each prompt from a full-recompute loop
     through `model` with no cache and its attention held to the einsum
@@ -1325,13 +1362,11 @@ def plain_greedy(torch, model, prompts, module=None):
     from unittest import mock
 
     from ray_tpu_torch.models import llama as llama_module
-    from ray_tpu_torch.ops import einsum_attention
     from ray_tpu_torch.ops.kernels import flash_attention as fa
     want = []
     zero_counters(fa)
     with torch.no_grad(), mock.patch.object(
-            module or llama_module, "multi_head_attention",
-            einsum_attention):
+            module or llama_module, "multi_head_attention", einsum_only):
         for p in prompts:
             seq = list(p)
             for _ in range(PARITY_NEW):
@@ -1404,7 +1439,6 @@ def plain_controls(torch, model, prompt, n_new, presence_penalty=0.0,
     from unittest import mock
 
     from ray_tpu_torch.models import llama as llama_module
-    from ray_tpu_torch.ops import einsum_attention
     V = model.cfg.vocab_size
     static = torch.zeros(V, device="cuda")
     for t, b in (logit_bias or {}).items():
@@ -1413,7 +1447,7 @@ def plain_controls(torch, model, prompt, n_new, presence_penalty=0.0,
     seq, toks, lps = list(prompt), [], []
     state = fsm.start if fsm is not None else None
     with torch.no_grad(), mock.patch.object(
-            llama_module, "multi_head_attention", einsum_attention):
+            llama_module, "multi_head_attention", einsum_only):
         for _ in range(n_new):
             logits, _ = model(torch.tensor([seq], device="cuda"))
             logits = logits[0, -1].float()
@@ -3631,9 +3665,11 @@ def runtime_elastic(torch, rt, handle, root, gpu_line):
                                  0, cfg.vocab_size, delay_s)
 
     run_config = RunConfig(name="elastic", storage_path=root)
+    trace = os.path.join(root, "elastic-trace")
     # the default resources: one CPU and one GPU a rank
-    trainer = ElasticSpmdTrainer(tcfg(), data(ELASTIC_DELAY_S), num_hosts=1,
-                                 run_config=run_config)
+    trainer = ElasticSpmdTrainer(
+        tcfg(), data(ELASTIC_DELAY_S), num_hosts=1, run_config=run_config,
+        env_per_host={"RAY_TPU_ELASTIC_TRACE": trace})
     box = {}
 
     def run():
@@ -3698,6 +3734,16 @@ def runtime_elastic(torch, rt, handle, root, gpu_line):
           f"runtime (d): resumed steps {[m['step'] for m in hist]}")
     check(rel <= RUNTIME_RTOL, "runtime (d): a resumed step's loss "
           "differs from the uninterrupted fit's")
+    # (e) of phase 19: RAY_TPU_ELASTIC_TRACE, the rank's enter line for
+    # each generation
+    with open(f"{trace}.r0") as f:
+        lines = f.read().splitlines()
+    enters = [ln.split(" ", 2)[1:] for ln in lines if " enter " in ln]
+    print(f"runtime (d): RAY_TPU_ELASTIC_TRACE {len(lines)} lines in "
+          f"{os.path.basename(trace)}.r0, enter lines {enters}", flush=True)
+    check([g for g, _ in enters] == ["g0", "g1"]
+          and all(m.startswith("enter world=1 pid=") for _, m in enters),
+          f"runtime (d): the elastic trace's enter lines {enters}")
 
 
 def phase_runtime(torch, gpu_line, train_stats):
@@ -5408,6 +5454,460 @@ def phase_front_doors(torch, gpu_line, parity, job_losses):
     return launches
 
 
+# phase 19, pinned routes and the rest: attn_impl and the paged knob at
+# the parity phase's shape, the K1 / einsum / SDPA crossover, workflows,
+# fractional GPUs (the elastic trace rides the runtime phase's (d))
+PINNED_SETTINGS = (        # (label, attn_impl, RAY_TPU_PAGED_ATTN_IMPL)
+    ("xla + gather", "xla", "gather"),
+    ("pallas + pallas", "pallas", "pallas"),
+    ("dpa", "dpa", "auto"),
+    ("auto", "auto", "auto"),
+)
+PINNED_TRAIN_LAYERS = 2
+CROSS_SEQS = (128, 512, 2048, 4096)   # (b): forward at each S ...
+CROSS_BWD_SEQS = (512, 2048)          # ... and forward plus backward
+CROSS_SHAPE = (1, 32, 8, 128)         # B, Hq, Hkv, D (Llama-3-8B), bf16
+WF_LAYERS = 2                         # (c), (d): 8B widths, bf16
+WF_SEQ = 2048
+FRAC_ITERS = 40                       # (d): forwards in each actor's call
+
+
+def pinned_greedy(torch, model, prompts, paged):
+    """PARITY_NEW greedy tokens of each prompt on a fresh paged engine
+    (page 16) under RAY_TPU_PAGED_ATTN_IMPL=`paged`, and the K1 and K3
+    launches of the run (zeroed just before it)."""
+    from ray_tpu_torch.ops.kernels import flash_attention as fa
+    from ray_tpu_torch.ops.kernels import paged_attention as pa
+    from ray_tpu_torch.serve.llm import LLMEngine, LLMEngineConfig
+    os.environ["RAY_TPU_PAGED_ATTN_IMPL"] = paged
+    try:
+        engine = LLMEngine(model, None, LLMEngineConfig(
+            max_slots=4, max_seq_len=2048, kv_page_size=16,
+            prefill_buckets=(32, 64, 128, 256, 512)), device="cuda")
+        zero_counters(fa)
+        pa.paged_decode_attention.launches = 0
+        try:
+            rids = [engine.submit(p, max_new_tokens=PARITY_NEW)
+                    for p in prompts]
+            got = [list(engine.stream(r)) for r in rids]
+        finally:
+            engine.shutdown()
+    finally:
+        os.environ.pop("RAY_TPU_PAGED_ATTN_IMPL", None)
+    return got, {"flash_fwd (K1)": fa.flash_attention_fwd.launches,
+                 "paged_decode (K3)": pa.paged_decode_attention.launches}
+
+
+def pinned_parity(torch, parity, gpu_line):
+    """(a): the parity phase's fp32 model under each PINNED_SETTINGS,
+    token-identical to the plain loop, K1/K3 where the route says; then
+    PARITY_STEPS fp32 train steps at the flagship widths under "xla",
+    "pallas" and "dpa"; then the raises that must not fall back."""
+    import numpy as np
+    from ray_tpu_torch.models import Llama, LlamaConfig
+    from ray_tpu_torch.ops import multi_head_attention
+    from ray_tpu_torch.ops.kernels import flash_attention as fa
+    from ray_tpu_torch.train import make_optimizer, make_train_step
+
+    prompts, want = parity
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    launches = {}
+    for label, impl, paged in PINNED_SETTINGS:
+        cfg = LlamaConfig.llama3_8b(n_layers=4, dtype=torch.float32,
+                                    param_dtype=torch.float32, remat=False,
+                                    attn_impl=impl)
+        model = Llama(cfg, device="cuda", seed=1)   # the parity model
+        t0 = time.time()
+        got, n = pinned_greedy(torch, model, prompts, paged)
+        del model
+        release(torch)
+        print(f"pinned (a): {label}: greedy tokens equal to the plain loop "
+              f"{got == want}; launches {json.dumps(n)}; "
+              f"{time.time() - t0:.1f} s", flush=True)
+        check(got == want, f"pinned (a): {label}: the engine's greedy "
+                           f"tokens differ from the plain loop")
+        k1, k3 = n["flash_fwd (K1)"], n["paged_decode (K3)"]
+        if impl == "xla":
+            check(k1 == 0 and k3 == 0, f"pinned (a): {label}: {n}")
+        elif impl == "pallas":
+            check(k1 > 0 and k3 > 0, f"pinned (a): {label}: {n}")
+        elif impl == "dpa":
+            check(k1 == 0, f"pinned (a): {label}: {n}")
+        if impl != "auto":
+            launches[f"pinned-{impl}"] = n
+
+    tokens = np.random.RandomState(2).randint(0, FLAGSHIP["vocab_size"],
+                                              (2, 257))
+    rows = {}
+    for impl in ("xla", "pallas", "dpa"):
+        cfg = LlamaConfig(**dict(FLAGSHIP, n_layers=PINNED_TRAIN_LAYERS),
+                          dtype=torch.float32, param_dtype=torch.float32,
+                          attn_impl=impl)
+        model = Llama(cfg, device="cuda", seed=2)
+        batch = {"tokens": torch.from_numpy(tokens).to("cuda")}
+        state, step = make_train_step(model, make_optimizer(
+            "sgd", learning_rate=0.1))(batch)
+        zero_counters(fa)
+        rows[impl] = []
+        for _ in range(PARITY_STEPS):
+            state, m = step(state, batch)
+            rows[impl].append((float(m["loss"]), float(m["grad_norm"])))
+        n = read_counters(fa)
+        acc = launches[f"pinned-{impl}"]
+        for k, v in n.items():
+            acc[k] = acc.get(k, 0) + v
+        print(f"pinned (a): train {impl}: (loss, grad_norm) "
+              f"{[(round(a, 7), round(b, 7)) for a, b in rows[impl]]}; "
+              f"launches {json.dumps(n)}", flush=True)
+        k2 = n["flash_bwd_dq (K2a)"] + n["flash_bwd_dkv (K2b)"]
+        if impl == "pallas":
+            check(k2 > 0 and n["flash_fwd (K1)"] > 0,
+                  f"pinned (a): train {impl}: launches {n}")
+        else:
+            check(k2 == 0 and n["flash_fwd (K1)"] == 0,
+                  f"pinned (a): train {impl}: launches {n}")
+        del model, state, step
+        release(torch)
+    worst = max(abs(a - b) / abs(b) for impl in ("pallas", "dpa")
+                for g, x in zip(rows[impl], rows["xla"])
+                for a, b in zip(g, x))
+    print(f"pinned (a): train, {PARITY_STEPS} fp32 sgd steps of "
+          f"{PINNED_TRAIN_LAYERS} flagship layers: pallas and dpa against "
+          f"xla max relative difference {worst:.3g} (rtol {PARITY_RTOL})",
+          flush=True)
+    check(worst <= PARITY_RTOL, "pinned (a): the train steps of the "
+                                "routes disagree")
+
+    # raises: nothing falls back to the einsum path
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    cases = []
+    for label, shape, dt, impl, sk in (
+            ("pallas at head dim 96", (1, 64, 32, 96), torch.float32,
+             "pallas", 64),
+            ("pallas in fp16", (1, 64, 32, 128), torch.float16, "pallas",
+             64),
+            ("dpa with Sq != Sk", (1, 1, 32, 128), torch.bfloat16, "dpa",
+             64)):
+        b, s, h, d = shape
+        q = torch.randn(b, s, h, d, generator=gen, device="cuda").to(dt)
+        kv = torch.randn(b, sk, 8, d, generator=gen, device="cuda").to(dt)
+        zero_counters(fa)
+        try:
+            multi_head_attention(q, kv, kv, causal=True, impl=impl)
+            raised = None
+        except (ValueError, TypeError) as e:
+            raised = f"{type(e).__name__}: {e}"
+        cases.append(label)
+        print(f"pinned (a): {label}: raised {raised}", flush=True)
+        check(raised is not None and fa.flash_attention_fwd.launches == 0,
+              f"pinned (a): {label} did not raise")
+    # the routes phase's Phi-3 widths through the model, pinned
+    cfg = LlamaConfig(**ROUTE_CASES[0][1], n_layers=1, dtype=torch.float32,
+                      param_dtype=torch.float32, attn_impl="pallas")
+    model = Llama(cfg, device="cuda", seed=3)
+    try:
+        with torch.no_grad():
+            model(torch.zeros(1, 16, dtype=torch.long, device="cuda"))
+        raised = None
+    except ValueError as e:
+        raised = str(e)
+    print(f"pinned (a): Phi-3 widths (head dim 96) pinned to pallas: "
+          f"raised {raised}", flush=True)
+    check(raised is not None, "pinned (a): head dim 96 under pallas ran")
+    del model
+    release(torch)
+    return launches
+
+
+def crossover(torch, gpu_line):
+    """(b): one attention call at Llama-3-8B widths, bf16, causal, timed
+    under each route at each CROSS_SEQS (forward) and CROSS_BWD_SEQS
+    (forward plus backward); printed only."""
+    from ray_tpu_torch.ops import multi_head_attention
+    b, hq, hkv, d = CROSS_SHAPE
+    table = []
+    for s in CROSS_SEQS:
+        gen = torch.Generator(device="cuda").manual_seed(s)
+        q = torch.randn(b, s, hq, d, generator=gen, device="cuda",
+                        dtype=torch.bfloat16)
+        k = torch.randn(b, s, hkv, d, generator=gen, device="cuda",
+                        dtype=torch.bfloat16)
+        v = torch.randn(b, s, hkv, d, generator=gen, device="cuda",
+                        dtype=torch.bfloat16)
+        row = {"S": s}
+        for impl in ("xla", "pallas", "dpa"):
+            with torch.no_grad():
+                row[f"fwd {impl}"] = time_ms(
+                    lambda: multi_head_attention(q, k, v, causal=True,
+                                                 impl=impl))
+        if s in CROSS_BWD_SEQS:
+            do = torch.randn(b, s, hq, d, generator=gen, device="cuda",
+                             dtype=torch.bfloat16)
+            qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+            for impl in ("xla", "pallas", "dpa"):
+                def fwd_bwd():
+                    qg.grad = kg.grad = vg.grad = None
+                    multi_head_attention(qg, kg, vg, causal=True,
+                                         impl=impl).backward(do)
+                row[f"fwd+bwd {impl}"] = time_ms(fwd_bwd)
+        table.append(row)
+        print(f"crossover: {json.dumps({k: (round(x, 4) if k != 'S' else x) for k, x in row.items()})} "
+              f"[{gpu_line}]", flush=True)
+        del q, k, v
+        release(torch)
+    return table
+
+
+def wf_model(torch):
+    from ray_tpu_torch.models import Llama, LlamaConfig
+    cfg = LlamaConfig.llama3_8b(n_layers=WF_LAYERS, dtype=torch.bfloat16,
+                                param_dtype=torch.bfloat16, remat=False)
+    return Llama(cfg, device="cuda", seed=0)
+
+
+def wf_embed(seed):
+    """Step 1: a WF_SEQ-token prompt on the card and its embedding."""
+    import torch
+    model = wf_model(torch)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    tokens = torch.randint(0, model.cfg.vocab_size, (1, WF_SEQ),
+                           device="cuda", generator=gen)
+    with torch.no_grad():
+        return {"tokens": tokens, "embed": model.token_embed(tokens)}
+
+
+def wf_forward(embedded):
+    """Step 2: the model's forward over the prompt (K1 once a layer); the
+    stored embedding came back on this process's card."""
+    import torch
+    from ray_tpu_torch.ops.kernels import flash_attention as fa
+    model = wf_model(torch)
+    tokens = embedded["tokens"]
+    with torch.no_grad():
+        same = bool(torch.equal(model.token_embed(tokens),
+                                embedded["embed"]))
+        before = fa.flash_attention_fwd.launches
+        logits, _ = model(tokens)
+        k1 = fa.flash_attention_fwd.launches - before
+    return {"last": logits[0, -1], "k1": k1, "on_card": tokens.is_cuda,
+            "embed_equal": same}
+
+
+def wf_checksum(out, flag_path):
+    """Step 3: the last row's checksum; raises while `flag_path` exists
+    (the injected fault of (c)'s second workflow)."""
+    if flag_path and os.path.exists(flag_path):
+        raise RuntimeError("injected fault")
+    return {"row": out["last"], "checksum": float(out["last"].double().sum()),
+            "k1": out["k1"], "embed_equal": out["embed_equal"],
+            "on_card": out["on_card"]}
+
+
+WF_READER = r'''
+import json, sys, torch
+from ray_tpu_torch import workflow
+workflow.init(sys.argv[1])
+out = workflow.get_output(sys.argv[2])
+row = out["row"]
+print(json.dumps({"device": str(row.device), "dtype": str(row.dtype),
+                  "checksum": float(row.double().sum()),
+                  "hex": row.numpy().tobytes().hex(),
+                  "cuda_initialized": torch.cuda.is_initialized()}))
+'''
+
+
+def workflows_on_the_card(torch, rt, root, gpu_line):
+    """(c): a durable three-step DAG of num_gpus=1 steps whose last step
+    raises on its first attempt: FAILED, then `resume` runs only that
+    step; a rerun runs none; the output read in a process that sees no
+    card."""
+    from ray_tpu_torch import workflow
+    from ray_tpu_torch.dag import InputNode
+
+    embed = rt.remote(num_gpus=1)(wf_embed)
+    forward = rt.remote(num_gpus=1)(wf_forward)
+    checksum = rt.remote(num_gpus=1)(wf_checksum)
+    storage = os.path.join(root, "workflows")
+    workflow.init(storage)
+    flag = os.path.join(root, "wf-fail.flag")
+    with InputNode() as inp:
+        dag = checksum.bind(forward.bind(embed.bind(inp)), flag)
+
+    def meta():
+        return next(m for m in workflow.list_all()
+                    if m["workflow_id"] == "wf-card")
+
+    open(flag, "w").write("1")
+    t0 = time.time()
+    try:
+        workflow.run(dag, workflow_id="wf-card", args=(7,))
+        failed = None
+    except Exception as e:  # noqa: BLE001 - the injected fault
+        failed = repr(e)[:120]
+    t_fail = time.time() - t0
+    status = workflow.get_status("wf-card")
+    os.unlink(flag)
+    t0 = time.time()
+    out = workflow.resume("wf-card", dag, args=(7,))
+    t_resume = time.time() - t0
+    mr = meta()
+    t0 = time.time()
+    again = workflow.run(dag, workflow_id="wf-card", args=(7,))
+    t_again = time.time() - t0
+    m = meta()
+    res = subprocess.run(
+        [sys.executable, "-c", WF_READER, storage, "wf-card"], cwd=HERE,
+        env=front_env(CUDA_VISIBLE_DEVICES=""), capture_output=True,
+        text=True, timeout=FRONT_WAIT_S)
+    check(res.returncode == 0, f"workflows (c): the reader failed:\n"
+                               f"{res.stderr[-2000:]}")
+    read = json.loads(res.stdout.strip().splitlines()[-1])
+    row = out["row"]
+    print(f"workflows (c): 3 num_gpus=1 steps (a {WF_SEQ}-token prompt "
+          f"embedded, {WF_LAYERS} layers of the 8B widths bf16, the last "
+          f"row's checksum {out['checksum']:.6f}); the first run, its "
+          f"last step raising, {t_fail:.1f} s -> {status} ({failed}); "
+          f"resume {t_resume:.2f} s ran {mr['steps_run']} and loaded "
+          f"{mr['steps_skipped']}, K1 {out['k1']} in the forward step, the "
+          f"stored embedding back on the step's card and equal "
+          f"{out['embed_equal']}; a rerun in {t_again:.2f} s ran "
+          f"{m['steps_run']} steps (loaded {m['steps_skipped']}), output "
+          f"equal {torch.equal(again['row'], row)}; a reader with "
+          f"CUDA_VISIBLE_DEVICES='' got {read['dtype']} on {read['device']}"
+          f", bytes equal "
+          f"{read['hex'] == row.cpu().numpy().tobytes().hex()}, CUDA "
+          f"initialised {read['cuda_initialized']} [{gpu_line}]",
+          flush=True)
+    check(status == "FAILED" and failed is not None,
+          f"workflows (c): the injected fault left {status}")
+    check(mr["steps_run"] == 1 and mr["steps_skipped"] == 1,
+          f"workflows (c): resume ran more than the failed step: {mr}")
+    check(row.is_cuda and out["on_card"] and out["embed_equal"],
+          "workflows (c): the steps' values did not come back on the card")
+    check(out["k1"] == WF_LAYERS, f"workflows (c): K1 {out['k1']}")
+    check(m["steps_run"] == 0 and torch.equal(again["row"], row)
+          and again["checksum"] == out["checksum"],
+          f"workflows (c): the rerun ran steps: {m}")
+    check(read["device"] == "cpu" and not read["cuda_initialized"]
+          and read["hex"] == row.cpu().numpy().tobytes().hex(),
+          f"workflows (c): the card-less reader got {read['device']}, "
+          f"CUDA initialised {read['cuda_initialized']}")
+    return {"flash_fwd (K1)": out["k1"]}
+
+
+class FracHolder:
+    """A num_gpus=0.5 actor holding WF_LAYERS layers of the 8B widths."""
+
+    def __init__(self):
+        import torch
+        self.model = wf_model(torch)
+        gen = torch.Generator(device="cuda").manual_seed(11)
+        self.tokens = torch.randint(0, self.model.cfg.vocab_size,
+                                    (1, WF_SEQ), device="cuda",
+                                    generator=gen)
+
+    def ids(self):
+        import ray_tpu_torch as rt
+        return rt.get_gpu_ids(), os.environ.get("CUDA_VISIBLE_DEVICES")
+
+    def forwards(self, n):
+        import torch
+        from ray_tpu_torch.ops.kernels import flash_attention as fa
+        before = fa.flash_attention_fwd.launches
+        t0 = time.time()
+        with torch.no_grad():
+            for _ in range(n):
+                logits, _ = self.model(self.tokens)
+        torch.cuda.synchronize()
+        return {"start": t0, "end": time.time(),
+                "k1": fa.flash_attention_fwd.launches - before,
+                "finite": bool(torch.isfinite(logits).all())}
+
+
+def fractional_gpus(torch, rt, gpu_line):
+    """(d): two num_gpus=0.5 actors share card 0 and run at once; a third
+    waits until one is killed; the GPU resource reads 0.0, 0.5, 1.0."""
+    Half = rt.remote(num_gpus=0.5)(FracHolder)
+
+    def free():
+        return rt.available_resources().get("GPU", 0.0)
+
+    def wait_free(n, timeout_s=60.0):
+        deadline = time.time() + timeout_s
+        while abs(free() - n) > 1e-9 and time.time() < deadline:
+            time.sleep(0.1)
+        return free()
+
+    a, b = Half.remote(), Half.remote()
+    ids = rt.get([a.ids.remote(), b.ids.remote()], timeout=FRONT_WAIT_S)
+    free_two = wait_free(0.0)
+    runs = rt.get([a.forwards.remote(FRAC_ITERS),
+                   b.forwards.remote(FRAC_ITERS)], timeout=FRONT_WAIT_S)
+    overlap = runs[0]["start"] < runs[1]["end"] \
+        and runs[1]["start"] < runs[0]["end"]
+    c = Half.remote()
+    ref = c.ids.remote()
+    ready, _ = rt.wait([ref], timeout=5.0)
+    pending = not ready
+    rt.kill(a)
+    third = rt.get(ref, timeout=FRONT_WAIT_S)
+    third_run = rt.get(c.forwards.remote(1), timeout=FRONT_WAIT_S)
+    free_after = wait_free(0.0)
+    rt.kill(b)
+    free_half = wait_free(0.5)
+    rt.kill(c)
+    free_all = wait_free(1.0)
+    print(f"fractional (d): two num_gpus=0.5 actors ({WF_LAYERS} layers of "
+          f"the 8B widths bf16 each) ids {ids}, GPU free {free_two}; "
+          f"{FRAC_ITERS} forwards of {WF_SEQ} tokens each at once: "
+          f"overlapped {overlap}, {[round(r['end'] - r['start'], 3) for r in runs]} "
+          f"s, K1 {[r['k1'] for r in runs]}; a third pending while both "
+          f"held {pending}, then {third} once one was killed, K1 "
+          f"{third_run['k1']}; GPU free {free_after} -> {free_half} -> "
+          f"{free_all} [{gpu_line}]", flush=True)
+    check(ids == [([0], "0"), ([0], "0")], f"fractional (d): ids {ids}")
+    check(free_two == 0.0 and free_after == 0.0 and free_half == 0.5
+          and free_all == 1.0, "fractional (d): the GPU resource readings")
+    check(overlap and all(r["k1"] == WF_LAYERS * FRAC_ITERS and r["finite"]
+                          for r in runs),
+          f"fractional (d): the two actors' forwards {runs}")
+    check(pending and third == ([0], "0") and third_run["k1"] == WF_LAYERS,
+          "fractional (d): the third actor did not wait for a share")
+    return {"flash_fwd (K1)": sum(r["k1"] for r in runs) + third_run["k1"]}
+
+
+def phase_pinned_and_rest(torch, gpu_line, parity):
+    """19. pinned routes and the rest: (a) and (b) in this process, then
+    (c) and (d) in a runtime of their own. Returns the launches of the
+    pinned routes, the workflow and the fractional actors."""
+    import shutil
+    import tempfile
+
+    import ray_tpu_torch as rt
+
+    t_phase = time.time()
+    launches = pinned_parity(torch, parity, gpu_line)
+    crossover(torch, gpu_line)
+    release(torch)
+    free0, _ = torch.cuda.mem_get_info()
+    root = tempfile.mkdtemp(prefix="chip_smoke_rest_")
+    rt.init()
+    try:
+        launches["workflow"] = workflows_on_the_card(torch, rt, root,
+                                                     gpu_line)
+        launches["fractional"] = fractional_gpus(torch, rt, gpu_line)
+    finally:
+        rt.shutdown()
+        shutil.rmtree(root, ignore_errors=True)
+    wait_no_workers("pinned routes and the rest")
+    release(torch)
+    front_memory_back(torch, free0, "pinned routes and the rest")
+    print(f"pinned routes and the rest: phase wall "
+          f"{time.time() - t_phase:.1f} s [{gpu_line}]", flush=True)
+    return launches
+
+
 def check_spills(build) -> None:
     """Registers and spills of the wgmma kernels (K1's forward, K2a's and
     K2b's backward at D 64 and 128) and of every K4 kernel, from the
@@ -5501,10 +6001,12 @@ def main() -> None:
     launches["tune"], tune_want = phase_tune(torch, gpu_line)
     launches.update(phase_front_doors(torch, gpu_line, parity,
                                       tune_want[FRONT_JOB_LR]))
+    launches.update(phase_pinned_and_rest(torch, gpu_line, parity))
 
     # each kernel's launches on the main paths (the serve bursts, train,
-    # GRPO full, LoRA, the north star's and the mesh train step); K4 is
-    # on none: no model calls it, as in the reference
+    # GRPO full, LoRA, the north star's and the mesh train step, and the
+    # pinned routes, the workflow and the fractional actors); K4 is on
+    # none: no model calls it, as in the reference
     for r in rows:
         by_path = {p: n[r["name"]] for p, n in launches.items()
                    if r["name"] in n}

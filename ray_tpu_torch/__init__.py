@@ -33,7 +33,11 @@ training over rank actors (`train.TorchTrainer`, `train.MultiHostSpmd`,
 `train.ElasticSpmdTrainer`) — and the front doors: `python -m
 ray_tpu_torch` (`cli.py`), the dashboard, job submission, the thin
 client (`init(address="ray://...")`, `client/`) and the local cluster
-(`cluster_utils.py`).
+(`cluster_utils.py`) — and durable workflows (`workflow.py`), C++ tasks
+and actors (`cross_language.py`), the gRPC ingress
+(`serve/grpc_proxy.py`), shares of one card (`num_gpus=0.5`) and the
+pinned attention routes (`attn_impl`, `RAY_TPU_ATTN_IMPL`,
+`RAY_TPU_PAGED_ATTN_IMPL`).
 
 The runtime loads at first use: `import ray_tpu_torch` imports no
 runtime module until an API name (`init`, `remote`, ...) is read.
@@ -52,7 +56,8 @@ _CORE = {"ObjectRef": "core.object_ref", "ObjectRefGenerator":
          "core.object_ref", "ActorHandle": "core.actor"}
 _LAZY_SUBMODULES = ("train", "serve", "rllib", "util", "models", "ops",
                     "parallel", "observability", "dag", "data",
-                    "exceptions", "tune", "job_submission", "experimental")
+                    "exceptions", "tune", "job_submission", "experimental",
+                    "workflow")
 
 
 def __getattr__(name):

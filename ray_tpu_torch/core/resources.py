@@ -5,7 +5,10 @@ Reference parity: python/ray/_private/resource_spec.py and
 python/ray/_private/accelerators/nvidia_gpu.py. GPUs are native
 schedulable resources ("GPU"); a task or actor that asks for
 `num_gpus=k` is granted k specific card indices (`get_gpu_ids`) and runs
-with `CUDA_VISIBLE_DEVICES` set to them.
+with `CUDA_VISIBLE_DEVICES` set to them. A request below one card (Ray's
+fractional GPUs, e.g. 0.5) holds that share of one card and is granted
+that card's index; holders share the card until their shares reach 1.
+The card's memory is not partitioned between them, as in Ray.
 
 Deliberate difference from the reference: its TPU pod labels and the
 "TPU-<pod_type>-head" gang resource have no GPU counterpart, and none is
@@ -76,15 +79,14 @@ def release(avail: Dict[str, float], req: Dict[str, float]) -> None:
             avail[k] = avail.get(k, 0.0) + v
 
 
-def check_whole_gpus(req: Dict[str, float]) -> None:
-    """A GPU request is a whole number of cards. A granted card's index
-    goes into the process's CUDA_VISIBLE_DEVICES; a share of a card has
-    none, and a process granted no index runs with the cards hidden.
-    Fractional GPUs (Ray's shared cards) are not ported."""
+def check_gpu_request(req: Dict[str, float]) -> None:
+    """A GPU request is a share of one card (below 1) or a whole number
+    of cards, as in Ray: 1.5 names neither and raises."""
     gpus = float(req.get("GPU", 0) or 0)
-    if gpus != int(gpus):
-        raise ValueError(f"a GPU request must be a whole number of cards, "
-                         f"got {gpus:g}: fractional GPUs are not supported")
+    if gpus >= 1 and gpus != int(gpus):
+        raise ValueError(f"a GPU request must be a share of one card "
+                         f"(below 1) or a whole number of cards, got "
+                         f"{gpus:g}")
 
 
 def normalize_task_resources(num_cpus=None, num_gpus=None, resources=None,
@@ -95,5 +97,5 @@ def normalize_task_resources(num_cpus=None, num_gpus=None, resources=None,
         req["GPU"] = float(num_gpus)
     if memory:
         req["memory"] = float(memory)
-    check_whole_gpus(req)
+    check_gpu_request(req)
     return {k: v for k, v in req.items() if v > 0}

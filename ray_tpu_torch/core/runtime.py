@@ -113,7 +113,7 @@ class WorkerState:
                  "actor_id", "held_resources", "held_gpu_ids", "blocked",
                  "started_at", "purpose", "gpu_capable", "node_id",
                  "func_calls", "lease", "direct_addr", "last_progress",
-                 "node_lease", "gpu_binding")
+                 "node_lease", "gpu_binding", "held_gpu_amount")
 
     def __init__(self, worker_id: str, proc: Optional[subprocess.Popen],
                  purpose=None, gpu_capable: bool = False,
@@ -145,6 +145,7 @@ class WorkerState:
         self.actor_id: Optional[str] = None
         self.held_resources: Dict[str, float] = {}
         self.held_gpu_ids: List[int] = []
+        self.held_gpu_amount = 0.0     # the GPU request held_gpu_ids serve
         self.func_calls: Dict[str, int] = {}   # func_id -> executions
         self.blocked = False
         self.started_at = time.time()
@@ -167,7 +168,7 @@ class NodeState:
     conn=None (reference parity: per-node resource views in
     gcs_node_manager.cc / node_manager.cc)."""
     __slots__ = ("node_id", "hostname", "total", "avail", "labels", "conn",
-                 "alive", "free_gpu_ids", "last_heartbeat",
+                 "alive", "free_gpu_ids", "gpu_shares", "last_heartbeat",
                  "heartbeat_missed", "incarnation", "restored",
                  "lease_capable")
 
@@ -196,9 +197,72 @@ class NodeState:
         # (two-level scheduling): only then may the driver grant this
         # node bulk leases
         self.lease_capable = False
-        # Specific chip indices handed to tasks/actors (get_gpu_ids):
-        # concurrent TPU workloads on one host must see disjoint chips.
+        # Specific card indices handed to tasks/actors (get_gpu_ids):
+        # whole-card holders see disjoint cards. A card held in shares
+        # (fractional requests) leaves free_gpu_ids for gpu_shares, its
+        # index -> the share in use, until the last share is returned.
         self.free_gpu_ids = list(range(int(resources.get("GPU", 0))))
+        self.gpu_shares: Dict[int, float] = {}
+
+    def gpu_room(self, amount: float) -> bool:
+        """Whether some card(s) can take a GPU request of `amount`."""
+        if amount >= 1:
+            return len(self.free_gpu_ids) >= int(amount)
+        return amount <= 0 or bool(self.free_gpu_ids) or any(
+            used + amount <= 1 + 1e-9 for used in self.gpu_shares.values())
+
+    def take_gpus(self, amount: float,
+                  prefer: Optional[Tuple[int, ...]] = None
+                  ) -> Optional[List[int]]:
+        """Reserve card ids for a GPU request of `amount` (None when no
+        card has room). A whole number takes that many free cards,
+        `prefer`'s when they are all free; a share below 1 takes room on
+        one card: `prefer`'s when it has room, else the fullest card with
+        room (shares pack onto few cards), else a free card."""
+        if amount <= 0:
+            return []
+        if amount >= 1:
+            k = int(amount)
+            if len(self.free_gpu_ids) < k:
+                return None
+            if (prefer is not None and len(prefer) == k
+                    and set(prefer) <= set(self.free_gpu_ids)):
+                ids = list(prefer)
+            else:
+                ids = self.free_gpu_ids[:k]
+            self.free_gpu_ids = [i for i in self.free_gpu_ids
+                                 if i not in ids]
+            return ids
+        room = [(used, i) for i, used in self.gpu_shares.items()
+                if used + amount <= 1 + 1e-9]
+        fits = {i for _, i in room} | set(self.free_gpu_ids)
+        if prefer is not None and len(prefer) == 1 and prefer[0] in fits:
+            i = prefer[0]
+        elif room:
+            i = max(room)[1]
+        elif self.free_gpu_ids:
+            i = self.free_gpu_ids[0]
+        else:
+            return None
+        if i in self.free_gpu_ids:
+            self.free_gpu_ids.remove(i)
+        self.gpu_shares[i] = self.gpu_shares.get(i, 0.0) + amount
+        return [i]
+
+    def give_gpus(self, ids: List[int], amount: float) -> None:
+        """Return what take_gpus(amount) reserved as `ids`: a share
+        leaves its card, which rejoins the free ids with its last."""
+        freed = list(ids)
+        if 0 < amount < 1:
+            freed = []
+            for i in ids:
+                left = self.gpu_shares.get(i, 0.0) - amount
+                if left > 1e-9:
+                    self.gpu_shares[i] = left
+                else:
+                    self.gpu_shares.pop(i, None)
+                    freed.append(i)
+        self.free_gpu_ids = sorted(set(self.free_gpu_ids) | set(freed))
 
 
 class NodeLease:
@@ -1623,9 +1687,7 @@ class DriverRuntime:
                         res_mod.release(node.avail, b)
                         ids = (pg.bundle_gpu_ids[i]
                                if i < len(pg.bundle_gpu_ids) else [])
-                        if ids:
-                            node.free_gpu_ids = sorted(
-                                set(node.free_gpu_ids) | set(ids))
+                        node.give_gpus(ids, b.get("GPU", 0))
                 pg.bundle_nodes = []
                 pg.state = "PENDING"
                 pg.created_at = time.time()
@@ -2639,13 +2701,22 @@ class DriverRuntime:
                     continue
                 if assignment is None:
                     continue
-                pg.bundle_gpu_ids = []
+                held = []
                 for b, nid in zip(pg.bundles, assignment):
-                    node = self.cluster_nodes[nid]
-                    res_mod.acquire(node.avail, b)
-                    k = int(b.get("GPU", 0))
-                    pg.bundle_gpu_ids.append(node.free_gpu_ids[:k])
-                    del node.free_gpu_ids[:k]
+                    ids = self.cluster_nodes[nid].take_gpus(
+                        b.get("GPU", 0))
+                    if ids is None:
+                        break
+                    held.append(ids)
+                if len(held) < len(pg.bundles):
+                    # shares that fit the totals but no one card: wait
+                    for b, nid, ids in zip(pg.bundles, assignment, held):
+                        self.cluster_nodes[nid].give_gpus(
+                            ids, b.get("GPU", 0))
+                    continue
+                for b, nid in zip(pg.bundles, assignment):
+                    res_mod.acquire(self.cluster_nodes[nid].avail, b)
+                pg.bundle_gpu_ids = held
                 pg.bundle_nodes = assignment
                 pg.state = "CREATED"
                 self._seal(pg.ready_ref,
@@ -2922,6 +2993,9 @@ class DriverRuntime:
                     spec.placement_group_id, spec.bundle_index, w.node_id)
             else:
                 spec.gpu_ids = self._take_gpu_ids(node, need, w)
+                if spec.gpu_ids is None:       # no card has the room
+                    still.append(spec)
+                    continue
             if not self._bind_gpu_worker(w, spec.gpu_ids):
                 # this process already runs under other card ids: retire
                 # it (a fresh worker takes the task next pass)
@@ -3185,23 +3259,16 @@ class DriverRuntime:
         return sorted(set(out))
 
     def _take_gpu_ids(self, node: NodeState, need: Dict[str, float],
-                      w: WorkerState) -> List[int]:
-        """Reserve specific card indices for `need`'s GPU count on the
-        worker, the ids it is bound to when they are free; returned via
-        _return_gpu_ids when the resources release."""
-        k = int(need.get("GPU", 0))
-        if k <= 0:
-            return []
-        bound = w.gpu_binding
-        if (bound is not None and len(bound) == k
-                and set(bound) <= set(node.free_gpu_ids)):
-            ids = list(bound)
-            node.free_gpu_ids = [i for i in node.free_gpu_ids
-                                 if i not in bound]
-        else:
-            ids = node.free_gpu_ids[:k]
-            del node.free_gpu_ids[:k]
-        w.held_gpu_ids = ids
+                      w: WorkerState) -> Optional[List[int]]:
+        """Reserve specific card indices for `need`'s GPU request on the
+        worker (NodeState.take_gpus: whole cards, or a share of one),
+        the ids it is bound to when they have room; returned via
+        _return_gpu_ids when the resources release. None when no card
+        has room."""
+        amount = need.get("GPU", 0)
+        ids = node.take_gpus(amount, w.gpu_binding)
+        if ids is not None:
+            w.held_gpu_ids, w.held_gpu_amount = ids, amount
         return ids
 
     @staticmethod
@@ -3217,9 +3284,8 @@ class DriverRuntime:
             return
         node = self.cluster_nodes.get(w.node_id or self.node_id)
         if node is not None and node.alive:
-            node.free_gpu_ids = sorted(
-                set(node.free_gpu_ids) | set(w.held_gpu_ids))
-        w.held_gpu_ids = []
+            node.give_gpus(w.held_gpu_ids, w.held_gpu_amount)
+        w.held_gpu_ids, w.held_gpu_amount = [], 0.0
 
     # ---------------- worker leases ----------------
     def _lease_fill_count(self, need: Dict[str, float]) -> int:
@@ -3774,7 +3840,8 @@ class DriverRuntime:
         instead of driver-first."""
         candidates = [n for n in self._alive_nodes()
                       if (not allowed or n.node_id in allowed)
-                      and res_mod.fits(n.avail, need)]
+                      and res_mod.fits(n.avail, need)
+                      and n.gpu_room(need.get("GPU", 0))]
         if not candidates:
             return None
         if spread:
@@ -3829,7 +3896,8 @@ class DriverRuntime:
         node = self.cluster_nodes.get(w.node_id)
         if node is None or not node.alive:
             return None
-        if need and not res_mod.fits(node.avail, need):
+        if need and not (res_mod.fits(node.avail, need)
+                         and node.gpu_room(need.get("GPU", 0))):
             return None
         if needs_gpu and not w.gpu_capable:
             return None
@@ -3861,7 +3929,8 @@ class DriverRuntime:
             node = self.cluster_nodes.get(w.node_id)
             if node is None or not node.alive:
                 continue
-            if need and not res_mod.fits(node.avail, need):
+            if need and not (res_mod.fits(node.avail, need)
+                             and node.gpu_room(need.get("GPU", 0))):
                 continue
             if w.gpu_capable == needs_gpu:
                 return w
@@ -4704,9 +4773,7 @@ class DriverRuntime:
                     res_mod.release(node.avail, b)
                     ids = (pg.bundle_gpu_ids[i]
                            if i < len(pg.bundle_gpu_ids) else [])
-                    if ids:
-                        node.free_gpu_ids = sorted(
-                            set(node.free_gpu_ids) | set(ids))
+                    node.give_gpus(ids, b.get("GPU", 0))
 
     # ================= public API (called from any thread) =================
     def submit(self, spec: TaskSpec) -> List[ObjectRef]:

@@ -611,12 +611,52 @@ class DataServiceDispatcher:
                     return {"status": "wait", "why": "re-producing"}
         return {"status": "wait", "why": "unknown bid"}
 
+    def _seek_prefix(self, job: Dict[str, Any], ep: Dict[str, Any],
+                     rank: Optional[int], want: int
+                     ) -> Tuple[List[str], bool]:
+        """The next `want` block indices of this consumer's class (every
+        index under fcfs, those of its rank under round_robin), in index
+        order, that no consumer of the job holds or acked: (the bids of
+        those already produced, whether one of them is still to come).
+        An index counts while its slice may still produce it, so a
+        lagging slice's block keeps its place in the prefix and a later
+        block never takes it."""
+        n_slices = self._datasets[job["dataset"]]["n_slices"]
+        step, idx = 1, 0
+        if job["mode"] == "round_robin":
+            step, idx = job["world"], rank
+        by_idx = {m["idx"]: b for b, m in ep["bids"].items()}
+        # past the highest offered index, each slice still running has
+        # an index of this class within n_slices * step
+        last = max(by_idx, default=-1) + n_slices * step
+        ready: List[str] = []
+        missing = False
+        slots = 0
+        while slots < want and idx <= last:
+            b = by_idx.get(idx)
+            if b is None:
+                if ep["slices"][idx % n_slices]["state"] != "done":
+                    missing = True         # not produced yet
+                    slots += 1
+            elif b not in job["granted"] and b not in job["acked"]:
+                if ep["bids"][b]["ref"] is None:
+                    missing = True         # lost, being produced again
+                else:
+                    ready.append(b)
+                slots += 1
+            idx += step
+        return ready, missing
+
     def fast_forward(self, job_name: str, cid: str, gen: int,
                      n: int) -> Dict[str, Any]:
-        """Resume hook: grant-and-auto-ack this consumer's
-        eligible blocks (current epoch, idx order) until its consumed
-        count reaches n — an absolute seek, cheap because nothing is
-        fetched. Returns how many were skipped."""
+        """Resume hook: grant-and-auto-ack the index-order prefix of
+        this consumer's blocks until its consumed count reaches n — an
+        absolute seek, cheap because nothing is fetched. A block of the
+        prefix that is not produced yet is waited for (the reply comes
+        back short and the client polls), never replaced by a later
+        one; the prefix's produced blocks are acked meanwhile, so they
+        free the produce-ahead budget the lagging slice waits on.
+        Returns how many were skipped."""
         skipped = 0
         with self._lock:
             job = self._jobs.get(job_name)
@@ -630,18 +670,21 @@ class DataServiceDispatcher:
                     job["epoch"])
                 if ep is None:
                     break
-                cands = self._eligible(job, ep, cons["rank"])
-                if not cands:
-                    # absolute seeks may span epochs: cross the barrier
-                    # the same way next_shard does
-                    if self._epoch_fully_granted(job, ep):
-                        job["epoch"] += 1
-                        continue
+                ready, missing = self._seek_prefix(
+                    job, ep, cons["rank"], n - cons["consumed"])
+                for b in ready:
+                    job["granted"][b] = cid
+                    self._apply_acks(job_name, job, cid, [b])
+                    skipped += 1
+                if missing or cons["consumed"] >= n:
                     break
-                _, b = cands[0]
-                job["granted"][b] = cid
-                self._apply_acks(job_name, job, cid, [b])
-                skipped += 1
+                # this epoch holds no more of the consumer's blocks:
+                # absolute seeks may span epochs, so cross the barrier
+                # the same way next_shard does
+                if self._epoch_fully_granted(job, ep):
+                    job["epoch"] += 1
+                    continue
+                break
             consumed = cons["consumed"]
             done = job["epoch"] >= job["epochs"]
         return {"skipped": skipped, "consumed": consumed, "done": done}

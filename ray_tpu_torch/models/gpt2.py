@@ -21,6 +21,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import cached_attention, gelu, layer_norm, multi_head_attention
+from ..ops.attention import check_attn_impl
 from ..ops.linear import Dense, logits_fp32
 from ..util.device import DeviceLike, resolve_device
 from .llama import _lecun_normal_, _normal_, _remat_block
@@ -39,6 +40,10 @@ class GPT2Config:
     # and biases stay fp32
     param_dtype: torch.dtype = torch.float32
     remat: bool = False
+    attn_impl: str = "auto"         # "auto" | "xla" | "dpa" | "pallas"
+
+    def __post_init__(self):
+        check_attn_impl(self.attn_impl)
 
     @property
     def d_ff(self) -> int:
@@ -94,9 +99,11 @@ class GPT2Block(nn.Module):
                                    cfg.head_dim).unbind(2)
         new_cache = None
         if cache is None:
-            att = multi_head_attention(q, k, v, causal=True)
+            att = multi_head_attention(q, k, v, causal=True,
+                                       impl=cfg.attn_impl)
         else:
-            att, new_cache = cached_attention(q, k, v, cache, positions)
+            att, new_cache = cached_attention(q, k, v, cache, positions,
+                                              impl=cfg.attn_impl)
         x = x + self.attn_out(att.reshape(b, s, cfg.d_model))
         h = layer_norm(x, self.ln_2_scale, self.ln_2_bias, cfg.norm_eps)
         x = x + self.fc_out(gelu(self.fc_in(h)))

@@ -28,6 +28,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from ..ops import (apply_rotary, cached_attention, multi_head_attention,
                    rms_norm, rope_frequencies, swiglu)
+from ..ops.attention import check_attn_impl
 from ..ops.linear import Dense, logits_fp32
 from ..ops.quant import QuantDense
 from ..util.device import DeviceLike, resolve_device
@@ -57,9 +58,7 @@ class LlamaConfig:
     # storage type of the embedding and projection weights; the norm
     # weights stay fp32
     param_dtype: torch.dtype = torch.float32
-    # The port routes attention by device (kernels on CUDA, plain
-    # versions on the CPU); only "auto" exists.
-    attn_impl: str = "auto"
+    attn_impl: str = "auto"         # "auto" | "xla" | "dpa" | "pallas"
     # None = fp projections; "int8" = weight-only int8 projections
     # (ops/quant.py QuantDense; weights from quantize_llama_params)
     quant: Optional[str] = None
@@ -82,10 +81,7 @@ class LlamaConfig:
         if self.remat_policy not in ("full", "dots"):
             raise ValueError(f"remat_policy={self.remat_policy!r}; "
                              f"valid: 'full', 'dots'")
-        if self.attn_impl != "auto":
-            raise NotImplementedError(
-                f"attn_impl={self.attn_impl!r}: the port routes attention "
-                f"by device; only 'auto' exists")
+        check_attn_impl(self.attn_impl)
 
     @property
     def head_dim(self) -> int:
@@ -152,9 +148,11 @@ class LlamaAttention(nn.Module):
         k = apply_rotary(k, cos, sin, positions)
         new_cache = None
         if cache is None:
-            out = multi_head_attention(q, k, v, causal=True)
+            out = multi_head_attention(q, k, v, causal=True,
+                                       impl=self.cfg.attn_impl)
         else:
-            out, new_cache = cached_attention(q, k, v, cache, positions)
+            out, new_cache = cached_attention(q, k, v, cache, positions,
+                                              impl=self.cfg.attn_impl)
         out = out.reshape(b, s, -1)
         return self.o_proj(out), new_cache
 

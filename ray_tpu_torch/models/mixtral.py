@@ -30,6 +30,7 @@ from torch.distributed.tensor import DTensor
 
 from ..ops import rms_norm, rope_frequencies, swiglu
 from ..ops.linear import Dense
+from ..ops.attention import check_attn_impl
 from ..ops.moe import moe_dispatch_combine
 from ..util.device import DeviceLike, resolve_device
 from .llama import (LlamaAttention, LlamaConfig, _lecun_normal_, _normal_,
@@ -57,7 +58,10 @@ class MixtralConfig:
     # storage type of the embedding, projection, expert and head
     # weights; the norm weights stay fp32
     param_dtype: torch.dtype = torch.float32
-    attn_impl: str = "auto"
+    attn_impl: str = "auto"         # "auto" | "xla" | "dpa" | "pallas"
+
+    def __post_init__(self):
+        check_attn_impl(self.attn_impl)
 
     @property
     def head_dim(self) -> int:

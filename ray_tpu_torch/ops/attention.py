@@ -1,29 +1,42 @@
 """Attention (counterpart of ray_tpu/ops/attention.py).
 
-`multi_head_attention` routes by device and shape, as `_resolve_impl`
-does in the reference but with no crossover length and no knob: on a
-CUDA tensor it takes `kernels.flash_attention` (K1 forward, K2a/K2b
-backward) when there are no segment ids, the mask needs no offset
-(`not causal or Sq == Sk`: the kernels compare absolute indices) and
-`flash_takes` holds (a head dim the kernels are built for, fp32 or
-bf16, q, k and v of one type); every other call, and every CPU tensor,
-takes the plain einsum path (`einsum_attention`: fp32 scores, causal,
-GQA, segment masks). The cached paths share one tail, `_attend_cached`,
-so the paged and contiguous caches cannot drift apart numerically.
+`multi_head_attention(impl=)` takes the reference's four routes; "auto"
+reads `RAY_TPU_ATTN_IMPL` first, as the reference's `_resolve_impl`
+does, and any name outside `ATTN_IMPLS` raises ValueError:
+  * "auto" routes by device and shape, with no crossover length: on a
+    CUDA tensor it takes `kernels.flash_attention` (K1 forward, K2a/K2b
+    backward) when there are no segment ids, the mask needs no offset
+    (`not causal or Sq == Sk`: the kernels compare absolute indices) and
+    `flash_takes` holds (a head dim the kernels are built for, fp32 or
+    bf16, q, k and v of one type); every other call, and every CPU
+    tensor, takes "xla";
+  * "xla" is the plain einsum path on every device (`einsum_attention`:
+    fp32 scores, offset causal mask, GQA, segment masks);
+  * "pallas" calls `kernels.flash_attention` unconditionally: its plain
+    version on a CPU tensor (the reference's interpret mode), K1/K2a/K2b
+    or a raise on a CUDA tensor, never the einsum path. It raises on
+    segment ids, which the reference drops silently;
+  * "dpa" is `F.scaled_dot_product_attention`, an A/B baseline no path
+    takes unless asked; like the reference's it refuses segment ids and
+    Sq != Sk.
+The cached paths share one tail, `_attend_cached`, so the paged and
+contiguous caches cannot drift apart numerically.
 
-`paged_cached_attention` has three routes, chosen by the call's shape:
+`paged_cached_attention` reads `RAY_TPU_PAGED_ATTN_IMPL` ("auto",
+"gather" or "pallas") on every call, as the reference does:
   * fresh prefill (every sequence starts empty) -> `multi_head_attention`
-    over the new tokens, as the reference does: K1 where it takes the
-    call, the einsum path otherwise;
-  * single-token decode -> K3, `kernels.paged_decode_attention`, on a
-    CUDA tensor where `paged_decode_takes` holds (a head dim K3 is built
-    for, at most `MAX_REP` query heads per kv head, fp32 or bf16, q and
-    both pools of one type);
-  * any other call -> the page-gather path below.
-These are routes by shape and type, as the reference's. Each kernel
-wrapper takes its plain PyTorch version for a CPU tensor and launches
-its CUDA kernel for a CUDA tensor; nothing falls back from a kernel to
-a plain version.
+    over the new tokens with the model's `impl`, unless the knob says
+    "gather";
+  * single-token decode -> K3, `kernels.paged_decode_attention`: under
+    "auto" on a CUDA tensor where `paged_decode_takes` holds (a head dim
+    K3 is built for, at most `MAX_REP` query heads per kv head, fp32 or
+    bf16, q and both pools of one type); under "pallas" always (the
+    plain version on a CPU tensor, K3 or a raise on a CUDA one);
+  * any other call, and everything under "gather" -> the page-gather
+    path below.
+Each kernel wrapper takes its plain PyTorch version for a CPU tensor
+and launches its CUDA kernel for a CUDA tensor; nothing falls back from
+a kernel to a plain version.
 
 JAX's functional caches become in-place updates here: the KV pools and
 contiguous caches are written with `index_copy_` / indexed assignment
@@ -35,7 +48,9 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
+from ..util import knobs
 from .kernels.flash_attention import HEAD_DIMS as FLASH_HEAD_DIMS
 from .kernels.flash_attention import flash_attention
 from .kernels.paged_attention import HEAD_DIMS as DECODE_HEAD_DIMS
@@ -43,6 +58,24 @@ from .kernels.paged_attention import MAX_REP, paged_decode_attention
 
 _F32_MIN = torch.finfo(torch.float32).min
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+ATTN_IMPLS = ("auto", "xla", "dpa", "pallas")
+PAGED_ATTN_IMPLS = ("auto", "gather", "pallas")
+
+
+def check_attn_impl(impl: str) -> str:
+    """`impl` when it names a route of `multi_head_attention`, else
+    ValueError (a model config's `attn_impl` is checked by this)."""
+    if impl not in ATTN_IMPLS:
+        raise ValueError(f"attn_impl={impl!r}; valid: "
+                         f"{', '.join(ATTN_IMPLS)}")
+    return impl
+
+
+def _knob_impl(name: str, valid) -> str:
+    value = knobs.get_str(name)
+    if value not in valid:
+        raise ValueError(f"{name}={value!r}; valid: {', '.join(valid)}")
+    return value
 
 
 def causal_attention_mask(seq_len: int, dtype: torch.dtype = torch.bool,
@@ -84,16 +117,43 @@ def _takes_flash(q, k, v, causal, segment_ids) -> bool:
             and flash_takes(q.shape[-1], q.dtype, k.dtype, v.dtype))
 
 
+def resolve_impl(impl: str, q, k, v, causal: bool, segment_ids) -> str:
+    """The route `multi_head_attention` takes: "auto" reads
+    RAY_TPU_ATTN_IMPL, and a pinned name stands; "auto" left after that
+    becomes "pallas" where K1 takes the call, else "xla"."""
+    if check_attn_impl(impl) == "auto":
+        impl = _knob_impl("RAY_TPU_ATTN_IMPL", ATTN_IMPLS)
+    if impl != "auto":
+        return impl
+    return "pallas" if _takes_flash(q, k, v, causal, segment_ids) else "xla"
+
+
 def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True,
                          segment_ids: Optional[torch.Tensor] = None,
+                         impl: str = "auto",
                          scale: Optional[float] = None) -> torch.Tensor:
     """q: (B, Sq, Hq, D); k/v: (B, Sk, Hkv, D) with Hq % Hkv == 0.
-    Returns (B, Sq, Hq, D). Scores in fp32; with Sk != Sq under causal
-    the mask is offset so the last query sees every key."""
-    if _takes_flash(q, k, v, causal, segment_ids):
+    Returns (B, Sq, Hq, D). `impl` pins a route (module docstring).
+    Scores in fp32 on "xla"; with Sk != Sq under causal its mask is
+    offset so the last query sees every key, where "pallas" compares
+    absolute indices, as the reference's kernel does."""
+    impl = resolve_impl(impl, q, k, v, causal, segment_ids)
+    if impl == "pallas":
+        if segment_ids is not None:
+            raise ValueError("impl='pallas' takes no segment_ids (the "
+                             "kernel has no segment mask); use impl='xla'")
         return flash_attention(q.contiguous(), k.contiguous(),
                                v.contiguous(), causal=causal, scale=scale)
+    if impl == "dpa":
+        if segment_ids is not None or q.shape[1] != k.shape[1]:
+            raise ValueError(
+                "impl='dpa' supports only self-attention without "
+                "segment_ids; use impl='xla' for packed/cached shapes")
+        out = F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=causal, scale=scale, enable_gqa=True)
+        return out.transpose(1, 2)
     return einsum_attention(q, k, v, causal=causal, segment_ids=segment_ids,
                             scale=scale)
 
@@ -147,16 +207,17 @@ def _attend_cached(q, ck, cv, positions, new_lengths, scale):
 
 def cached_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      cache, positions: torch.Tensor,
-                     scale: Optional[float] = None):
+                     scale: Optional[float] = None, impl: str = "auto"):
     """Attention of new tokens against a per-sequence KV cache.
 
     q/k/v: (B, S, H{q,kv}, D) for the new tokens; cache = (ck, cv,
     lengths) with ck/cv (B, L, Hkv, D), or a PagedKV. Writes k/v at
     `positions` (B, S) in place, attends causally over the written
-    prefix, and returns (out (B, S, Hq, D), new_cache)."""
+    prefix, and returns (out (B, S, Hq, D), new_cache). `impl` (the
+    model's attn_impl) routes the paged cache's fresh prefill."""
     if isinstance(cache, PagedKV):
         return paged_cached_attention(q, k, v, cache, positions,
-                                      scale=scale)
+                                      scale=scale, impl=impl)
     b, _, _, d = q.shape
     if scale is None:
         scale = d ** -0.5
@@ -208,7 +269,8 @@ class PagedKV:
 def paged_cached_attention(q: torch.Tensor, k: torch.Tensor,
                            v: torch.Tensor, cache: PagedKV,
                            positions: torch.Tensor,
-                           scale: Optional[float] = None):
+                           scale: Optional[float] = None,
+                           impl: str = "auto"):
     """cached_attention semantics over a PagedKV pool (written in
     place). Returns (out (B, S, Hq, D), PagedKV with the new lengths)."""
     b, s, hq, d = q.shape
@@ -226,17 +288,20 @@ def paged_cached_attention(q: torch.Tensor, k: torch.Tensor,
     new_lengths = torch.maximum(
         lengths, (positions[:, -1] + 1).to(lengths.dtype))
     new_cache = PagedKV(k_flat, v_flat, page_table, new_lengths, ps)
+    paged = _knob_impl("RAY_TPU_PAGED_ATTN_IMPL", PAGED_ATTN_IMPLS)
 
-    if cache.fresh:
+    if cache.fresh and paged != "gather":
         # pure prefill: no prior context, attend over the new tokens
         # (K1 where it takes the call). Padding-tail keys only reach
         # discarded query rows.
         out = multi_head_attention(q, k.to(q.dtype), v.to(q.dtype),
-                                   causal=True, scale=scale)
+                                   causal=True, impl=impl, scale=scale)
         return out, new_cache
 
-    if s == 1 and q.is_cuda and paged_decode_takes(
-            d, hq, k_flat.shape[1], q.dtype, k_flat.dtype, v_flat.dtype):
+    if s == 1 and (paged == "pallas" or (
+            paged == "auto" and q.is_cuda and paged_decode_takes(
+                d, hq, k_flat.shape[1], q.dtype, k_flat.dtype,
+                v_flat.dtype))):
         # one-token decode: K3 reads the pages in place, no gather
         out = paged_decode_attention(
             q[:, 0].contiguous(), k_flat, v_flat, page_table.contiguous(),

@@ -205,13 +205,26 @@ def _elastic_rank_fn(rank: int, world: int, payload: Dict[str, Any]):
     on this world's mesh (the configured one with its dp axis resharded
     onto `world`), resumed from the last committed checkpoint when there
     is one; every rank takes part in each commit (save_pytree gathers a
-    sharded state to rank 0)."""
+    sharded state to rank 0).
+
+    With RAY_TPU_ELASTIC_TRACE set, the rank appends its trace to
+    `<path>.r<rank>`, one `<time> g<generation> <event>` line each, as the
+    reference's rank does: `enter world=<n> pid=<pid>`, `init start`,
+    `step <i>` for each step the trainer logs (`log_every`) and `done`."""
     from ..util import events
     from ..util import metrics_catalog as mcat
     from .checkpoint import CheckpointManager
     from .elastic import reshard_mesh_spec
 
     generation = payload["generation"]
+    trace_path = knobs.get_raw("RAY_TPU_ELASTIC_TRACE")
+
+    def _trace(msg: str) -> None:
+        if trace_path:
+            with open(f"{trace_path}.r{rank}", "a") as f:
+                f.write(f"{time.time():.3f} g{generation} {msg}\n")
+
+    _trace(f"enter world={world} pid={os.getpid()}")
     run_config: RunConfig = payload["run_config"]
     cfg = dataclasses.replace(
         payload["config"], mesh=reshard_mesh_spec(payload["config"].mesh,
@@ -231,8 +244,11 @@ def _elastic_rank_fn(rank: int, world: int, payload: Dict[str, Any]):
                 step=str(start_step), generation=str(generation),
                 world=str(world))
     t0 = time.monotonic()
-    trainer = SpmdTrainer(cfg, payload["data_iter_fn"], run_config=run_config)
+    _trace("init start")
+    trainer = SpmdTrainer(cfg, payload["data_iter_fn"], run_config=run_config,
+                          report_fn=lambda m: _trace(f"step {m['step'] - 1}"))
     result = trainer.fit(resume_from=latest.path if latest else None)
+    _trace("done")
     if latest is not None and rank == 0:
         try:
             mcat.get("ray_tpu_train_restore_seconds").observe(

@@ -12,12 +12,13 @@ stopped trials unwind cooperatively via _StopTrial). PBT config swaps are
 delivered in the report reply.
 
 Deliberate differences: a trial reserves cards with `{"GPU": n}` (the
-reference's `{"TPU": n}`, which raises here; so does a fraction of a
-card), and the Tuner starts no more GPU trials at once than the
+reference's `{"TPU": n}`, which raises here), a whole number of cards
+or a share of one (`{"GPU": 0.5}`: two such trials run on a card at
+once), and the Tuner starts no more GPU trials at once than the
 cluster's cards hold. A finished GPU trial's process must have exited,
 its card memory freed, before the next trial starts: the runtime hands
-the card to a queued actor as soon as the old one is killed, before its
-process has let go of the memory.
+the card (or its share) to a queued actor as soon as the old one is
+killed, before its process has let go of the memory.
 """
 from __future__ import annotations
 
@@ -45,10 +46,11 @@ def with_resources(trainable: Callable,
                    resources: Dict[str, float]) -> Callable:
     """Attach a per-trial resource request to a trainable (reference:
     python/ray/tune/trainable/util.py tune.with_resources). Keys: "CPU",
-    "GPU" (a whole number of cards), or any custom node resource; the
-    Tuner reserves them for each trial's actor, so e.g. {"GPU": 1}
-    trials take turns on the cards. "TPU" raises: a GPU host has no
-    such resource, and a trial that asked for it would wait forever."""
+    "GPU" (a whole number of cards or a share of one), or any custom
+    node resource; the Tuner reserves them for each trial's actor, so
+    e.g. {"GPU": 1} trials take turns on the cards and {"GPU": 0.5}
+    trials run two to a card. "TPU" raises: a GPU host has no such
+    resource, and a trial that asked for it would wait forever."""
     _check_resources(resources)
     try:
         trainable._tune_resources = dict(resources)
@@ -67,10 +69,10 @@ def _check_resources(resources: Dict[str, float]) -> None:
                 f"with_resources: {key!r} names no resource of this "
                 f"runtime; ask for cards with \"GPU\"")
     gpus = resources.get("GPU", resources.get("gpu", 0))
-    if gpus != int(gpus) or gpus < 0:
+    if gpus < 0 or (gpus >= 1 and gpus != int(gpus)):
         raise ValueError(
-            f"with_resources: \"GPU\" must be a whole number of cards, "
-            f"got {gpus!r}")
+            f"with_resources: \"GPU\" must be a share of one card (below "
+            f"1) or a whole number of cards, got {gpus!r}")
 
 
 def with_parameters(trainable: Callable, **params) -> Callable:
@@ -391,7 +393,7 @@ class Tuner:
                    or {"CPU": 1})
         _check_resources(res)
         num_cpus = res.pop("CPU", res.pop("cpu", 1))
-        num_gpus = int(res.pop("GPU", res.pop("gpu", 0)))
+        num_gpus = res.pop("GPU", res.pop("gpu", 0))
         opts: Dict[str, Any] = {"num_cpus": num_cpus}
         if num_gpus:
             opts["num_gpus"] = num_gpus
@@ -410,7 +412,9 @@ class Tuner:
                 raise ValueError(
                     f"each trial asks for {gpus} GPU(s); the cluster "
                     f"has {have}")
-            n = min(n, have // gpus)
+            # shares of a card do not span two cards
+            n = min(n, have // int(gpus) if gpus >= 1
+                    else have * int(1 / gpus + 1e-9))
         return n
 
     def _write_experiment_state(self, trials: List[Trial]):

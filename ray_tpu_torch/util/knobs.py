@@ -377,6 +377,10 @@ _declare("RAY_TPU_GANG_REPLACE_WAIT_S", "float", 5,
 _declare("RAY_TPU_TRAIN_MAX_FAILURES", "int", 8,
          "Gang failures an elastic fit() survives before giving up.",
          "train")
+_declare("RAY_TPU_ELASTIC_TRACE", "str", None,
+         "Path prefix of the elastic trainer's per-rank trace: each "
+         "rank appends lines to <path>.r<rank> (unset disables; read "
+         "by train/spmd_trainer.py).", "train")
 _declare("RAY_TPU_TRAIN_RANK", "int", 0,
          "This rank process's index in the SPMD world.", "train",
          wiring=True)
@@ -420,6 +424,16 @@ _declare("RAY_TPU_DATA_SERVICE_POLL_S", "float", 0.05,
          "Data service: consumer-side poll interval while waiting for "
          "a shard grant (epoch barrier / production lag; read by "
          "data/service.py).", "data")
+
+# ---------------------------------------------------------------------------
+# ops
+
+_declare("RAY_TPU_ATTN_IMPL", "str", "auto",
+         "Attention route when a model's attn_impl is \"auto\": auto | "
+         "xla | dpa | pallas (read by ops/attention.py).", "ops")
+_declare("RAY_TPU_PAGED_ATTN_IMPL", "str", "auto",
+         "Paged-cache attention route: auto | gather | pallas (read by "
+         "ops/attention.py on every call).", "ops")
 
 # ---------------------------------------------------------------------------
 # GPU topology

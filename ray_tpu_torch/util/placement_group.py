@@ -9,7 +9,7 @@ from __future__ import annotations
 
 from typing import Dict, List, Optional
 
-from ..core.resources import check_whole_gpus
+from ..core.resources import check_gpu_request
 from ..core.runtime import get_runtime
 from ..core.object_ref import ObjectRef
 
@@ -65,7 +65,7 @@ def placement_group(bundles: List[Dict[str, float]],
         raise ValueError("bundles must be a non-empty list of non-empty "
                          "resource dicts")
     for b in bundles:
-        check_whole_gpus(b)
+        check_gpu_request(b)
     rt = get_runtime()
     state = rt.placement_group(bundles, strategy, name)
     return PlacementGroup(state)

@@ -358,3 +358,84 @@ print("RESULT " + json.dumps({"up": up, "marked": marked, "left": left}))
 def test_shutdown_kills_dead_marked_and_late_workers():
     (port,) = _run(DEAD_WORKER_PROGRAM, "ray_tpu_torch")
     assert port == {"up": True, "marked": True, "left": []}
+
+
+# The seek skips the index-order prefix (the reference's contract in
+# tests/test_data_service.py::test_fast_forward_skips_absolute_prefix)
+# also while production lags: the dispatcher as a plain object with no
+# data workers, its blocks offered by hand, slice 0 held back after its
+# first block while slices 1-3 run ahead.
+BY_IDX = [f"e0-s{i % 4}-b{i // 4}" for i in range(16)]
+
+
+@pytest.mark.parametrize("mode", ["round_robin", "fcfs"])
+def test_seek_skips_the_index_order_prefix_while_a_slice_lags(mode):
+    d = service.DataServiceDispatcher(min_workers=0, max_workers=0)
+    try:
+        def offer(slice_idx, seq):
+            d.offer_block("ds_lag", 0, slice_idx, seq,
+                          f"ref-{slice_idx}-{seq}", 8, "w0")
+
+        def acked():
+            return sorted(d._jobs["lag"]["acked"])
+
+        assert d.register_dataset("ds_lag", b"plan", 4)["ok"]
+        d.register_job("lag", "ds_lag", mode, 1, 1)
+        d._dispatch_slices()            # opens epoch 0, four slices
+        gen = d.attach_consumer(
+            "lag", "c0", 0 if mode == "round_robin" else None)["generation"]
+        offer(0, 0)
+        for s in (1, 2, 3):
+            for seq in range(4):
+                offer(s, seq)
+        # idx 4 is slice 0's second block: the reply comes back short,
+        # and idx 5 (produced) is not acked in its place
+        out = d.fast_forward("lag", "c0", gen, 5)
+        assert (out["skipped"], out["consumed"]) == (4, 4)
+        assert acked() == sorted(BY_IDX[:4])
+        offer(0, 1)
+        out = d.fast_forward("lag", "c0", gen, 5)
+        assert (out["skipped"], out["consumed"]) == (1, 5)
+        assert acked() == sorted(BY_IDX[:5])
+        # slice 0 ends after two blocks: idx 8 and 12 never exist, and
+        # the seek steps over them once its slice is done
+        for s in range(4):
+            d.slice_done("ds_lag", 0, s, "w0")
+        have = [b for b in BY_IDX if b not in ("e0-s0-b2", "e0-s0-b3")]
+        out = d.fast_forward("lag", "c0", gen, 10)
+        assert (out["consumed"], out["done"]) == (10, False)
+        assert acked() == sorted(have[:10])
+        grant = d.next_shard("lag", "c0", gen, [], None)
+        assert grant["bid"] == have[10]
+        # the rest of the epoch: every block is now handed out (one
+        # granted, twelve acked), so the seek crosses the last barrier
+        out = d.fast_forward("lag", "c0", gen, 14)
+        assert (out["consumed"], out["done"]) == (13, True)
+        assert d.next_shard("lag", "c0", gen, [grant["bid"]],
+                            None)["status"] == "end"
+        assert acked() == sorted(have)
+    finally:
+        d.graceful_shutdown()
+
+
+def test_next_shard_grants_the_lowest_block_produced_so_far():
+    """`next_shard` keeps production order, as the reference's does: with
+    slice 0 not yet producing, the grant is slice 1's first block (idx 1)
+    and idx 0 comes when it is produced. Holding grants to index order
+    would stall a consumer behind a lagging slice, and could deadlock it
+    against the produce-ahead budget the slices share."""
+    d = service.DataServiceDispatcher(min_workers=0, max_workers=0)
+    try:
+        assert d.register_dataset("ds_order", b"plan", 4)["ok"]
+        d.register_job("order", "ds_order", "round_robin", 1, 1)
+        d._dispatch_slices()
+        gen = d.attach_consumer("order", "c0", 0)["generation"]
+        for s in (1, 2, 3):
+            d.offer_block("ds_order", 0, s, 0, f"ref-{s}", 8, "w0")
+        first = d.next_shard("order", "c0", gen, [], None)
+        assert (first["bid"], first["idx"]) == ("e0-s1-b0", 1)
+        d.offer_block("ds_order", 0, 0, 0, "ref-0", 8, "w0")
+        second = d.next_shard("order", "c0", gen, [first["bid"]], None)
+        assert (second["bid"], second["idx"]) == ("e0-s0-b0", 0)
+    finally:
+        d.graceful_shutdown()

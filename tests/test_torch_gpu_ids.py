@@ -5,8 +5,9 @@ and the driver's CUDA_VISIBLE_DEVICES names them "5,7". A task or actor
 with num_gpus is granted card ids (`get_gpu_ids`, indices into the
 node's cards) and runs with CUDA_VISIBLE_DEVICES set to the cards they
 name before its code runs; a CPU task sees none. CUDA reads that variable once per process, so a pooled
-worker that ran with some ids is never handed others. A fractional GPU
-request, which would get no card index, is refused."""
+worker that ran with some ids is never handed others. A request of more
+than one card must be a whole number of them; shares of one card are in
+tests/test_torch_fractional_gpus.py."""
 import os
 import time
 
@@ -139,17 +140,18 @@ def test_pooled_worker_never_handed_other_ids(cluster):
 
 
 def test_fractional_gpu_requests_are_refused(cluster):
-    """A share of a card has no card index, so its process would run with
-    CUDA_VISIBLE_DEVICES "" and never see the card. Every way of asking
-    for one raises before anything is scheduled; whole counts run."""
+    """A request above one card that is not a whole number of cards (1.5
+    names neither a share of one card nor whole cards, as in Ray) raises
+    before anything is scheduled, whichever way it is asked for; whole
+    counts run."""
     with pytest.raises(ValueError, match="whole number of cards"):
-        Holder.options(num_gpus=0.5).remote()
+        Holder.options(num_gpus=1.5).remote()
     with pytest.raises(ValueError, match="whole number of cards"):
         gpu_task.options(num_gpus=1.5).remote()
     with pytest.raises(ValueError, match="whole number of cards"):
-        cpu_task.options(resources={"GPU": 0.25}).remote()
+        cpu_task.options(resources={"GPU": 2.25}).remote()
     with pytest.raises(ValueError, match="whole number of cards"):
-        placement_group([{"CPU": 1, "GPU": 0.5}])
+        placement_group([{"CPU": 1, "GPU": 1.5}])
     assert rt.available_resources().get("GPU", 0.0) == 2
     _, ids, visible = rt.get(gpu_task.options(num_gpus=1.0).remote(),
                              timeout=60)

@@ -14,6 +14,7 @@ differ in order by a few ulps of values of order 1.
 """
 import importlib
 import os
+import shutil
 import subprocess
 import sys
 
@@ -581,8 +582,68 @@ def test_port_imports_no_jax_and_no_ray_tpu():
                  "ray_tpu_torch.experimental",
                  "ray_tpu_torch.experimental.internal_kv",
                  "ray_tpu_torch.experimental.tqdm_ray",
-                 "ray_tpu_torch.rllib._testing"):
+                 "ray_tpu_torch.rllib._testing",
+                 # workflows, C++ tasks and the gRPC ingress
+                 "ray_tpu_torch.workflow", "ray_tpu_torch.cross_language",
+                 "ray_tpu_torch.serve.grpc_proxy"):
         assert name in mods.split()
+
+
+def test_cpp_task_and_grpc_proxy_workers_import_no_jax_and_no_ray_tpu(
+        tmp_path):
+    """A worker that calls into a C++ library (through the module's own
+    `_load(...).invoke`, the body of every cpp_function task) and the
+    gRPC proxy's actor (its class, with a report of its process) list
+    their modules: no jax, no ray_tpu / ray_tpu.*; the C++ worker, which
+    holds no GPU, sees no card."""
+    pytest.importorskip("grpc")
+    if shutil.which("g++") is None:
+        pytest.skip("g++ not available")
+    lib = tmp_path / "libmathlib.so"
+    subprocess.run(
+        ["g++", "-O2", "-std=c++17", "-shared", "-fPIC", "-I",
+         os.path.join(REPO, "ray_tpu_torch", "_native"),
+         os.path.join(REPO, "examples", "cpp_tasks", "mathlib.cc"),
+         "-o", str(lib)], check=True, capture_output=True, timeout=120)
+    code = (
+        "import os, sys\n"
+        "import ray_tpu_torch as rt\n"
+        "from ray_tpu_torch import cross_language as xl\n"
+        "from ray_tpu_torch.serve import _proxy_util\n"
+        "from ray_tpu_torch.serve.grpc_proxy import GrpcProxy\n"
+        "lib = sys.argv[1]\n"
+        "class ProbedProxy(GrpcProxy):\n"
+        "    def modules(self):\n"
+        "        import sys\n"
+        "        return sorted(sys.modules)\n"
+        "@rt.remote\n"
+        "def cpp_call(lib):\n"
+        "    import os, sys\n"
+        "    from ray_tpu_torch import cross_language as xl\n"
+        "    out = xl._load(lib).invoke('add', xl._encode_call((2, 3), {}))\n"
+        "    return (out, os.environ.get('CUDA_VISIBLE_DEVICES'),\n"
+        "            sorted(sys.modules))\n"
+        "rt.init(num_cpus=3)\n"
+        "assert rt.get(xl.cpp_function(lib, 'add').remote(4, 5)) == 9\n"
+        "out, visible, cpp_mods = rt.get(cpp_call.remote(lib), timeout=120)\n"
+        "proxy, port = _proxy_util.get_or_create_proxy(\n"
+        "    'probe_grpc', ProbedProxy, '127.0.0.1', 0)\n"
+        "proxy_mods = rt.get(proxy.modules.remote(), timeout=120)\n"
+        "rt.shutdown()\n"
+        "print(out, repr(visible), port > 0)\n"
+        "print(' '.join(cpp_mods))\n"
+        "print(' '.join(proxy_mods))\n")
+    res = subprocess.run([sys.executable, "-c", code, str(lib)],
+                         capture_output=True, text=True, timeout=300,
+                         cwd=REPO, env=dict(os.environ, RAY_TPU_GPUS="1"))
+    assert res.returncode == 0, res.stderr
+    head, cpp_mods, proxy_mods = res.stdout.strip().splitlines()[-3:]
+    assert head == "5 '' True"
+    assert "ray_tpu_torch.cross_language" in cpp_mods.split()
+    assert _leaks(cpp_mods.split()) == []
+    assert {"grpc", "ray_tpu_torch.serve.grpc_proxy"} <= set(
+        proxy_mods.split())
+    assert _leaks(proxy_mods.split()) == []
 
 
 def test_spawned_worker_imports_no_jax_and_no_ray_tpu():

@@ -186,18 +186,22 @@ def test_bf16_config_gives_fp32_logits():
 
 
 def test_unported_options_raise():
-    """attn_impl is not ported; int8 is (it builds QuantDense
-    projections, held against the JAX int8 Llama in
-    tests/test_torch_zoo.py) and so is remat (its gradients are checked
-    in tests/test_torch_train.py)."""
+    """Every option the reference takes is ported: int8 builds QuantDense
+    projections (held against the JAX int8 Llama in
+    tests/test_torch_zoo.py), remat's gradients are checked in
+    tests/test_torch_train.py, and attn_impl pins a route (held against
+    the reference's same route in tests/test_torch_attn_impl.py). A
+    value outside each option's set raises ValueError."""
     m = Llama(LlamaConfig.debug(quant="int8", dtype=torch.float32),
               device="cpu")
     q = m.state_dict()["layer_0.attention.q_proj.kernel_q"]
     assert q.dtype == torch.int8 and q.shape == (64, 64)
     with pytest.raises(ValueError):
         LlamaConfig.debug(quant="int4")
-    with pytest.raises(NotImplementedError):
-        LlamaConfig.debug(attn_impl="pallas")
+    for impl in ("auto", "xla", "dpa", "pallas"):
+        assert LlamaConfig.debug(attn_impl=impl).attn_impl == impl
+    with pytest.raises(ValueError, match="attn_impl"):
+        LlamaConfig.debug(attn_impl="flash")
     with pytest.raises(ValueError):
         LlamaConfig.debug(remat=True, remat_policy="offload")
 

@@ -314,4 +314,4 @@ def test_paged_fresh_prefill_goes_through_multi_head_attention(monkeypatch):
                        torch.zeros(b, dtype=torch.int32), ps, fresh=True)
     t_att.paged_cached_attention(q, kv, kv, tc, _t(pos), scale=0.3)
     assert calls == [((b, s, hq, d), torch.float32, torch.float32,
-                      dict(causal=True, scale=0.3))]
+                      dict(causal=True, impl="auto", scale=0.3))]

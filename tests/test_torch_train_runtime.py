@@ -225,8 +225,10 @@ def test_elastic_rank_kill_reforms_and_restores(cluster, tmp_path):
                                  device="cpu")
 
     run_config = RunConfig(name="elastic", storage_path=str(tmp_path))
+    trace = str(tmp_path / "trace")
     tr = ElasticSpmdTrainer(config(), data, num_hosts=2,
                             resources_per_host={"CPU": 1},
+                            env_per_host={"RAY_TPU_ELASTIC_TRACE": trace},
                             run_config=run_config)
     box = {}
 
@@ -271,3 +273,20 @@ def test_elastic_rank_kill_reforms_and_restores(cluster, tmp_path):
                "train.restore"], limit=200)[0]]
     assert {"train.gang.rank_death", "train.gang.reform",
             "train.restore"} <= set(types)
+    # RAY_TPU_ELASTIC_TRACE: each rank's <path>.r<rank> holds, for each
+    # generation, its enter line, then init, the logged steps and, for
+    # the generation that finished, done
+    for rank in (0, 1):
+        lines = [ln.split(" ", 2) for ln in
+                 open(f"{trace}.r{rank}").read().splitlines()]
+        assert all(float(t) > 0 for t, _, _ in lines)
+        by_gen = {}
+        for _, gen, msg in lines:
+            by_gen.setdefault(gen, []).append(msg)
+        assert sorted(by_gen) == ["g0", "g1"]
+        for gen, msgs in by_gen.items():
+            assert msgs[0].startswith("enter world=2 pid="), msgs
+            assert msgs[1] == "init start"
+        assert by_gen["g1"][2:] == [f"step {i}" for i in range(
+            first - 1, total)] + ["done"]
+        assert "done" not in by_gen["g0"]

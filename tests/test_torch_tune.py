@@ -212,8 +212,14 @@ def test_with_resources_maps_gpu_and_refuses_tpu_and_fractions():
         "num_cpus": 1}
     with pytest.raises(ValueError, match='"GPU"'):
         port_tune.with_resources(f, {"TPU": 1})
+    # a share of one card is a request Ray takes (two 0.5 trials run on
+    # one card: tests/test_torch_fractional_gpus.py); 1.5 names neither
+    # a share nor whole cards
+    half = port_tune.with_resources(lambda c: None, {"CPU": 1, "GPU": 0.5})
+    assert port_tune.Tuner(half)._trial_actor_options() == {
+        "num_cpus": 1, "num_gpus": 0.5}
     with pytest.raises(ValueError, match="whole number"):
-        port_tune.with_resources(f, {"GPU": 0.5})
+        port_tune.with_resources(f, {"GPU": 1.5})
     assert port_tuner.Tuner(port_tune.with_resources(
         f, {"CPU": 1, "custom": 2}))._trial_actor_options() == {
             "num_cpus": 1, "resources": {"custom": 2}}

@@ -116,13 +116,8 @@ def test_get_model_builds_every_registry_name(name):
         for f in dataclasses.fields(jc):
             if f.name in ("dtype", "param_dtype", *kw):
                 continue
-            if not hasattr(tc, f.name):
-                # the port routes attention by shape alone: GPT-2's config
-                # has no attn_impl; Llama's and Mixtral's keep the field
-                # and raise on any value but "auto"
-                assert (name.startswith("gpt2") and f.name == "attn_impl"
-                        and jc.attn_impl == "auto"), f.name
-                continue
+            # every family's config has the reference's fields,
+            # attn_impl included (GPT-2's too)
             assert getattr(tc, f.name) == getattr(jc, f.name), f.name
         for f, v in kw.items():
             assert getattr(tc, f) == v
