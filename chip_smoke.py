@@ -5,7 +5,7 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
-It builds every CUDA kernel from `ray_tpu_torch/csrc/`, then runs nineteen
+It builds every CUDA kernel from `ray_tpu_torch/csrc/`, then runs twenty
 phases and fails (non-zero exit, no result line) if any of them fails:
 
 1. kernels: each kernel against its plain PyTorch version at
@@ -294,12 +294,49 @@ phases and fails (non-zero exit, no result line) if any of them fails:
    rides the runtime phase's (d). The gRPC proxy and C++ tasks do not
    run here: the card's machine has no `grpc`, and C++ tasks do not
    touch the card.
+20. parallelism, the rest: (a) the sp attention core
+   (`sequence_parallel_attention`, route "pallas") at Llama-3-8B
+   attention widths (B 1, Hq 32, Hkv 8, D 128, bf16, causal), an
+   8192-token sequence in 4 chunks of 2048, each chunk's queries
+   against the whole K/V, forward and backward with a seeded dO: the
+   chunks' outputs and dQ, and their dK/dV summed, against the plain
+   versions as the kernels phase holds K1 and K2 (the output within
+   K1's tolerance; the gradients within K2's, the plain backward fed
+   the core's lse and delta), and one K1 and one K2a/K2b call on the
+   whole sequence against them the same way; K1, K2a and K2b launched
+   7 times each (chunk 0 has no prefix); the chunks' time beside the
+   whole call's. (b) 2 bf16 MoE
+   blocks of Mixtral-8x7B widths (E 8, k 2, d 4096, ff 14336) on 4096
+   tokens at capacity factor 1.0 (tokens drop): the port's index
+   dispatch against the reference's one-hot (G, E, C) formulation kept
+   here (`moe_onehot`) on each block's input: the same (token, slot)s
+   kept, outputs within MOE_ATOL / MOE_RTOL; each one's time and peak
+   memory. (c) at world n (n cards; at n == 1 a world of one NCCL rank
+   in this process): 2 fp32 sgd steps of 2 flagship layers on
+   MeshSpec(sp=n) equal to one device's (loss, grad_norm, params; rtol
+   1e-4), K1/K2a/K2b launched on every rank; PPO on CartPole with
+   use_mesh=True (MeshSpec(dp=n)), 2 iterations, its learner stats
+   within 1e-5 of use_mesh=False's; Mixtral on MeshSpec(fsdp=2, tp=2)
+   in 4 gloo CPU ranks (its tp-split experts in FSDP2 under this
+   machine's torch) equal to one device's, a quarter of each expert a
+   rank. At n == 1 both meshes are of one
+   rank, so the step and the learner take their plain paths: the
+   launches are keyed `mesh-of-one`, not `sp-mesh`, and sp's own come
+   only from runs on several cards. (d) only where n >= 4: the train
+   phase's model (8 layers of the 8B widths) on MeshSpec(fsdp=2, sp=2)
+   at 2 x 8192 tokens (median step, peak memory a rank), GPT-2 small
+   on MeshSpec(tp=4) (2 fp32 steps equal to one device's, its
+   checkpoint restored onto one device bit for bit), Mixtral-8x7B
+   widths at 2 fp32 layers on MeshSpec(ep=2, tp=2) (loss and each
+   layer's aux loss within 1e-5 of one device's, peak memory); at n < 4
+   it prints "four-card part not run".
 
 The last three lines are a JSON object listing each kernel (with its
 launches on each path, the zoo's bursts and ViT's forward among them,
-the front doors' `cli-serve`, `job` and `client`, and phase 19's
+the front doors' `cli-serve`, `job` and `client`, phase 19's
 `pinned-pallas`, `pinned-xla`, `pinned-dpa`, `workflow` and
-`fractional`), the card's name
+`fractional`, and phase 20's `sp-chunks`, `sp-mesh` (`mesh-of-one`
+on one card) and `moe-dispatch`), the card's name
 and power limit as nvidia-smi
 gives them, and {"ok": true, "device": {...}}. Imports nothing of JAX
 or ray_tpu.
@@ -3331,7 +3368,7 @@ def phase_parallel(torch, gpu_line, train_stats):
     attention at sp = n, (d) a sharded checkpoint restored onto the mesh
     and onto one device and served, (e) dryrun_multichip(n), (f) the MoE
     aux losses on MeshSpec(ep=n). Returns (a)'s launches
-    (rank 0's; every rank's are checked)."""
+    (rank 0's; every rank's are checked) and its median step in ms."""
     import shutil
     import tempfile
 
@@ -3439,7 +3476,7 @@ def phase_parallel(torch, gpu_line, train_stats):
     check(len(lines) == 6, f"parallel (e): {len(lines)} dry-run stages")
     print(f"parallel: (e) dryrun_multichip({n}) on CUDA: all 6 stages in "
           f"{time.time() - t0:.1f} s", flush=True)
-    return r0["launches"]
+    return r0["launches"], med * 1e3
 
 
 # the runtime phase: a chain of bf16 tensors of 64 MiB each on the card;
@@ -5908,6 +5945,651 @@ def phase_pinned_and_rest(torch, gpu_line, parity):
     return launches
 
 
+# phase 20: parallelism, the rest. (a) the sp attention core on one card
+# at Llama-3-8B attention widths, an 8192-token sequence in chunks;
+# (b) the MoE dispatch at Mixtral-8x7B widths against the reference's
+# one-hot formulation kept here; (c) the mesh paths at world n; (d) four
+# cards only
+SP_SHAPE = (1, 8192, 32, 8, 128)     # (a): B, S, Hq, Hkv, D, bf16, causal
+SP_CHUNKS = 4
+SP_LAUNCHES = 2 * SP_CHUNKS - 1      # K1, K2a, K2b: chunk 0 has no prefix
+MOE_TOKENS, MOE_LAYERS = 4096, 2     # (b): tokens, bf16 MoE blocks
+MOE_CF = 1.0                         # ... at which some tokens drop
+# (b): both formulations cast the same expert products to bf16 from fp32
+# sums of the same terms (the one-hot GEMM adds zeros): one bf16 ulp of
+# the output beside a floor for the near-zero entries
+MOE_ATOL, MOE_RTOL = 1e-2, 8e-3
+SP_MESH_LAYERS, SP_MESH_STEPS = 2, 2  # (c): flagship layers, fp32 sgd steps
+SP_MESH_ROWS, SP_MESH_SEQ = 2, 256
+PPO_MESH_ITERS = 2                   # (c): PPO iterations each way
+PPO_MESH_RTOL = 1e-5
+# (c): FSDP2 of this machine's torch on the tp-split experts (ep 1): a
+# small Mixtral in a world of 4 gloo CPU ranks, as the CPU tests run it
+EXPERTS_CFG = dict(vocab_size=256, d_model=64, n_layers=2, n_heads=4,
+                   n_kv_heads=2, d_ff=128, n_experts=4, experts_per_token=2,
+                   max_seq_len=64, capacity_factor=1.0)
+EXPERTS_STEPS = 3
+FOUR_STEPS = 4                       # (d): the 8-layer sp step's steps,
+FOUR_ROWS, FOUR_SEQ = 2, 8192        # ... at 2 x 8192 tokens
+FOUR_GPT2_STEPS = 2                  # (d): GPT-2 small, fp32, tp 4
+FOUR_MIX_ROWS, FOUR_MIX_SEQ = 4, 256  # (d): Mixtral over ep 2 x tp 2
+
+
+def ulp_ratio(torch, got, want, atol, rtol):
+    """(max |got - want|, its largest share of atol + rtol |want|)."""
+    err = (got.float() - want.float()).abs()
+    return (float(err.max()),
+            float((err / (atol + rtol * want.float().abs())).max()))
+
+
+def sp_chunks(torch, gpu_line):
+    """(a): each chunk of SP_SHAPE's sequence through the split-prefix
+    core (`sequence_parallel_attention`, route "pallas") against the
+    whole K/V, forward and backward with a seeded dO, held against the
+    plain versions on the same inputs as the kernels phase holds K1 and
+    K2: the output against `flash_attention_plain`'s within K1's
+    tolerance, dQ, dK and dV against `flash_bwd_dq_plain` and
+    `flash_bwd_dkv_plain` fed the core's own (merged) lse and its delta
+    within K2's. One K1 and one K2a/K2b call on the whole sequence is
+    held against them the same way, and timed beside the chunks. The
+    gradients of the plain versions from their own lse and delta are
+    printed beside: there the bf16 outputs' roundings move delta, which
+    no kernel decides. Returns the chunks' K1/K2a/K2b launches."""
+    from ray_tpu_torch.ops import attention as attn
+    from ray_tpu_torch.ops import sequence_parallel_attention
+    from ray_tpu_torch.ops.kernels import flash_attention as fa
+    b, s, hq, hkv, d = SP_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    q, k, v, do = (torch.randn((b, s, h, d), device="cuda", generator=gen,
+                               dtype=torch.bfloat16)
+                   for h in (hq, hkv, hkv, hq))
+    c = s // SP_CHUNKS
+
+    def chunks():
+        outs, dqs = [], []
+        dk = torch.zeros(k.shape, dtype=torch.float32, device="cuda")
+        dv = torch.zeros(v.shape, dtype=torch.float32, device="cuda")
+        for r in range(SP_CHUNKS):
+            qr = q[:, r * c:(r + 1) * c].contiguous().requires_grad_(True)
+            kk, vv = k.detach().requires_grad_(True), \
+                v.detach().requires_grad_(True)
+            out = sequence_parallel_attention(qr, kk, vv, r, impl="pallas")
+            out.backward(do[:, r * c:(r + 1) * c])
+            outs.append(out.detach())
+            dqs.append(qr.grad)
+            dk += kk.grad.float()
+            dv += vv.grad.float()
+        return torch.cat(outs, 1), torch.cat(dqs, 1), dk, dv
+
+    def whole():
+        qw, kw, vw = (t.detach().requires_grad_(True) for t in (q, k, v))
+        out = fa.flash_attention(qw, kw, vw, causal=True)
+        out.backward(do)
+        return out.detach(), qw.grad, kw.grad, vw.grad
+
+    def chunk_stats():
+        """(lse, delta) (B*Hq, S) of the core, as its backward takes
+        them: each chunk's parts merged (the forward's kernels again)."""
+        outs, lses = [], []
+        for r in range(SP_CHUNKS):
+            qr = q[:, r * c:(r + 1) * c].contiguous()
+            out, lse = attn._merge_parts([fa.flash_attention_fwd(
+                qr, kk, vv, causal=causal) for kk, vv, causal, _ in
+                attn._key_parts(k, v, r, c)], q.dtype)
+            outs.append(out)
+            lses.append(lse.view(b, hq, c))
+        return (torch.cat(lses, 2).reshape(b * hq, s),
+                fa.attention_delta(torch.cat(outs, 1), do))
+
+    def plain(stats=None):
+        """The plain versions, one kv head and its group of query heads
+        at a time (heads are independent, and the (S, S) fp32 scores of
+        all 32 heads would take 8 GiB a buffer); the backward from
+        `stats` (lse, delta) where given, else from its own."""
+        rep, parts = hq // hkv, []
+        for j in range(hkv):
+            heads = slice(j * rep, (j + 1) * rep)
+            qg, dog = (t[:, :, heads].contiguous() for t in (q, do))
+            kg, vg = (t[:, :, j:j + 1].contiguous() for t in (k, v))
+            out, lse = fa.flash_attention_plain(qg, kg, vg, causal=True)
+            delta = fa.attention_delta(out, dog)
+            if stats is not None:
+                lse, delta = (t.view(b, hq, s)[:, heads].reshape(b * rep, s)
+                              for t in stats)
+            parts.append((out, fa.flash_bwd_dq_plain(
+                qg, kg, vg, dog, lse, delta, causal=True),
+                *fa.flash_bwd_dkv_plain(qg, kg, vg, dog, lse, delta,
+                                        causal=True)))
+            del out, lse, delta
+        return [torch.cat(t, 2) for t in zip(*parts)]
+
+    zero_counters(fa)
+    got = chunks()
+    torch.cuda.synchronize()
+    launches = read_counters(fa)
+    whole_out, whole_lse = fa.flash_attention_fwd(q, k, v, causal=True)
+    whole_stats = (whole_lse, fa.attention_delta(whole_out, do))
+    del whole_out, whole_lse
+    checks = [("out", K1_ATOL_OUT, K1_RTOL_OUT), ("dq", K2_ATOL, K2_RTOL),
+              ("dk", K2_ATOL, K2_RTOL), ("dv", K2_ATOL, K2_RTOL)]
+
+    def shares(have, want):
+        return {name: ulp_ratio(torch, g, w, atol, rtol)
+                for (name, atol, rtol), g, w in zip(checks, have, want)}
+
+    def fmt(errs):
+        return ", ".join(f"{n} {e:.4g} / {r:.3f}" for n, (e, r) in
+                         errs.items())
+    errs = shares(got, plain(chunk_stats()))
+    own = shares(got, plain())
+    release(torch)
+    whole_errs = shares(whole(), plain(whole_stats))
+    del whole_stats
+    release(torch)
+    t_chunks = time_ms(chunks, iters=5, warmup=1)
+    t_whole = time_ms(whole, iters=5, warmup=1)
+    print(f"phase 20: (a) sp attention core, B S Hq Hkv D = {SP_SHAPE} bf16 "
+          f"causal in {SP_CHUNKS} chunks of {c} against the whole K/V "
+          f"(split-prefix: K1 on the prefix and on the diagonal block, "
+          f"merged by lse): max abs err / worst share of the tolerance "
+          f"against the plain versions (backward from the core's lse and "
+          f"delta): {fmt(errs)}; one whole-sequence K1 / K2 call against "
+          f"them (from its own): {fmt(whole_errs)}; printed only, the "
+          f"chunks against the plain backward from the plain lse and "
+          f"delta: {fmt(own)}; launches {json.dumps(launches)}", flush=True)
+    print(f"phase 20: (a) forward + backward, the {SP_CHUNKS} chunks "
+          f"{t_chunks:.4f} ms in all, the whole call {t_whole:.4f} ms "
+          f"(CUDA events, median) [{gpu_line}]", flush=True)
+    for name, (_, ratio) in errs.items():
+        check(ratio <= 1.0, f"phase 20 (a): the chunks' {name} differs from "
+                            f"the plain version's")
+    for name, (_, ratio) in whole_errs.items():
+        check(ratio <= 1.0, f"phase 20 (a): the whole call's {name} differs "
+                            f"from the plain version's")
+    check(launches == {"flash_fwd (K1)": SP_LAUNCHES,
+                       "flash_bwd_dq (K2a)": SP_LAUNCHES,
+                       "flash_bwd_dkv (K2b)": SP_LAUNCHES},
+          f"phase 20 (a): launches {launches}, want {SP_LAUNCHES} each")
+    del q, k, v, do, got
+    release(torch)
+    return launches
+
+
+def moe_onehot(torch, x, logits, expert_fn, k, c):
+    """The reference's GShard dispatch (ray_tpu/ops/moe.py), kept as the
+    check: one-hot (G, E, C) dispatch and combine tensors and einsums.
+    Returns (out, kept (G, k) bool)."""
+    import torch.nn.functional as F
+    g, e = logits.shape
+    top_logits, top_idx = torch.sort(logits, dim=-1, descending=True,
+                                     stable=True)
+    weights = torch.softmax(top_logits[:, :k].float(), dim=-1)
+    assign = F.one_hot(top_idx[:, :k], e).float()                # (G, k, E)
+    slot_major = assign.transpose(0, 1).reshape(k * g, e).to(torch.int32)
+    pos = (torch.cumsum(slot_major, 0, dtype=torch.int32) - slot_major
+           ).reshape(k, g, e).transpose(0, 1)
+    keep = assign * (pos < c)
+    slot_pos = (pos * keep).sum(-1).long()
+    cap = F.one_hot(slot_pos, c).float()                         # (G, k, C)
+    dispatch = torch.einsum("gke,gkc->gec", keep, cap)
+    combine = torch.einsum("gke,gk,gkc->gec", keep, weights, cap)
+    expert_in = torch.einsum("gec,gd->ecd", dispatch.to(x.dtype), x)
+    expert_out = expert_fn(expert_in)
+    out = torch.einsum("gec,ecd->gd", combine.to(expert_out.dtype),
+                       expert_out)
+    return out, keep.sum(-1) > 0
+
+
+def moe_blocks(torch):
+    """MOE_LAYERS MoE blocks of Mixtral-8x7B widths, bf16 weights from a
+    seed (the router normal(0.02), the experts lecun-normal's scale)."""
+    from ray_tpu_torch.models import MixtralConfig
+    from ray_tpu_torch.models.mixtral import MoEMLP
+    cfg = MixtralConfig.mixtral_8x7b(n_layers=MOE_LAYERS,
+                                     dtype=torch.bfloat16,
+                                     param_dtype=torch.bfloat16,
+                                     capacity_factor=MOE_CF)
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    blocks = []
+    with torch.device("cuda"), torch.no_grad():
+        for _ in range(MOE_LAYERS):
+            moe = MoEMLP(cfg)
+            for name, p in moe.named_parameters():
+                std = 0.02 if "router" in name else p.shape[1] ** -0.5
+                p.copy_(torch.randn(p.shape, device="cuda", generator=gen)
+                        * std)
+            blocks.append(moe)
+    return cfg, blocks
+
+
+def moe_dispatch_phase(torch, gpu_line):
+    """(b): MOE_LAYERS bf16 MoE blocks at Mixtral-8x7B widths on
+    MOE_TOKENS tokens at capacity factor MOE_CF, each block on the index
+    dispatch (the port's MoEMLP) and on the one-hot formulation from the
+    same input: the same (token, slot)s kept, outputs within MOE_ATOL /
+    MOE_RTOL; each formulation's time and peak memory over the blocks."""
+    from ray_tpu_torch.ops.moe import expert_capacity, route
+    from ray_tpu_torch.ops import swiglu
+    cfg, blocks = moe_blocks(torch)
+    k, e = cfg.experts_per_token, cfg.n_experts
+    c = expert_capacity(MOE_TOKENS, e, k, MOE_CF)
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    x0 = torch.randn((1, MOE_TOKENS, cfg.d_model), device="cuda",
+                     generator=gen).to(cfg.dtype)
+
+    def onehot_block(moe, x):
+        tokens = x.reshape(-1, cfg.d_model)
+        logits = tokens.float() @ moe.router_kernel.float()
+
+        def expert_fn(batch):
+            gate = torch.bmm(batch, moe.experts_gate_kernel)
+            up = torch.bmm(batch, moe.experts_up_kernel)
+            return torch.bmm(swiglu(gate, up), moe.experts_down_kernel)
+        out, kept = moe_onehot(torch, tokens, logits, expert_fn, k, c)
+        return out.reshape(x.shape).to(cfg.dtype), kept, logits
+
+    def run(block_fn):
+        x = x0
+        for moe in blocks:
+            x = x + block_fn(moe, x)
+        return x
+
+    worst, drops, same = 0.0, [], True
+    with torch.no_grad():
+        x = x0
+        for moe in blocks:
+            want, kept, logits = onehot_block(moe, x)
+            got = moe(x)
+            port = route(logits, k, c).keep
+            same = same and bool(torch.equal(port, kept))
+            drops.append(int((~kept).sum()))
+            worst = max(worst, ulp_ratio(torch, got, want, MOE_ATOL,
+                                         MOE_RTOL)[1])
+            x = x + got
+        stats = {}
+        for label, fn in (("index", lambda moe, h: moe(h)),
+                          ("one-hot", lambda moe, h: onehot_block(
+                              moe, h)[0])):
+            release(torch)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            run(fn)
+            torch.cuda.synchronize()
+            extra = torch.cuda.max_memory_allocated() - base
+            stats[label] = (time_ms(lambda: run(fn), iters=5, warmup=1),
+                            extra / 2**20)
+    print(f"phase 20: (b) MoE dispatch, Mixtral-8x7B widths (E {e}, k {k}, "
+          f"d {cfg.d_model}, ff {cfg.d_ff}), {MOE_LAYERS} bf16 blocks on "
+          f"{MOE_TOKENS} tokens, capacity factor {MOE_CF} (C {c}): (token, "
+          f"slot)s dropped per block {drops}, the same as the one-hot "
+          f"formulation's: {same}; worst share of the tolerance "
+          f"{worst:.3f}", flush=True)
+    print(f"phase 20: (b) the {MOE_LAYERS} blocks' forward: index dispatch "
+          f"{stats['index'][0]:.4f} ms, peak {stats['index'][1]:.1f} MiB "
+          f"above the weights and input; one-hot {stats['one-hot'][0]:.4f} "
+          f"ms, peak {stats['one-hot'][1]:.1f} MiB [{gpu_line}]", flush=True)
+    check(same, "phase 20 (b): the index dispatch drops other tokens than "
+                "the one-hot formulation")
+    check(sum(drops) > 0, f"phase 20 (b): capacity factor {MOE_CF} dropped "
+                          f"no token")
+    check(worst <= 1.0, "phase 20 (b): the index dispatch's output differs "
+                        "from the one-hot formulation's")
+    del blocks, x0
+    release(torch)
+    return {"flash_fwd (K1)": 0}
+
+
+def sp_mesh_rank():
+    """(c) on this rank: SP_MESH_STEPS fp32 sgd steps (TF32 off) of
+    SP_MESH_LAYERS flagship layers under MeshSpec(sp=world) on a tokens
+    batch (shifted, then cut over sp) against the same steps on one
+    device (rank 0); then PPO_MESH_ITERS PPO iterations on the card with
+    use_mesh=True (MeshSpec(dp=world)) and, on rank 0, with
+    use_mesh=False, from the same seeds. Returns the metrics, the params'
+    worst error, the mesh step's launches and the PPO stats."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from ray_tpu_torch.models import Llama, LlamaConfig
+    from ray_tpu_torch.ops.kernels import flash_attention as fa
+    from ray_tpu_torch.parallel import MeshSpec, build_mesh
+    from ray_tpu_torch.rllib import CartPole, PPOConfig
+    from ray_tpu_torch.train import make_optimizer, make_train_step
+    torch.backends.cuda.matmul.allow_tf32 = False
+    n = dist.get_world_size()
+    mesh = build_mesh(MeshSpec(sp=n), device="cuda")
+    cfg = LlamaConfig(**{**FLAGSHIP, "n_layers": SP_MESH_LAYERS},
+                      dtype=torch.float32, param_dtype=torch.float32)
+    tokens = np.random.RandomState(23).randint(
+        0, cfg.vocab_size, (SP_MESH_ROWS, SP_MESH_SEQ + 1))
+    batch = {"tokens": torch.from_numpy(tokens).to("cuda")}
+    model = Llama(cfg, device="cuda", seed=23)
+    state, step = make_train_step(model, make_optimizer(
+        "sgd", learning_rate=0.1), mesh)(batch)
+    zero_counters(fa)
+    rows_mesh = []
+    for _ in range(SP_MESH_STEPS):
+        state, m = step(state, batch)
+        rows_mesh.append((float(m["loss"]), float(m["grad_norm"])))
+    torch.cuda.synchronize()
+    launches = read_counters(fa)
+    trained = {k: (v.full_tensor() if isinstance(v, DTensor) else v)
+               .detach() for k, v in model.state_dict().items()}
+
+    def ppo(use_mesh):
+        algo = (PPOConfig().environment(CartPole)
+                .env_runners(num_envs_per_env_runner=4,
+                             rollout_fragment_length=32)
+                .training(num_epochs=2, minibatch_size=64,
+                          use_mesh=use_mesh)
+                .resources(device="cuda")).build()
+        stats = [algo.train()["learner"] for _ in range(PPO_MESH_ITERS)]
+        return stats, (None if algo.learner_group.mesh is None
+                       else algo.learner_group.mesh.size())
+
+    ppo_mesh, ppo_dp = ppo(True)
+    out = {"mesh": rows_mesh, "launches": launches, "ppo_mesh": ppo_mesh,
+           "ppo_dp": ppo_dp}
+    if dist.get_rank() != 0:
+        return out
+    single = Llama(cfg, device="cuda", seed=23)
+    sstate, sstep = make_train_step(single, make_optimizer(
+        "sgd", learning_rate=0.1))(batch)
+    rows_single = []
+    for _ in range(SP_MESH_STEPS):
+        sstate, m = sstep(sstate, batch)
+        rows_single.append((float(m["loss"]), float(m["grad_norm"])))
+    worst = 0.0
+    for k, v in single.state_dict().items():
+        err = (trained[k] - v).abs() - PARALLEL_ATOL
+        worst = max(worst, float((err / v.abs().clamp(min=1e-30)).max()))
+    out.update(single=rows_single, worst_rel=worst,
+               ppo_plain=ppo(False)[0])
+    return out
+
+
+def sp_mesh_check(res, n, gpu_line):
+    """(c): the mesh step against one device, launches on every rank,
+    PPO over the mesh against PPO without it."""
+    r0 = res[0]
+    ok = all(abs(a - b) <= PARITY_RTOL * abs(b)
+             for g, c in zip(r0["mesh"], r0["single"]) for a, b in zip(g, c))
+    print(f"phase 20: (c) flagship widths, {SP_MESH_LAYERS} fp32 layers (TF32 "
+          f"off), MeshSpec(sp={n}), {SP_MESH_ROWS} x {SP_MESH_SEQ + 1} "
+          f"tokens, {SP_MESH_STEPS} sgd steps: (loss, grad_norm) mesh "
+          f"{r0['mesh']} one device {r0['single']}, within rtol "
+          f"{PARITY_RTOL}: {ok}; params worst (|err| - {PARALLEL_ATOL}) / "
+          f"|single| {r0['worst_rel']:.3g}; launches per rank "
+          f"{[r['launches'] for r in res]}", flush=True)
+    check(ok, "phase 20 (c): the sp mesh step's metrics differ from one "
+              "device's")
+    check(r0["worst_rel"] <= PARITY_RTOL,
+          "phase 20 (c): the sp mesh step's params differ from one device's")
+    for rank, r in enumerate(res):
+        check(all(v > 0 for v in r["launches"].values()),
+              f"phase 20 (c): rank {rank} launched {r['launches']}")
+    worst, where = 0.0, None
+    for i, (got, want) in enumerate(zip(r0["ppo_mesh"], r0["ppo_plain"])):
+        for key, w in want.items():
+            rel = abs(got[key] - w) / max(abs(w), 1e-12)
+            if rel >= worst:
+                worst, where = rel, (i, key, got[key], w)
+    print(f"phase 20: (c) PPO on CartPole, {PPO_MESH_ITERS} iterations, "
+          f"use_mesh=True (MeshSpec(dp={r0['ppo_dp']})) against "
+          f"use_mesh=False: worst relative difference of the learner stats "
+          f"{worst:.3g} (allowed {PPO_MESH_RTOL}), iteration {where[0]}'s "
+          f"{where[1]} {where[2]!r} vs {where[3]!r} [{gpu_line}]",
+          flush=True)
+    check(r0["ppo_dp"] == n, f"phase 20 (c): PPO's learner group spans "
+                             f"{r0['ppo_dp']} ranks, want {n}")
+    check(worst <= PPO_MESH_RTOL, "phase 20 (c): PPO over the mesh differs "
+                                  "from PPO without it")
+    return r0["launches"]
+
+
+def experts_fsdp_check(gpu_line):
+    """(c): Mixtral (EXPERTS_CFG) on MeshSpec(fsdp=2, tp=2) in a world of
+    4 gloo CPU ranks, its experts split over tp alone and so handed to
+    FSDP2 under this machine's torch, against EXPERTS_STEPS fp32 sgd
+    steps on one device: metrics and params within PARITY_RTOL (beside
+    PARALLEL_ATOL), a quarter of each expert a rank."""
+    import numpy as np
+    import torch
+    from ray_tpu_torch.models import Mixtral, MixtralConfig
+    from ray_tpu_torch.parallel import _testing
+    from ray_tpu_torch.train import make_optimizer, make_train_step
+    from ray_tpu_torch.train.backend import launch
+    cfg = MixtralConfig(**EXPERTS_CFG, dtype=torch.float32,
+                        param_dtype=torch.float32)
+    model = Mixtral(cfg, device="cpu", seed=24)
+    params = {k: v.numpy().copy() for k, v in model.state_dict().items()}
+    rng = np.random.RandomState(24)
+    batches = [{"tokens": rng.randint(0, cfg.vocab_size, (8, 17))}
+               for _ in range(EXPERTS_STEPS)]
+    case = dict(model="mixtral", cfg=EXPERTS_CFG, spec=dict(fsdp=2, tp=2),
+                opt="sgd", lr=0.1, batches=batches, params=params)
+    got = launch(_testing.run_jobs, 4, "cpu", [("train_cases", [case])],
+                 timeout_s=300)[0][0][0]
+    tb = [{k: torch.from_numpy(v) for k, v in b.items()} for b in batches]
+    state, step = make_train_step(model, make_optimizer(
+        "sgd", learning_rate=0.1))(tb[0])
+    want = []
+    for b in tb:
+        state, m = step(state, b)
+        want.append((float(m["loss"]), float(m["grad_norm"])))
+    have = [(r["loss"], r["grad_norm"]) for r in got["metrics"]]
+    ok = all(abs(a - b) <= PARITY_RTOL * abs(b)
+             for g, w in zip(have, want) for a, b in zip(g, w))
+    worst = max(float(((np.abs(got["params"][k] - v.numpy())
+                        - PARALLEL_ATOL) / np.abs(v.numpy()).clip(1e-12))
+                       .max()) for k, v in model.state_dict().items())
+    shares = sorted({got["local_numel"][k] / got["params"][k].size
+                     for k in got["params"] if ".experts_" in k})
+    print(f"phase 20: (c) FSDP2 of torch {torch.__version__} on the "
+          f"tp-split experts: Mixtral (E 4, d 64) on MeshSpec(fsdp=2, tp=2) "
+          f"in 4 gloo CPU ranks, {EXPERTS_STEPS} fp32 sgd steps: (loss, "
+          f"grad_norm) mesh {have} one device {want}, within rtol "
+          f"{PARITY_RTOL}: {ok}; params worst (|err| - {PARALLEL_ATOL}) / "
+          f"|single| {worst:.3g}; share of each expert a rank {shares} "
+          f"[{gpu_line}]", flush=True)
+    check(ok and worst <= PARITY_RTOL, "phase 20 (c): Mixtral on fsdp 2 x "
+                                       "tp 2 differs from one device")
+    check(shares == [0.25], f"phase 20 (c): a rank holds {shares} of each "
+                            f"expert, want a quarter")
+
+
+def four_train_rank(n_layers, steps, gpu_line):
+    """(d) on this rank: the train phase's model at n_layers under
+    MeshSpec(fsdp=2, sp=2), FOUR_ROWS x FOUR_SEQ tokens: losses, the
+    median step and peak memory."""
+    import torch
+    import torch.distributed as dist
+    from ray_tpu_torch.models import Llama, LlamaConfig
+    from ray_tpu_torch.parallel import MeshSpec, build_mesh
+    from ray_tpu_torch.train import (make_optimizer, make_train_step,
+                                     warmup_cosine)
+    mesh = build_mesh(MeshSpec(fsdp=2, sp=dist.get_world_size() // 2),
+                      device="cuda")
+    cfg = LlamaConfig.llama3_8b(n_layers=n_layers, dtype=torch.bfloat16,
+                                param_dtype=torch.float32)
+    torch.cuda.reset_peak_memory_stats()
+    model = Llama(cfg, device="cuda", seed=0)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size,
+                                     (FOUR_ROWS, FOUR_SEQ + 1),
+                                     device="cuda", generator=gen)}
+    state, step = make_train_step(model, make_optimizer(
+        "adamw", schedule=warmup_cosine(3e-4, 1, steps)), mesh)(batch)
+    losses, times = [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t1 = time.time()
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+        times.append(time.time() - t1)
+    return {"losses": losses, "median_ms": statistics.median(times[1:]) * 1e3,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def four_gpt2_rank(path):
+    """(d) on this rank: GPT-2 small (fp32, TF32 off) under
+    MeshSpec(tp=4), FOUR_GPT2_STEPS sgd steps against one device's
+    (rank 0), and its state saved sharded and restored onto one device
+    bit for bit."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from ray_tpu_torch.models import GPT2, GPT2Config
+    from ray_tpu_torch.parallel import MeshSpec, build_mesh
+    from ray_tpu_torch.parallel.sharding import full_tensor
+    from ray_tpu_torch.train import (make_optimizer, make_train_step,
+                                     restore_pytree, save_pytree)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = build_mesh(MeshSpec(tp=dist.get_world_size()), device="cuda")
+    cfg = GPT2Config.small(dtype=torch.float32)
+    tokens = np.random.RandomState(24).randint(0, cfg.vocab_size, (4, 257))
+    batch = {"tokens": torch.from_numpy(tokens).to("cuda")}
+
+    def run(model, mesh_):
+        state, step = make_train_step(model, make_optimizer(
+            "sgd", learning_rate=0.1), mesh_)(batch)
+        rows = []
+        for _ in range(FOUR_GPT2_STEPS):
+            state, m = step(state, batch)
+            rows.append((float(m["loss"]), float(m["grad_norm"])))
+        return rows
+
+    model = GPT2(cfg, device="cuda", seed=24)
+    rows = run(model, mesh)
+    save_pytree(model.state_dict(), path, step=FOUR_GPT2_STEPS)
+    trained = {k: full_tensor(v).detach()
+               for k, v in model.state_dict().items()}
+    if dist.get_rank() != 0:
+        return None
+    restored = restore_pytree(path, map_location="cuda")
+    single = run(GPT2(cfg, device="cuda", seed=24), None)
+    return {"mesh": rows, "single": single, "bitwise": all(
+        torch.equal(restored[k], trained[k]) for k in trained)}
+
+
+def four_mixtral_rank():
+    """(d) on this rank: Mixtral-8x7B widths at MOE_AUX_LAYERS fp32
+    layers (TF32 off) under MeshSpec(ep=2, tp=2): one sgd step of the
+    next-token loss on FOUR_MIX_ROWS x FOUR_MIX_SEQ tokens, each layer's
+    router loss, against one device's (rank 0); peak memory."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from ray_tpu_torch.models import Mixtral, MixtralConfig
+    from ray_tpu_torch.parallel import MeshSpec, build_mesh
+    from ray_tpu_torch.train import make_optimizer, make_train_step
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = build_mesh(MeshSpec(ep=2, tp=dist.get_world_size() // 2),
+                      device="cuda")
+    cfg = MixtralConfig.mixtral_8x7b(n_layers=MOE_AUX_LAYERS,
+                                     dtype=torch.float32,
+                                     param_dtype=torch.float32, remat=False)
+    tokens = np.random.RandomState(25).randint(
+        0, cfg.vocab_size, (FOUR_MIX_ROWS, FOUR_MIX_SEQ + 1))
+    batch = {"tokens": torch.from_numpy(tokens).to("cuda")}
+
+    def run(mesh_):
+        model = Mixtral(cfg, device="cuda", seed=25)
+        state, step = make_train_step(model, make_optimizer(
+            "sgd", learning_rate=0.1), mesh_)(batch)
+        _, m = step(state, batch)
+        aux = [float(b.moe.router_loss.detach()) for b in model.blocks]
+        del state, step, model
+        release(torch)
+        return float(m["loss"]), aux
+
+    torch.cuda.reset_peak_memory_stats()
+    mesh_loss, mesh_aux = run(mesh)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    if dist.get_rank() != 0:
+        return None
+    loss, aux = run(None)
+    return {"mesh": (mesh_loss, mesh_aux), "single": (loss, aux),
+            "peak_gib": peak_gib}
+
+
+def four_cards(torch, gpu_line, run, parallel_ms):
+    """(d): on four cards, the 8-layer train model on fsdp 2 x sp 2,
+    GPT-2 small on tp 4 and Mixtral-8x7B widths on ep 2 x tp 2 ((c) ran
+    PPO over dp 4)."""
+    import shutil
+    import tempfile
+    out = run(four_train_rank, TRAIN_LAYERS, FOUR_STEPS, gpu_line)
+    r0 = out[0]
+    print(f"phase 20: (d) Llama-3-8B widths, {TRAIN_LAYERS} layers, "
+          f"MeshSpec(fsdp=2, sp=2), {FOUR_ROWS} x {FOUR_SEQ} tokens, bf16 "
+          f"compute, fp32 master, remat, adamw: losses "
+          f"{[round(x, 6) for x in r0['losses']]}, median step "
+          f"{r0['median_ms']:.1f} ms, peak memory a rank "
+          f"{[round(o['peak_gib'], 2) for o in out]} GiB; parallel (a)'s "
+          f"fsdp step here "
+          f"{'not run' if parallel_ms is None else f'{parallel_ms:.1f} ms'}"
+          f" [{gpu_line}]", flush=True)
+    check(all(math.isfinite(x) for o in out for x in o["losses"]),
+          "phase 20 (d): a non-finite loss on fsdp 2 x sp 2")
+    root = tempfile.mkdtemp(prefix="chip_smoke_four_")
+    try:
+        g = run(four_gpt2_rank, os.path.join(root, "gpt2"))[0]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    ok = all(abs(a - b) <= PARITY_RTOL * abs(b)
+             for x, y in zip(g["mesh"], g["single"]) for a, b in zip(x, y))
+    print(f"phase 20: (d) GPT-2 small fp32 (TF32 off), MeshSpec(tp=4), "
+          f"{FOUR_GPT2_STEPS} sgd steps: (loss, grad_norm) mesh {g['mesh']} "
+          f"one device {g['single']}, within rtol {PARITY_RTOL}: {ok}; "
+          f"its checkpoint restored onto one device bit for bit: "
+          f"{g['bitwise']}", flush=True)
+    check(ok and g["bitwise"], "phase 20 (d): GPT-2 under tp 4 differs from "
+                               "one device")
+    mres = run(four_mixtral_rank)
+    m = mres[0]
+    (ml, ma), (sl, sa) = m["mesh"], m["single"]
+    worst = max(abs(a - b) / abs(b) for a, b in zip([ml] + ma, [sl] + sa))
+    print(f"phase 20: (d) Mixtral-8x7B widths, {MOE_AUX_LAYERS} fp32 layers, "
+          f"MeshSpec(ep=2, tp=2), {FOUR_MIX_ROWS} x {FOUR_MIX_SEQ} tokens: "
+          f"loss {ml:.7f} vs one device {sl:.7f}, aux {ma} vs {sa}, worst "
+          f"relative {worst:.3g} (allowed {MOE_AUX_RTOL}); peak memory "
+          f"rank 0 {m['peak_gib']:.2f} GiB [{gpu_line}]", flush=True)
+    check(worst <= MOE_AUX_RTOL, "phase 20 (d): Mixtral on ep 2 x tp 2 "
+                                 "differs from one device")
+
+
+def phase_parallel_rest(torch, gpu_line, parallel_ms):
+    """20. parallelism, the rest: (a) the sp attention core in chunks,
+    (b) the MoE dispatch against the one-hot formulation, (c) the sp
+    mesh step and PPO over a dp mesh at world n (at n == 1 a world of
+    one NCCL rank in this process), (d) four cards only. Returns the
+    launches of (a), (b) and (c)."""
+    from ray_tpu_torch.train.backend import launch
+    t_phase = time.time()
+    n = torch.cuda.device_count()
+    launches = {"sp-chunks": sp_chunks(torch, gpu_line),
+                "moe-dispatch": moe_dispatch_phase(torch, gpu_line)}
+
+    def run(fn, *args):
+        return launch(fn, n, "cuda", *args, timeout_s=900, spawn=n > 1)
+
+    # a world of one takes the plain step and learner: not sp's launches
+    key = "sp-mesh" if n > 1 else "mesh-of-one"
+    launches[key] = sp_mesh_check(run(sp_mesh_rank), n, gpu_line)
+    release(torch)
+    experts_fsdp_check(gpu_line)
+    if n >= 4 and n % 2 == 0:
+        four_cards(torch, gpu_line, run, parallel_ms)
+    else:
+        print(f"phase 20: four-card part not run: {n} card(s)", flush=True)
+    print(f"phase 20: parallelism, the rest: phase wall "
+          f"{time.time() - t_phase:.1f} s [{gpu_line}]", flush=True)
+    return launches
+
+
 def check_spills(build) -> None:
     """Registers and spills of the wgmma kernels (K1's forward, K2a's and
     K2b's backward at D 64 and 128) and of every K4 kernel, from the
@@ -5993,7 +6675,8 @@ def main() -> None:
     phase_train_parity(torch)
     launches.update(phase_grpo(torch, gpu_line))
     launches["north-star-grpo"] = phase_north_star(torch)
-    launches["parallel"] = phase_parallel(torch, gpu_line, train_stats)
+    launches["parallel"], parallel_ms = phase_parallel(torch, gpu_line,
+                                                       train_stats)
     launches["runtime-trainer"], rank_ms = phase_runtime(torch, gpu_line,
                                                         train_stats)
     launches.update(phase_serve_deploy(torch, gpu_line, serve_stats, parity))
@@ -6002,11 +6685,13 @@ def main() -> None:
     launches.update(phase_front_doors(torch, gpu_line, parity,
                                       tune_want[FRONT_JOB_LR]))
     launches.update(phase_pinned_and_rest(torch, gpu_line, parity))
+    launches.update(phase_parallel_rest(torch, gpu_line, parallel_ms))
 
     # each kernel's launches on the main paths (the serve bursts, train,
-    # GRPO full, LoRA, the north star's and the mesh train step, and the
-    # pinned routes, the workflow and the fractional actors); K4 is on
-    # none: no model calls it, as in the reference
+    # GRPO full, LoRA, the north star's and the mesh train step, the
+    # pinned routes, the workflow and the fractional actors, and the sp
+    # chunks, the sp mesh step and the MoE dispatch); K4 is on none: no
+    # model calls it, as in the reference
     for r in rows:
         by_path = {p: n[r["name"]] for p, n in launches.items()
                    if r["name"] in n}

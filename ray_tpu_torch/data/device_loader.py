@@ -50,7 +50,9 @@ def device_put_iterator(host_batches: Iterator[Dict[str, np.ndarray]],
     host as arrays. With `sharding` (a `parallel.sharding.BatchSharding`)
     only this rank's rows (and sequence chunk) of each numeric column
     are copied, and the batch comes as a `LocalBatch`, which a mesh
-    train step takes as this rank's share."""
+    train step takes as this rank's share: under sp, a `tokens` batch
+    of S + 1 columns comes as this rank's chunk of `inputs` and
+    `targets`, as the step cuts it."""
     dev = resolve_device(device)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
@@ -62,8 +64,11 @@ def device_put_iterator(host_batches: Iterator[Dict[str, np.ndarray]],
 
 def _host_arrays(batch, sharding, dtypes):
     """(numeric columns narrowed and cut to this rank's share, the
-    others as they are)."""
+    others as they are). Under sp a `tokens` column becomes the
+    `inputs` and `targets` the step would cut (`shift_tokens`)."""
     numeric, other = {}, {}
+    if sharding is not None:
+        batch = sharding.shift_tokens(batch)
     for k, v in batch.items():
         arr = np.asarray(v)
         if arr.dtype == object or arr.dtype.kind in ("U", "S"):

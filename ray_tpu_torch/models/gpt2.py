@@ -10,6 +10,21 @@ an HF checkpoint.
 
 forward returns plain logits when `cache` is None (the training
 callers) and (logits, cache) otherwise (the engine's contract).
+
+Under tp (parallel/sharding.py) `qkv`'s weight and bias are DTensors
+with `_StridedShard(0, split_factor=3)`: rank t holds rows [q_t; k_t;
+v_t], whole heads of q, of k and of v, and the block computes on those
+local rows (`GPT2Block._qkv`: the replicated input's gradient summed
+over tp), the attention on its heads, and `attn_out` sums the heads'
+products over tp as a `RowwiseParallel` plan. The strided placement
+rather than a row permutation undone by a state-dict hook: a
+permutation would show in `named_parameters()`, and so in the train
+step's state, the optimizer's moments and every checkpoint written from
+them; the strided DTensor is the unpermuted (3 d, d) weight everywhere
+(`parallel.sharding.full_tensor`, FSDP2 over its columns,
+`restore_pytree(shardings=)`).
+Under a published sp mesh the input is this rank's sequence chunk:
+`wpe` at its global positions, attention over the K/V gathered over sp.
 """
 from __future__ import annotations
 
@@ -20,7 +35,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops import cached_attention, gelu, layer_norm, multi_head_attention
+from torch.distributed.tensor import DTensor
+
+from ..ops import (cached_attention, gelu, layer_norm, multi_head_attention,
+                   sequence_parallel_attention)
 from ..ops.attention import check_attn_impl
 from ..ops.linear import Dense, logits_fp32
 from ..util.device import DeviceLike, resolve_device
@@ -91,20 +109,43 @@ class GPT2Block(nn.Module):
         self.fc_in = Dense(d, cfg.d_ff, dtype=dt, param_dtype=pd)
         self.fc_out = Dense(cfg.d_ff, d, dtype=dt, param_dtype=pd)
 
+    def _qkv(self, h):
+        """The fused projection; under tp on this rank's rows [q_t; k_t;
+        v_t] (module docstring)."""
+        w = self.qkv.weight
+        if not isinstance(w, DTensor):
+            return self.qkv(h)
+        from ..parallel.collectives import copy_to_group
+        if self.qkv.weight_fn is not None:
+            raise NotImplementedError("a weight_fn (LoRA) over GPT-2's "
+                                      "qkv under tp")
+        dt = self.qkv.compute_dtype
+        b = self.qkv.bias
+        return F.linear(copy_to_group(h, w.device_mesh.get_group()).to(dt),
+                        w.to_local().to(dt),
+                        None if b is None else b.to_local().to(dt))
+
     def forward(self, x, cache=None, positions=None):
+        from ..parallel.collectives import all_gather_seq
+        from ..parallel.sharding import sequence_shard
         cfg = self.cfg
         b, s, _ = x.shape
         h = layer_norm(x, self.ln_1_scale, self.ln_1_bias, cfg.norm_eps)
-        q, k, v = self.qkv(h).view(b, s, 3, cfg.n_heads,
-                                   cfg.head_dim).unbind(2)
+        # head count from the projection's width: this rank's under tp
+        q, k, v = self._qkv(h).view(b, s, 3, -1, cfg.head_dim).unbind(2)
         new_cache = None
-        if cache is None:
+        sp = sequence_shard() if cache is None else None
+        if sp is not None:
+            att = sequence_parallel_attention(
+                q, all_gather_seq(k, sp.group), all_gather_seq(v, sp.group),
+                sp.index, impl=cfg.attn_impl)
+        elif cache is None:
             att = multi_head_attention(q, k, v, causal=True,
                                        impl=cfg.attn_impl)
         else:
             att, new_cache = cached_attention(q, k, v, cache, positions,
                                               impl=cfg.attn_impl)
-        x = x + self.attn_out(att.reshape(b, s, cfg.d_model))
+        x = x + self.attn_out(att.reshape(b, s, -1))
         h = layer_norm(x, self.ln_2_scale, self.ln_2_bias, cfg.norm_eps)
         x = x + self.fc_out(gelu(self.fc_in(h)))
         return x, new_cache
@@ -153,14 +194,19 @@ class GPT2(nn.Module):
         """tokens (B, S) -> logits (B, S, V) fp32 with no cache, else
         (logits, new_cache) with the per-layer cache entries of Llama;
         `positions` also select the positional embeddings."""
+        from ..parallel.sharding import sequence_shard
         cfg = self.cfg
         b, s = tokens.shape
         if positions is None:
-            positions = torch.arange(s, device=tokens.device)[None].expand(
-                b, s)
+            # under a published sp mesh, this chunk's global positions
+            sp = sequence_shard() if cache is None else None
+            start = 0 if sp is None else sp.index * s
+            positions = torch.arange(start, start + s,
+                                     device=tokens.device)[None].expand(b, s)
         pos = positions.long().clamp(0, cfg.max_seq_len - 1)
-        x = (F.embedding(tokens.long(), self.wte.weight).to(cfg.dtype)
-             + F.embedding(pos, self.wpe.weight).to(cfg.dtype))
+        # through the modules, so a vocab-parallel plan's hooks run
+        x = (self.wte(tokens.long()).to(cfg.dtype)
+             + self.wpe(pos).to(cfg.dtype))
         remat = cfg.remat and cache is None and torch.is_grad_enabled()
         new_cache = []
         for i, block in enumerate(self.blocks):

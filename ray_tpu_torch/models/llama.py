@@ -27,7 +27,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..ops import (apply_rotary, cached_attention, multi_head_attention,
-                   rms_norm, rope_frequencies, swiglu)
+                   rms_norm, rope_frequencies, sequence_parallel_attention,
+                   swiglu)
 from ..ops.attention import check_attn_impl
 from ..ops.linear import Dense, logits_fp32
 from ..ops.quant import QuantDense
@@ -134,8 +135,16 @@ class LlamaAttention(nn.Module):
         self.kv_group = None
 
     def forward(self, x, cos, sin, cache=None, positions=None):
+        from ..parallel.collectives import all_gather_seq
+        from ..parallel.sharding import sequence_shard
         hd = self.cfg.head_dim
         b, s, _ = x.shape
+        # under a published sp mesh x is this rank's sequence chunk: RoPE
+        # at its global positions, attention over the gathered K/V
+        sp = sequence_shard() if cache is None else None
+        if sp is not None and positions is None:
+            positions = torch.arange(sp.index * s, (sp.index + 1) * s,
+                                     device=x.device)
         # head counts from the projections' widths: this rank's under tp
         q = self.q_proj(x).view(b, s, -1, hd)
         k = self.k_proj(x).view(b, s, -1, hd)
@@ -147,7 +156,11 @@ class LlamaAttention(nn.Module):
         q = apply_rotary(q, cos, sin, positions)
         k = apply_rotary(k, cos, sin, positions)
         new_cache = None
-        if cache is None:
+        if sp is not None:
+            out = sequence_parallel_attention(
+                q, all_gather_seq(k, sp.group), all_gather_seq(v, sp.group),
+                sp.index, impl=self.cfg.attn_impl)
+        elif cache is None:
             out = multi_head_attention(q, k, v, causal=True,
                                        impl=self.cfg.attn_impl)
         else:

@@ -3,9 +3,13 @@ ray_tpu/models/mixtral.py).
 
 The MoE MLP routes through `ops.moe.moe_dispatch_combine`, the GShard
 dispatch of the reference: capacity comes from the call's B * S tokens
-(on a mesh, the global batch's), so the tokens an expert drops depend
-on the shape the caller runs (the engine's bucket padding and idle
-decode slots included). The stacked
+(on a mesh, the global batch's, its sequence over sp under a published
+sp mesh), so the tokens an expert drops depend on the shape the caller
+runs (the engine's bucket padding and idle decode slots included). On
+a mesh the experts are sharded over ep and their ff dim over tp
+(parallel/sharding.py): each tp rank runs the same dispatch and its ff
+slice of every expert, and the down product's partial sums are
+all-reduced over tp. The stacked
 expert weights keep flax's layout, `experts_{gate,up}_kernel` (E, d,
 ff) and `experts_down_kernel` (E, ff, d), and the router is
 `router_kernel` (d, E); its product runs in fp32.
@@ -108,30 +112,41 @@ class MoEMLP(nn.Module):
                                                             dtype=pd))
         self.router_loss: Optional[torch.Tensor] = None
         # the DeviceMesh of parallel.sharding.shard_module: the capacity
-        # and queue positions of the global batch, experts over ep
+        # and queue positions of the global batch, experts over ep and
+        # their ff dim over tp
         self.moe_mesh = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        from ..parallel.collectives import copy_to_group, reduce_from_group
+        from ..parallel.sharding import sequence_shard
         cfg = self.cfg
         dt = cfg.dtype
         b, s, d = x.shape
         tokens = x.reshape(b * s, d)
         router_logits = tokens.float() @ self.router_kernel.float()
 
-        def local(w):   # this rank's experts when sharded over ep
+        def local(w):   # this rank's experts (and ff slice) when sharded
             return (w.to_local() if isinstance(w, DTensor) else w).to(dt)
+
+        # under tp each rank holds every expert's ff slice: the batch is
+        # replicated over tp, the down product's partial sums all-reduced
+        w = self.experts_gate_kernel
+        tp = (w.device_mesh.get_group("tp") if isinstance(w, DTensor)
+              and "tp" in w.device_mesh.mesh_dim_names else None)
 
         def expert_fn(batch):   # (E, C, d) -> (E, C, d)
             batch = batch.to(dt)
+            if tp is not None:
+                batch = copy_to_group(batch, tp)
             gate = torch.bmm(batch, local(self.experts_gate_kernel))
             up = torch.bmm(batch, local(self.experts_up_kernel))
-            return torch.bmm(swiglu(gate, up),
-                             local(self.experts_down_kernel))
+            out = torch.bmm(swiglu(gate, up), local(self.experts_down_kernel))
+            return out if tp is None else reduce_from_group(out, tp)
 
-        out, aux = moe_dispatch_combine(tokens, router_logits, expert_fn,
-                                        k=cfg.experts_per_token,
-                                        capacity_factor=cfg.capacity_factor,
-                                        mesh=self.moe_mesh)
+        out, aux = moe_dispatch_combine(
+            tokens, router_logits, expert_fn, k=cfg.experts_per_token,
+            capacity_factor=cfg.capacity_factor, mesh=self.moe_mesh, rows=b,
+            seq_sharded=sequence_shard() is not None)
         self.router_loss = (cfg.router_aux_coef * aux.load_balance_loss
                             + cfg.router_z_coef * aux.router_z_loss)
         return out.reshape(b, s, d).to(dt)

@@ -22,6 +22,17 @@ does, and any name outside `ATTN_IMPLS` raises ValueError:
 The cached paths share one tail, `_attend_cached`, so the paged and
 contiguous caches cannot drift apart numerically.
 
+`sequence_parallel_attention` is the attention of a sequence-sharded
+train step (a published sp mesh, parallel/sharding.py): this rank's
+query chunk against the whole K/V gathered over sp, causal. The
+kernels compare absolute indices, so the chunk's call is split in two:
+its keys before the chunk (no mask) and its own chunk (Sq == Sk, the
+plain causal mask), merged by the rows' logsumexp
+(`_SplitPrefixAttention`: K1 twice, K2a/K2b twice in the backward,
+once each for chunk 0). "xla" takes the einsum path over the keys up
+to the chunk's end (its offset mask is the chunk's own); "dpa" has no
+logsumexp to merge by and raises.
+
 `paged_cached_attention` reads `RAY_TPU_PAGED_ATTN_IMPL` ("auto",
 "gather" or "pallas") on every call, as the reference does:
   * fresh prefill (every sequence starts empty) -> `multi_head_attention`
@@ -51,6 +62,7 @@ import torch
 import torch.nn.functional as F
 
 from ..util import knobs
+from .kernels import flash_attention as _fa
 from .kernels.flash_attention import HEAD_DIMS as FLASH_HEAD_DIMS
 from .kernels.flash_attention import flash_attention
 from .kernels.paged_attention import HEAD_DIMS as DECODE_HEAD_DIMS
@@ -156,6 +168,95 @@ def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return out.transpose(1, 2)
     return einsum_attention(q, k, v, causal=causal, segment_ids=segment_ids,
                             scale=scale)
+
+
+def _merge_parts(parts, dtype):
+    """(out, lse) of attention over the union of the parts' keys, from
+    each part's (out, lse): fp32 weights exp(lse_part - lse)."""
+    if len(parts) == 1:
+        return parts[0]
+    (out_a, lse_a), (out_b, lse_b) = parts
+    lse = torch.logaddexp(lse_a, lse_b)
+    b, c, hq, _ = out_a.shape
+
+    def weight(part):
+        return torch.exp(part - lse).view(b, hq, c).transpose(1, 2)[..., None]
+
+    out = out_a.float() * weight(lse_a) + out_b.float() * weight(lse_b)
+    return out.to(dtype), lse
+
+
+def _key_parts(k, v, index, c):
+    """[(k, v, causal, start)] of chunk `index`: the keys before it
+    (none for chunk 0), then its own, each contiguous for the kernels."""
+    lo = index * c
+    parts = [] if lo == 0 else [
+        (k[:, :lo].contiguous(), v[:, :lo].contiguous(), False, 0)]
+    parts.append((k[:, lo:lo + c].contiguous(), v[:, lo:lo + c].contiguous(),
+                  True, lo))
+    return parts
+
+
+class _SplitPrefixAttention(torch.autograd.Function):
+    """Causal attention of query chunk `index` (B, c, Hq, D) against the
+    whole sequence's K/V (B, S, Hkv, D): K1 on the prefix (non-causal)
+    and on the diagonal block (causal), merged by lse. The backward runs
+    K2a/K2b on each part with the merged lse and delta: a part's P
+    rebuilt from the merged lse is its share of the whole softmax, so
+    the two dQ sum to the whole dQ, and each part's dK/dV lands at its
+    keys' rows of a zero (B, S, Hkv, D) buffer. A CPU tensor takes the
+    kernels' plain versions; a CUDA tensor launches the kernels."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, index):
+        parts = _key_parts(k, v, index, q.shape[1])
+        out, lse = _merge_parts([_fa.flash_attention_fwd(
+            q, kk, vv, causal=causal)
+            for kk, vv, causal, _ in parts], q.dtype)
+        ctx.save_for_backward(q, out, lse, *[t for kk, vv, _, _ in parts
+                                             for t in (kk, vv)])
+        ctx.parts = [(causal, start) for _, _, causal, start in parts]
+        ctx.kv_shape = k.shape
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, out, lse, *kv = ctx.saved_tensors
+        do = do.to(q.dtype).contiguous()
+        delta = _fa.attention_delta(out, do)
+        cuda = q.device.type == "cuda"
+        bwd_dq = _fa.flash_bwd_dq if cuda else _fa.flash_bwd_dq_plain
+        bwd_dkv = _fa.flash_bwd_dkv if cuda else _fa.flash_bwd_dkv_plain
+        dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+        dk = kv[0].new_zeros(ctx.kv_shape)
+        dv = kv[1].new_zeros(ctx.kv_shape)
+        for i, (causal, start) in enumerate(ctx.parts):
+            kk, vv = kv[2 * i], kv[2 * i + 1]
+            dq += bwd_dq(q, kk, vv, do, lse, delta, causal=causal).float()
+            dk_p, dv_p = bwd_dkv(q, kk, vv, do, lse, delta, causal=causal)
+            dk[:, start:start + kk.shape[1]] = dk_p
+            dv[:, start:start + vv.shape[1]] = dv_p
+        return dq.to(q.dtype), dk, dv, None
+
+
+def sequence_parallel_attention(q: torch.Tensor, k: torch.Tensor,
+                                v: torch.Tensor, index: int, *,
+                                impl: str = "auto") -> torch.Tensor:
+    """q: (B, c, Hq, D), chunk `index` of a sequence cut into chunks of
+    c; k/v: (B, S, Hkv, D), the whole sequence (`all_gather_seq`).
+    Returns (B, c, Hq, D): the rows of the whole sequence's causal
+    attention for this chunk. The route is `multi_head_attention`'s for
+    the chunk's diagonal block (Sq == Sk); see the module docstring."""
+    c = q.shape[1]
+    impl = resolve_impl(impl, q, k[:, :c], v[:, :c], True, None)
+    if impl == "dpa":
+        raise ValueError("impl='dpa' under sequence parallelism: SDPA "
+                         "returns no logsumexp to merge a chunk's parts "
+                         "by; use impl='pallas' or 'xla'")
+    if impl == "xla":
+        end = (index + 1) * c
+        return einsum_attention(q, k[:, :end], v[:, :end], causal=True)
+    return _SplitPrefixAttention.apply(q.contiguous(), k, v, index)
 
 
 def einsum_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -21,7 +21,8 @@ from torch.distributed.tensor import DTensor
 
 
 def _whole(t):
-    return t.full_tensor() if isinstance(t, DTensor) else t
+    from .sharding import full_tensor
+    return full_tensor(t)
 
 
 def _np(t) -> np.ndarray:
@@ -50,16 +51,18 @@ def _mesh(spec: Dict[str, int], device: str = "cpu"):
 
 
 def _model(case, dev):
-    from ..models import Llama, LlamaConfig, Mixtral, MixtralConfig
-    kind = case.get("model", "llama")
-    if kind == "mixtral":
-        cfg = MixtralConfig(**case["cfg"], dtype=torch.float32,
-                            param_dtype=torch.float32)
-        model = Mixtral(cfg, device=dev)
-    else:
-        cfg = LlamaConfig(**case["cfg"], dtype=torch.float32,
-                          param_dtype=torch.float32)
-        model = Llama(cfg, device=dev)
+    """The case's model (llama, mixtral or gpt2) in fp32 from its
+    params; case["port_cfg"] overrides config fields on this side only
+    (an attention route)."""
+    from ..models import (GPT2, GPT2Config, Llama, LlamaConfig, Mixtral,
+                          MixtralConfig)
+    kinds = {"llama": (Llama, LlamaConfig), "mixtral": (Mixtral,
+                                                        MixtralConfig),
+             "gpt2": (GPT2, GPT2Config)}
+    cls, cfg_cls = kinds[case.get("model", "llama")]
+    cfg = cfg_cls(**{**case["cfg"], **case.get("port_cfg", {})},
+                  dtype=torch.float32, param_dtype=torch.float32)
+    model = cls(cfg, device=dev)
     model.load_state_dict({k: torch.from_numpy(np.asarray(v))
                            for k, v in case["params"].items()})
     return model
@@ -68,7 +71,7 @@ def _model(case, dev):
 def train_cases(cases: List[Dict[str, Any]]):
     """For each case: `make_train_step` on MeshSpec(**case["spec"]) for
     its batches; per step loss, grad_norm and ntokens, then the whole
-    params."""
+    params and the element count of rank 0's shard of each."""
     from ..train import make_optimizer, make_train_step
     out = []
     for case in cases:
@@ -85,7 +88,10 @@ def train_cases(cases: List[Dict[str, Any]]):
             rows.append({k: float(m[k]) for k in ("loss", "grad_norm",
                                                   "ntokens")})
         params = {k: _np(v) for k, v in model.state_dict().items()}
-        out.append(_rank0({"metrics": rows, "params": params}))
+        local = {k: (v.to_local() if isinstance(v, DTensor) else v).numel()
+                 for k, v in model.state_dict().items()}
+        out.append(_rank0({"metrics": rows, "params": params,
+                           "local_numel": local}))
     return out
 
 
@@ -431,6 +437,149 @@ def pipeline_train_case(case: Dict[str, Any]):
         k: _np(v) for k, v in named_leaves(state.params)}})
 
 
+def loader_sp_case(case: Dict[str, Any]):
+    """Under MeshSpec(**case["spec"]) with sp: this rank's LocalBatch
+    from device_put_iterator of case["host"] (a tokens batch of S + 1
+    columns and a loss_mask of S) against the step's own cut of the
+    same batch, column by column; one mesh step of two fresh copies of
+    the case's model, one fed the global batch, one the LocalBatch:
+    their losses; and whether a tokens batch whose S does not divide by
+    sp raises ValueError."""
+    from ..data import device_put_iterator
+    from ..parallel.sharding import batch_sharding
+    from ..train import make_optimizer, make_train_step
+    mesh = _mesh(case["spec"])
+    bsh = batch_sharding(mesh)
+    host = case["host"]
+    local = next(device_put_iterator(iter([host]), sharding=bsh,
+                                     device="cpu"))
+    cut = bsh.shard(_batch(host, "cpu"))
+    same = (sorted(local) == sorted(cut) and all(
+        torch.equal(local[k].to(cut[k].dtype), cut[k]) for k in cut))
+    losses = []
+    for batch in (_batch(host, "cpu"), local):
+        model = _model(case, "cpu")
+        state, step = make_train_step(model, make_optimizer(
+            "sgd", learning_rate=0.1), mesh)(_batch(host, "cpu"))
+        losses.append(float(step(state, batch)[1]["loss"]))
+    try:
+        bsh.shard({"tokens": torch.zeros((8, 16), dtype=torch.long)})
+        raises = None
+    except ValueError as e:
+        raises = str(e)
+    return _rank0({"same": same, "keys": sorted(local),
+                   "local_shape": list(local["inputs"].shape),
+                   "losses": losses, "odd_raises": raises})
+
+
+def dpa_sp_case(case: Dict[str, Any]):
+    """A mesh step of the case's model with attn_impl "dpa" on an sp
+    mesh: the ValueError's message (None if it did not raise)."""
+    from ..train import make_optimizer, make_train_step
+    mesh = _mesh(case["spec"])
+    model = _model({**case, "port_cfg": {"attn_impl": "dpa"}}, "cpu")
+    batch = _batch(case["batches"][0], "cpu")
+    state, step = make_train_step(model, make_optimizer(
+        "sgd", learning_rate=0.1), mesh)(batch)
+    try:
+        step(state, batch)
+        return _rank0(None)
+    except ValueError as e:
+        return _rank0(str(e))
+
+
+def gpt2_tp_layout_case(case: Dict[str, Any]):
+    """GPT-2 sharded on MeshSpec(**case["spec"]) (tp): each qkv
+    parameter's placements, its whole tensor in `state_dict()` against
+    the unsharded one, and its shape in `state_layout`; then one adamw
+    step and the TrainState's `state_dict()` saved and restored onto one
+    device: the qkv weight and its moments against the mesh's whole
+    tensors, bit for bit."""
+    from ..train import (make_optimizer, make_train_step, restore_pytree,
+                         save_pytree)
+    from ..train.spmd import state_layout
+    mesh = _mesh(case["spec"])
+    model = _model(case, "cpu")
+    want = {k: torch.from_numpy(np.asarray(v))
+            for k, v in case["params"].items()}
+    batch = _batch(case["batches"][0], "cpu")
+    state, step = make_train_step(model, make_optimizer(
+        "adamw", learning_rate=1e-3), mesh)(batch)
+    names = [k for k in want if ".qkv." in k]
+    sd = model.state_dict()
+    layout = state_layout(state)["params"]
+    out = {"placements": {k: repr(tuple(sd[k].placements)) for k in names},
+           "whole_equal": all(torch.equal(_whole(sd[k]), want[k])
+                              for k in names),
+           "layout_shapes": {k: list(layout[k].shape) for k in names}}
+    state, _ = step(state, batch)
+    full = state.state_dict()
+    save_pytree(full, case["path"], step=1)
+    back = restore_pytree(case["path"], map_location="cpu")
+    order = list(state.params)
+    i = order.index("h_0.qkv.weight")
+    moments = full["opt_state"]["state"][i]
+    out["restored_equal"] = (
+        torch.equal(back["params"]["h_0.qkv.weight"],
+                    _whole(full["params"]["h_0.qkv.weight"]))
+        and all(torch.equal(back["opt_state"]["state"][i][m], _whole(v))
+                for m, v in moments.items() if torch.is_tensor(v)
+                and v.dim() > 0))
+    return _rank0(out)
+
+
+def ppo_mesh_case(case: Dict[str, Any]):
+    """PPO with use_mesh=True in this world (MeshSpec(dp=world)) from
+    case["params"] (the port's tree of the reference's init): one
+    training_step on case["batch"]; its stats, the params after, and
+    the learner group's mesh; and whether a group on a mesh that also
+    splits rows over fsdp raises ValueError."""
+    from ..rllib import LearnerGroup, PPOConfig, SampleBatch
+    from ..rllib.rl_module import tree_copy_, tree_leaves
+    cfg = (PPOConfig().environment(case["env"])
+           .env_runners(num_envs_per_env_runner=2,
+                        rollout_fragment_length=16)
+           .training(**case["training"], use_mesh=True)
+           .resources(device="cpu"))
+    algo = cfg.build()
+    tree_copy_(algo.params, case["params"])
+    stats = algo.training_step(SampleBatch(case["batch"]))
+    mesh = algo.learner_group.mesh
+    try:
+        LearnerGroup(algo.learner_group.learner,
+                     mesh=_mesh(dict(dp=2, fsdp=2)))
+        raises = False
+    except ValueError:
+        raises = True
+    return _rank0({"stats": stats, "params": {
+        k: v.detach().numpy() for k, v in tree_leaves(algo.params)},
+        "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
+        "other_data_axis_raises": raises})
+
+
+def sp_and_ppo_modules():
+    """One sp mesh step of a small Llama (MeshSpec(sp=world)) and one
+    PPO iteration with use_mesh=True, then `foreign_modules()`."""
+    from ..models import Llama, LlamaConfig
+    from ..rllib import GridWorld, PPOConfig
+    from ..train import make_optimizer, make_train_step
+    n = dist.get_world_size()
+    model = Llama(LlamaConfig.debug(dtype=torch.float32), device="cpu")
+    batch = {"tokens": torch.randint(0, 256, (2, 8 * n + 1),
+                                     generator=torch.Generator()
+                                     .manual_seed(0))}
+    state, step = make_train_step(model, make_optimizer(
+        "sgd", learning_rate=0.1), _mesh(dict(sp=n)))(batch)
+    step(state, batch)
+    algo = (PPOConfig().environment(GridWorld)
+            .env_runners(num_envs_per_env_runner=2,
+                         rollout_fragment_length=8)
+            .training(num_epochs=1, minibatch_size=6, use_mesh=True)
+            .resources(device="cpu")).build()
+    algo.train()
+    return foreign_modules()
+
+
 def run_jobs(jobs):
     """Several of the functions above in one world: [(name, arg), ...]
     -> their results in order."""
@@ -469,5 +618,7 @@ __all__ = ["train_cases", "lora_case", "int8_forward", "checkpoint_case",
            "shard_pytree_case", "moe_aux_case", "SeededBatches",
            "trainer_case",
            "ring_cases", "pipeline_case", "pipeline_train_case",
+           "loader_sp_case", "dpa_sp_case", "gpt2_tp_layout_case",
+           "ppo_mesh_case", "sp_and_ppo_modules",
            "run_jobs", "fail_on", "sleep_for", "foreign_modules",
            "rank_env"]

@@ -9,11 +9,18 @@ that is the same on every rank of the group (replicated) has the same
 gradient on every rank, so
 
   copy_to_group      forward identity,   backward all-reduce (sum)
+  reduce_from_group  forward all-reduce, backward identity
   gather_from_group  forward all-gather, backward this rank's slice
+  all_gather_seq     forward all-gather, backward reduce-scatter (sum)
   all_to_all         forward all-to-all, backward all-to-all back
+  all_to_all_v       the same with uneven splits
   all_reduce_sum     forward all-reduce, backward all-reduce (sum)
 
-(`copy_to_group` is Megatron's f operator.) `shift` is the ring's hop
+(`copy_to_group` and `reduce_from_group` are Megatron's f and g
+operators: a tensor-parallel product's replicated input and its partial
+sums. `all_gather_seq` gathers a sequence-sharded K/V for the ranks'
+query chunks: each rank's loss reads every key, so a chunk's gradient
+is the sum of every rank's gradient of it.) `shift` is the ring's hop
 (send to rank + 1, receive from rank - 1), with no derivative: ring
 attention writes its backward's hops out. Every buffer a collective
 writes is contiguous: it fills memory in row-major order, whatever
@@ -121,6 +128,18 @@ class _CopyToGroup(torch.autograd.Function):
         return g, None
 
 
+class _ReduceFromGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        out = x.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
 class _GatherFromGroup(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group, dim):
@@ -135,6 +154,25 @@ class _GatherFromGroup(torch.autograd.Function):
     def backward(ctx, g):
         r = dist.get_rank(ctx.group)
         return g.chunk(ctx.n, dim=ctx.dim)[r].contiguous(), None, None
+
+
+class _AllGatherSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        n = dist.get_world_size(group)
+        ctx.group, ctx.dim, ctx.n = group, dim, n
+        # gathered along dim 0 (one contiguous block a rank), then moved
+        x = x.movedim(dim, 0).contiguous()
+        out = x.new_empty((n * x.shape[0], *x.shape[1:]))
+        dist.all_gather_into_tensor(out, x, group=group)
+        return out.movedim(0, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.movedim(ctx.dim, 0).contiguous()
+        out = g.new_empty((g.shape[0] // ctx.n, *g.shape[1:]))
+        dist.reduce_scatter_tensor(out, g, group=ctx.group)
+        return out.movedim(0, ctx.dim), None, None
 
 
 class _AllToAll(torch.autograd.Function):
@@ -152,6 +190,24 @@ class _AllToAll(torch.autograd.Function):
         out = torch.empty_like(g)
         dist.all_to_all_single(out, g, group=ctx.group)
         return out, None
+
+
+class _AllToAllV(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, out_splits, in_splits, group):
+        ctx.splits, ctx.group = (out_splits, in_splits), group
+        x = x.contiguous()
+        out = x.new_empty((sum(out_splits), *x.shape[1:]))
+        dist.all_to_all_single(out, x, out_splits, in_splits, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        out_splits, in_splits = ctx.splits
+        g = g.contiguous()
+        out = g.new_empty((sum(in_splits), *g.shape[1:]))
+        dist.all_to_all_single(out, g, in_splits, out_splits, group=ctx.group)
+        return out, None, None, None
 
 
 class _AllReduceSum(torch.autograd.Function):
@@ -193,6 +249,17 @@ def copy_to_group(x, group):
     return _CopyToGroup.apply(x, group)
 
 
+def reduce_from_group(x, group):
+    return _ReduceFromGroup.apply(x, group)
+
+
+def all_gather_seq(x, group, dim: int = 1):
+    """x's chunks from every rank of `group` concatenated along `dim`,
+    in the group's rank order; the gradient of the result is summed over
+    the ranks and each rank keeps its own chunk's (a reduce-scatter)."""
+    return _AllGatherSeq.apply(x, group, dim % x.ndim)
+
+
 def gather_from_group(x, group, dim: int = -1):
     return _GatherFromGroup.apply(x, group, dim % x.ndim)
 
@@ -201,6 +268,16 @@ def all_to_all(x, group):
     """x (n, ...): chunk i goes to group rank i; returns (n, ...) whose
     chunk j came from group rank j."""
     return _AllToAll.apply(x, group)
+
+
+def all_to_all_v(x, out_splits: Sequence[int], in_splits: Sequence[int],
+                 group):
+    """Rows of x (sum(in_splits), ...): the i-th run of in_splits[i] rows
+    goes to group rank i; returns (sum(out_splits), ...), the j-th run
+    of out_splits[j] rows from group rank j. The backward sends the
+    gradients back the same way."""
+    return _AllToAllV.apply(x, list(map(int, out_splits)),
+                            list(map(int, in_splits)), group)
 
 
 def all_reduce_sum(x, mesh, axes: Sequence[str]):
@@ -227,4 +304,5 @@ def shift(tensors, group, step: int = 1):
 __all__ = ["DATA_AXES", "axis_size", "axis_rank", "axis_group",
            "group_ranks", "data_axes", "data_size", "data_rank",
            "all_reduce_axes_", "all_gather_axes", "copy_to_group",
-           "gather_from_group", "all_to_all", "all_reduce_sum", "shift"]
+           "reduce_from_group", "gather_from_group", "all_gather_seq",
+           "all_to_all", "all_to_all_v", "all_reduce_sum", "shift"]

@@ -20,16 +20,40 @@ replication where an axis does not divide a dim.
   ranks: attention projections whose head count tp does not divide stay
   replicated, and where tp divides the query heads but not the kv
   heads, k/v stay replicated and each rank selects the kv heads its
-  query heads read.
-- ep: the stacked expert weights are sharded over ep on dim 0 (each ep
-  rank holds E / ep experts) and left out of FSDP; ops/moe.py moves the
-  tokens to them with all-to-all.
+  query heads read. GPT-2's fused `qkv` (rows [q; k; v]) is sharded
+  with `_StridedShard(0, split_factor=3)`: rank t holds rows [q_t; k_t;
+  v_t], whole heads of each, and the parameter keeps its name, its
+  (3 d, d) shape and its row order in `state_dict()`, the optimizer's
+  moments and checkpoints (`full_tensor` below gives the unsharded
+  weight), so nothing outside the block knows; the block computes on
+  the local rows (models/gpt2.py). FSDP2 shards the weight's columns
+  and leaves the bias out: sharding the rows that tp splits three ways
+  again would nest two strided layouts.
+- ep and tp on the experts: the stacked expert weights are sharded over
+  ep on dim 0 (each ep rank holds E / ep experts) and over tp on their
+  ff dim ((E, d, ff) on dim 2, (E, ff, d) on dim 1), one DTensor on the
+  (ep, tp) mesh. Under ep they are left out of FSDP2 (ep is a data
+  axis: the train step sums their gradients), so the table's fsdp on
+  their d dim is not applied there (each data rank holds its experts
+  whole over d); at ep 1 the tp-split experts go into FSDP2, their d
+  dim over fsdp, as the tp-planned projections do.
+  ops/moe.py moves the tokens to them with all-to-all, and each tp rank
+  computes its ff slice, the down product's partial sums all-reduced
+  over tp (models/mixtral.py).
 - fsdp: `fully_shard` per block, then the root, on the dim the table
   gives fsdp (FSDP2 shards every parameter it manages; one the table
   replicates is sharded on dim 0). dp is FSDP2's replicate dim (HSDP
   over ("dp", "fsdp")). Master weights and the all-gather stay fp32.
-sp and pp do not shard a module: ring attention (ops/ring_attention.py)
-and the pipelines (parallel/pipeline*.py) take those axes.
+- sp does not shard a module: parameters are replicated over it. The
+  train step publishes the mesh while its forward and backward run
+  (`activation_mesh`), and a model that finds an sp axis there
+  (`sequence_shard`) takes its input as this rank's sequence chunk:
+  RoPE and learned positions at the chunk's global positions, K/V
+  gathered over sp (`collectives.all_gather_seq`), attention through
+  `ops.attention.sequence_parallel_attention`, the MoE queue in the
+  global token order.
+pp does not shard a module either, and `shard_module` refuses it: the
+pipelines (parallel/pipeline*.py) take that axis.
 
 Conventions for decoder transformers (ray_tpu_torch/models/*), the
 port's layout:
@@ -46,7 +70,8 @@ from __future__ import annotations
 
 import dataclasses
 import re
-from typing import Dict, Mapping, Optional, Sequence, Tuple, Union
+from typing import (Any, Dict, Mapping, NamedTuple, Optional, Sequence,
+                    Tuple, Union)
 
 import torch
 from torch import nn
@@ -204,6 +229,33 @@ def shard_pytree(params: Mapping[str, torch.Tensor], mesh,
             for n, pl in sharding_tree(params, mesh, rules).items()}
 
 
+def full_tensor(t: torch.Tensor) -> torch.Tensor:
+    """The whole tensor of a DTensor (a collective over its mesh), or t.
+    DTensor's own `full_tensor` redistributes a layout with a
+    `_StridedShard` (GPT-2's qkv under tp) on some torch versions only,
+    so such a tensor is assembled here, mesh dim by mesh dim from the
+    last: every rank's part gathered over that dim and each of the
+    placement's split_factor pieces put back together (every shard even,
+    as a whole number of heads is)."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(t, DTensor):
+        return t
+    if not any(hasattr(p, "split_factor") for p in t.placements):
+        return t.full_tensor()
+    import torch.distributed as dist
+    mesh, out = t.device_mesh, t.to_local()
+    for i in reversed(range(mesh.ndim)):
+        p, n = t.placements[i], mesh.size(i)
+        if p.is_replicate() or n == 1:
+            continue
+        parts = [torch.empty_like(out) for _ in range(n)]
+        dist.all_gather(parts, out.contiguous(), group=mesh.get_group(i))
+        f = getattr(p, "split_factor", 1)
+        out = torch.cat([torch.cat([x.chunk(f, p.dim)[j] for x in parts],
+                                   p.dim) for j in range(f)], p.dim)
+    return out
+
+
 def replicated(mesh) -> list:
     """Placements of a tensor whole on every rank of `mesh`."""
     from torch.distributed.tensor import Replicate
@@ -239,17 +291,44 @@ def _attention_plan(prefix: str, attn: nn.Module, tp_mesh
             f"{prefix}.k_proj": kv_ok, f"{prefix}.v_proj": kv_ok}
 
 
-def _apply_tp(model: nn.Module, mesh, rules: ShardingRules) -> None:
+def _is_fused_attention(m: nn.Module) -> bool:
+    """GPT-2's block: one `qkv` projection (rows [q; k; v]) and
+    `attn_out`."""
+    return (hasattr(m, "qkv") and hasattr(m, "attn_out")
+            and hasattr(getattr(m, "cfg", None), "n_heads"))
+
+
+def _strided_rows(w: torch.Tensor, tp_mesh) -> nn.Parameter:
+    """w (3 n, ...) as a DTensor over tp with _StridedShard(0, 3): rank
+    t's local rows are the t-th chunk of each third, concatenated."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.placement_types import _StridedShard
+    t, n = tp_mesh.get_local_rank(), tp_mesh.size()
+    local = torch.cat([third.chunk(n, 0)[t] for third in w.chunk(3, 0)])
+    return nn.Parameter(DTensor.from_local(
+        local.contiguous(), tp_mesh, [_StridedShard(0, split_factor=3)],
+        run_check=False, shape=w.shape, stride=w.stride()))
+
+
+def _apply_tp(model: nn.Module, mesh, rules: ShardingRules) -> set:
+    """The tp plans; returns the tp-strided qkv parameters (FSDP2 must
+    not shard their rows again: shard_module gives it a weight's
+    columns and leaves a bias out)."""
     from torch.distributed.tensor import Replicate, Shard, distribute_tensor
     from torch.distributed.tensor.parallel import (ColwiseParallel,
                                                    RowwiseParallel,
                                                    parallelize_module)
     from ..ops.quant import QuantDense
     tp_mesh = mesh["tp"]
+    strided = set()
     allowed: Dict[str, bool] = {}
     for name, m in model.named_modules():
         if _is_attention(m):
             allowed.update(_attention_plan(name, m, tp_mesh))
+        elif _is_fused_attention(m):
+            # whole heads only, as for the separate projections
+            ok = m.cfg.n_heads % tp_mesh.size() == 0
+            allowed.update({f"{name}.qkv": ok, f"{name}.attn_out": ok})
     plan = {}
     for name, m in model.named_modules():
         if allowed.get(name) is False:
@@ -269,10 +348,15 @@ def _apply_tp(model: nn.Module, mesh, rules: ShardingRules) -> None:
                      "tp")
         if dim is None:
             continue
-        if name.rpartition(".")[2] == "qkv":
-            raise NotImplementedError(
-                f"{name}: a fused qkv projection under tp would split "
-                f"heads (GPT-2 under tp is not ported)")
+        if name.rpartition(".")[2] == "qkv" and dim == 0:
+            # rows [q; k; v]: each rank whole heads of each (models/gpt2.py
+            # computes on the local rows)
+            m.weight = _strided_rows(w.data, tp_mesh)
+            strided.add(m.weight)
+            if m.bias is not None:
+                m.bias = _strided_rows(m.bias.data, tp_mesh)
+                strided.add(m.bias)
+            continue
         if isinstance(m, nn.Embedding):
             # vocab-parallel lookup of the whole (replicated) token ids
             plan[name] = RowwiseParallel(input_layouts=Replicate())
@@ -291,22 +375,34 @@ def _apply_tp(model: nn.Module, mesh, rules: ShardingRules) -> None:
                                       f"{type(m).__name__} on dim {dim}")
     if plan:
         parallelize_module(model, tp_mesh, plan)
+    return strided
 
 
-def _apply_ep(model: nn.Module, mesh, rules: ShardingRules) -> set:
-    """Experts over ep on dim 0; returns the parameters FSDP leaves out."""
+def _apply_experts(model: nn.Module, mesh, rules: ShardingRules) -> set:
+    """The stacked experts (the table's ep entries) over ep on dim 0 and
+    tp on their ff dim, where those axes divide; returns the parameters
+    FSDP leaves out: those sharded over ep (ep is a data axis, so their
+    gradients are summed by the train step). Experts split over tp alone
+    go into FSDP2 with their d dim over fsdp, as the tp-planned
+    projections do."""
     from torch.distributed.tensor import Shard, distribute_tensor
-    ep_mesh = mesh["ep"]
     ignored = set()
     for mod_name, m in model.named_modules():
         for pname, p in list(m.named_parameters(recurse=False)):
             full = f"{mod_name}.{pname}" if mod_name else pname
-            spec = rules.spec_for(full, tuple(p.shape), mesh)
-            if dim_of(spec, "ep") != 0:
+            if dim_of(rules._match(full), "ep") is None:
                 continue
-            q = nn.Parameter(distribute_tensor(p.data, ep_mesh, [Shard(0)]))
+            spec = rules.spec_for(full, tuple(p.shape), mesh)
+            axes = tuple(a for a in ("ep", "tp")
+                         if dim_of(spec, a) is not None)
+            if not axes:
+                continue
+            sub = mesh[axes[0]] if len(axes) == 1 else mesh[axes]
+            q = nn.Parameter(distribute_tensor(
+                p.data, sub, [Shard(dim_of(spec, a)) for a in axes]))
             setattr(m, pname, q)
-            ignored.add(q)
+            if "ep" in axes:
+                ignored.add(q)
     return ignored
 
 
@@ -322,28 +418,30 @@ def shard_module(model: nn.Module, mesh,
     docstring) and return it. Every rank must hold the same full weights
     before the call; each keeps its shards after it. Models whose MoE
     layers route (`moe_mesh`) learn the mesh here. A model sharded
-    already is returned as it is."""
+    already is returned as it is. sp replicates the parameters (the
+    train step cuts the sequence); pp raises."""
     from torch.distributed.fsdp import FSDPModule, fully_shard
     from torch.distributed.tensor import Shard
     if isinstance(model, FSDPModule):
         return model
     rules = rules or ShardingRules()
     sizes = axis_sizes(mesh)
-    for axis, where in (("pp", "parallel.pipeline_train.PipelinedLM"),
-                        ("sp", "ops.ring_attention")):
-        if sizes[axis] > 1:
-            raise NotImplementedError(
-                f"shard_module: {axis}={sizes[axis]} does not shard a "
-                f"module; it is taken by {where}")
-    if sizes["tp"] > 1:
-        _apply_tp(model, mesh, rules)
-    ignored = _apply_ep(model, mesh, rules) if sizes["ep"] > 1 else set()
+    if sizes["pp"] > 1:
+        raise NotImplementedError(
+            f"shard_module: pp={sizes['pp']} does not shard a module; it "
+            f"is taken by parallel.pipeline_train.PipelinedLM")
+    strided = _apply_tp(model, mesh, rules) if sizes["tp"] > 1 else set()
+    ignored = {p for p in strided if p.ndim == 1}
+    if sizes["ep"] > 1 or sizes["tp"] > 1:
+        ignored |= _apply_experts(model, mesh, rules)
     for m in model.modules():
         if hasattr(m, "moe_mesh"):
             m.moe_mesh = mesh
     names = {p: n for n, p in model.named_parameters()}
 
     def placement(p):
+        if p in strided:      # tp holds the rows: fsdp takes the columns
+            return Shard(1)
         spec = rules.spec_for(names[p], tuple(p.shape), mesh)
         dim = dim_of(spec, "fsdp")
         return Shard(dim if dim is not None else 0)
@@ -370,19 +468,37 @@ class BatchSharding:
     seq_index: int = 0
     n_seq: int = 1
 
+    def shift_tokens(self, batch: Mapping) -> dict:
+        """Under sp, a batch of `tokens` (B, S + 1) as the `inputs`
+        (tokens[:, :-1]) and `targets` (tokens[:, 1:]) the loss would
+        take, so that the cut over sp keeps each chunk's last target (the
+        next chunk's first token); S must divide by sp. Any other batch,
+        and any batch without sp, as it is."""
+        if self.n_seq == 1 or "tokens" not in batch or "inputs" in batch:
+            return dict(batch)
+        out = {k: v for k, v in batch.items() if k != "tokens"}
+        tokens = batch["tokens"]
+        s = tokens.shape[1] - 1
+        if s % self.n_seq:
+            raise ValueError(
+                f"a tokens batch of {s + 1} columns gives inputs and "
+                f"targets of {s}, which do not split over sp={self.n_seq}")
+        out["inputs"], out["targets"] = tokens[:, :-1], tokens[:, 1:]
+        return out
+
     def shard(self, x):
         """The local part of a tensor or array (B, S, ...), or of every
-        value of a dict, as a `LocalBatch`; a `LocalBatch` of this
-        sharding is returned as it is (it holds the local part
-        already)."""
+        value of a dict (after `shift_tokens`), as a `LocalBatch`; a
+        `LocalBatch` of this sharding is returned as it is (it holds the
+        local part already)."""
         if isinstance(x, LocalBatch):
             if x.sharding != self:
                 raise ValueError(f"a batch local to {x.sharding} given to "
                                  f"a step that shards by {self}")
             return x
         if isinstance(x, Mapping):
-            return LocalBatch({k: self.shard(v) for k, v in x.items()},
-                              self)
+            return LocalBatch({k: self.shard(v) for k, v in
+                               self.shift_tokens(x).items()}, self)
         b = x.shape[0]
         if b % self.n_rows:
             raise ValueError(f"batch of {b} rows does not split over "
@@ -426,13 +542,40 @@ def batch_sharding(mesh, *, seq_axis: Optional[str] = "sp"
 # over sp, keeping XLA's propagation from resharding the residual
 # stream. Eager PyTorch has no propagation to steer: each rank's
 # activations are local tensors of its own rows, and the tp plans
-# decide the layout of every projection's output. So the context is
-# kept for the API and `constrain_activations` returns x unchanged.
+# decide the layout of every projection's output, so
+# `constrain_activations` returns x unchanged. The port's step publishes
+# its mesh too, around the forward and the backward (a remat block
+# recomputes there): under sp the models read it (`sequence_shard`) to
+# treat their input as this rank's sequence chunk.
 _ACTIVATION_MESH: list = [None]
 
 
+class SeqShard(NamedTuple):
+    """This rank's sequence chunk under a published sp mesh."""
+    group: Any       # the sp process group
+    index: int       # this rank's chunk
+    count: int       # chunks (the sp size)
+
+
+def published_mesh():
+    """The mesh published by `activation_mesh` (a train step's, or a
+    LearnerGroup's while its loss runs), else None."""
+    return _ACTIVATION_MESH[0]
+
+
+def sequence_shard() -> Optional[SeqShard]:
+    """The published mesh's sp group, chunk index and count, or None
+    when no mesh is published or its sp is 1."""
+    mesh = published_mesh()
+    if mesh is None or axis_size(mesh, "sp") == 1:
+        return None
+    return SeqShard(mesh.get_group("sp"), mesh.get_local_rank("sp"),
+                    axis_size(mesh, "sp"))
+
+
 class activation_mesh:
-    """Context manager: make `mesh` visible to constrain_activations."""
+    """Context manager: publish `mesh` to constrain_activations,
+    sequence_shard and published_mesh."""
 
     def __init__(self, mesh):
         self.mesh = mesh
@@ -455,6 +598,7 @@ def constrain_activations(x, *, seq_axis: Optional[str] = "sp"):
 
 __all__ = ["P", "Rule", "DEFAULT_RULES", "ShardingRules", "axis_sizes",
            "partition_spec_for", "path_str", "dim_of",
-           "sharding_tree", "shard_pytree", "replicated",
+           "sharding_tree", "shard_pytree", "full_tensor", "replicated",
            "shard_module", "data_mesh", "data_axes", "BatchSharding",
-           "batch_sharding", "LocalBatch", "activation_mesh", "constrain_activations"]
+           "batch_sharding", "LocalBatch", "activation_mesh", "constrain_activations",
+           "SeqShard", "sequence_shard", "published_mesh"]

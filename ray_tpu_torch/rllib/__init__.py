@@ -8,8 +8,9 @@ samples through the port's serve engine and trains full parameters or
 LoRA adapters (train/lora.py).
 
 With `num_env_runners > 0` rollouts run on EnvRunner actors of the
-runtime, each on its CPU. Not ported: a LearnerGroup over several
-devices (ROADMAP's "LearnerGroup over a mesh"); it raises.
+runtime, each on its CPU. A LearnerGroup runs data-parallel over a
+`DeviceMesh` (`PPOConfig(use_mesh=True)` in a process world builds
+`MeshSpec(dp=world)`), each rank on its share of the padded minibatch.
 """
 from .algorithm import Algorithm, AlgorithmConfig
 from .dqn import DQN, DQNConfig

@@ -4,9 +4,9 @@ ray_tpu/rllib/env_runner.py).
 Reference counterpart: rllib/env/env_runner.py + rllib/evaluation/
 rollout_worker.py. Runners step numpy envs on the host and sample
 actions through the policy on the runner's device, from a generator
-seeded `seed`. Runners run in-process; the reference's remote runners
-are actors of the runtime, not ported yet (ROADMAP: "rllib's remote env
-runners").
+seeded `seed`. A runner runs in-process, or as an actor of the port's
+runtime on its CPU when the algorithm asks for `num_env_runners > 0`
+(algorithm.py), as the reference's remote runners do.
 """
 from __future__ import annotations
 

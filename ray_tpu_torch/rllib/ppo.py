@@ -4,7 +4,12 @@
 Reference counterpart: rllib/algorithms/ppo/ (ppo.py, ppo_learner,
 torch policy). Each minibatch update (forward, ratio, clip, value loss,
 entropy, adaptive KL, grads, adam behind a global-norm clip) runs on
-the learner's device; epochs and minibatches iterate in Python.
+the learner's device; epochs and minibatches iterate in Python. With
+`use_mesh=True` inside a process group (`train.backend.launch`) the
+learner group is data-parallel over `MeshSpec(dp=world)`: every rank
+runs the same PPO from the same seeds, and the loss's means are the
+whole minibatch's (`batch_mean`); outside one it is a world of one, as
+the reference's mesh on one device.
 """
 from __future__ import annotations
 
@@ -12,10 +17,11 @@ from typing import Any, Dict
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from . import sample_batch as sb
 from .algorithm import Algorithm, AlgorithmConfig
-from .learner import Learner, LearnerGroup, adam
+from .learner import Learner, LearnerGroup, adam, batch_mean, batch_std
 from .sample_batch import SampleBatch
 
 
@@ -32,13 +38,14 @@ class PPOConfig(AlgorithmConfig):
         self.num_epochs = 8
         self.minibatch_size = 128
         self.grad_clip = 0.5
-        self.use_mesh = False      # dp-shard minibatches over the devices
+        self.use_mesh = False      # dp-shard minibatches over the world
         self.algo_class = PPO
 
 
 def ppo_loss(module, cfg: PPOConfig):
     """loss_fn(params, batch, kl_coeff) -> (loss, stats), the
-    reference's."""
+    reference's; its means are the whole minibatch's under a mesh
+    (`batch_mean`)."""
     def loss_fn(params, batch, kl_coeff):
         dist_in, values = module.forward(params, batch[sb.OBS])
         dist = module.dist(params, dist_in)
@@ -46,20 +53,20 @@ def ppo_loss(module, cfg: PPOConfig):
         ratio = torch.exp(logp - batch[sb.LOGPS])
         adv = batch[sb.ADVANTAGES]
         # jnp.std: the population deviation
-        adv = (adv - adv.mean()) / (adv.std(correction=0) + 1e-8)
+        adv = (adv - batch_mean(adv)) / (batch_std(adv) + 1e-8)
         surr = torch.minimum(
             ratio * adv,
             torch.clamp(ratio, 1 - cfg.clip_param, 1 + cfg.clip_param) * adv)
-        pi_loss = -surr.mean()
+        pi_loss = -batch_mean(surr)
         # clipped value loss (reference: ppo_torch_policy vf_clip)
         vf_err = (values - batch[sb.RETURNS]) ** 2
         vf_clipped = batch[sb.VALUES] + torch.clamp(
             values - batch[sb.VALUES], -cfg.vf_clip_param,
             cfg.vf_clip_param)
         vf_err2 = (vf_clipped - batch[sb.RETURNS]) ** 2
-        vf_loss = 0.5 * torch.maximum(vf_err, vf_err2).mean()
-        entropy = dist.entropy().mean()
-        approx_kl = ((ratio - 1) - torch.log(ratio)).mean()
+        vf_loss = 0.5 * batch_mean(torch.maximum(vf_err, vf_err2))
+        entropy = batch_mean(dist.entropy())
+        approx_kl = batch_mean((ratio - 1) - torch.log(ratio))
         loss = (pi_loss + cfg.vf_loss_coeff * vf_loss
                 - cfg.entropy_coeff * entropy + kl_coeff * approx_kl)
         return loss, {"policy_loss": pi_loss.detach(),
@@ -76,10 +83,10 @@ class PPO(Algorithm):
         learner = Learner(self.params, loss_fn=ppo_loss(self.module, cfg),
                           tx=adam(cfg.lr, cfg.grad_clip))
         mesh = None
-        if cfg.use_mesh:
-            n = (torch.cuda.device_count() if self.device.type == "cuda"
-                 else 1)
-            mesh = [self.device] * n
+        if cfg.use_mesh and dist.is_available() and dist.is_initialized():
+            from ..parallel.mesh import MeshSpec, build_mesh  # noqa: PLC0415
+            mesh = build_mesh(MeshSpec(dp=dist.get_world_size()),
+                              device=self.device.type)
         self.learner_group = LearnerGroup(learner, mesh=mesh)
         self.kl_coeff = cfg.kl_coeff
 

@@ -96,7 +96,8 @@ def _gather(tree: Any, keep: bool) -> Any:
     rank walks the same tree in the same order), on the CPU where `keep`
     and dropped (None) elsewhere; other leaves as they are."""
     if isinstance(tree, DTensor):
-        full = tree.full_tensor()
+        from ..parallel.sharding import full_tensor  # noqa: PLC0415
+        full = full_tensor(tree)
         return full.cpu() if keep else None
     if isinstance(tree, Mapping):
         return {k: _gather(v, keep) for k, v in tree.items()}

@@ -235,12 +235,14 @@ def _mesh_lora_step(model, tx, mesh, loss_fn) -> Callable:
     """make_lora_train_step on a mesh. Each targeted `Dense` merges its
     adapter into the weight FSDP2 gathers (`Dense.weight_fn`, set for
     the step only); the base's parameters stop requiring grad for the
-    step, so FSDP2 reduces nothing of theirs. Each rank runs its rows;
-    the adapters' gradients of the local masked sums are summed over the
-    data ranks and divided by the global token count: the reference's
-    masked mean of the global batch."""
+    step, so FSDP2 reduces nothing of theirs. Each rank runs its rows
+    (under sp its chunk of each, the mesh published as the train step
+    publishes it); the adapters' gradients of the local masked sums are
+    summed over the data ranks and sp and divided by the global token
+    count: the reference's masked mean of the global batch."""
     from ..parallel.collectives import all_reduce_axes_
-    from ..parallel.sharding import batch_sharding, shard_module
+    from ..parallel.sharding import (activation_mesh, batch_sharding,
+                                     shard_module)
     shard_module(model, mesh)
     bsh = batch_sharding(mesh)
     modules = dict(model.named_modules())
@@ -267,18 +269,19 @@ def _mesh_lora_step(model, tx, mesh, loss_fn) -> Callable:
                 for p in base:
                     p.requires_grad_(False)
                 local = bsh.shard(batch)
-                loss, metrics = loss_fn(model, local)
-                nt = token_count(local, metrics, loss.device)
-                (loss * nt).backward()
+                with activation_mesh(mesh):
+                    loss, metrics = loss_fn(model, local)
+                    nt = token_count(local, metrics, loss.device)
+                    (loss * nt).backward()
             finally:
                 for mod in targets:
                     mod.weight_fn = None
                 for p in base:
                     p.requires_grad_(True)
             totals = torch.stack([nt, metrics["loss"].float() * nt])
-            all_reduce_axes_([totals], mesh, ("dp", "fsdp", "ep"))
+            all_reduce_axes_([totals], mesh, ("dp", "fsdp", "ep", "sp"))
             all_reduce_axes_([p.grad for p in params], mesh,
-                             ("dp", "fsdp", "ep"))
+                             ("dp", "fsdp", "ep", "sp"))
             n_tok = torch.clamp(totals[0], min=1.0)
             with torch.no_grad():
                 for p in params:

@@ -244,8 +244,9 @@ class Adafactor(_Chain, _PerParameter):
             # the factored moments and the block rms are passes over the
             # whole parameter: run them on the gathered tensor (every
             # rank the same), keep this rank's shard of the update
-            full = p.full_tensor()
-            self._update(full, g.full_tensor(), state, group)
+            from ..parallel.sharding import full_tensor  # noqa: PLC0415
+            full = full_tensor(p)
+            self._update(full, full_tensor(g), state, group)
             p.to_local().copy_(DTensor.from_local(
                 full, p.device_mesh, [Replicate()] * p.device_mesh.ndim,
                 run_check=False).redistribute(

@@ -5,8 +5,9 @@ on the device that holds the model. With a mesh (parallel/mesh.py) it
 is the counterpart of the reference's one jitted SPMD function: every
 rank of the world runs it on its share of the batch, the model sharded
 by the rule table (`parallel.sharding.shard_module`: FSDP2 over fsdp,
-replicas over dp, DTensor plans over tp, experts over ep), and the
-collectives are FSDP2's, DTensor's and the few the step makes itself.
+replicas over dp, DTensor plans over tp, experts over ep and tp, the
+sequence over sp), and the collectives are FSDP2's, DTensor's and the
+few the step and the models make themselves.
 
 Params live in the module and are updated in place (the counterpart of
 donating the state); a `TrainState` names them with the optimizer and
@@ -217,10 +218,13 @@ def state_layout(state: TrainState) -> Dict[str, Any]:
             "opt_state": {"state": {i: like(p) for i, p in enumerate(order)}}}
 
 
-def _is_expert(p) -> bool:
-    """A parameter sharded over ep by shard_module (outside FSDP2)."""
-    return (isinstance(p, DTensor) and p.device_mesh.ndim == 1
-            and p.device_mesh.mesh_dim_names == ("ep",))
+def _outside_fsdp(p) -> bool:
+    """A parameter shard_module leaves out of FSDP2, replicated over the
+    data axes (the stacked experts under ep, GPT-2's tp-strided
+    qkv bias): a DTensor on a mesh of those axes only (FSDP2's
+    parameters live on meshes with a data axis)."""
+    return (isinstance(p, DTensor)
+            and set(p.device_mesh.mesh_dim_names) <= {"ep", "tp"})
 
 
 def _mesh_train_step(model, tx, mesh, loss_fn, rules, accum_steps):
@@ -228,24 +232,29 @@ def _mesh_train_step(model, tx, mesh, loss_fn, rules, accum_steps):
     same global batch and trains on its share (`batch_shardings`), or
     with a `LocalBatch` of that sharding (`data.device_put_iterator`
     with `sharding=`), which holds the share already and is taken as it
-    is: the same rows, so the same step.
+    is: the same rows, so the same step. Under sp a `tokens` batch is
+    shifted into `inputs` and `targets` before the sequence is cut
+    (`BatchSharding.shift_tokens`), and the step publishes the mesh
+    (`activation_mesh`) around the forward and the backward, so the
+    model takes its input as this rank's chunk of each row.
 
     The loss is the reference's: the masked mean over the global batch.
     Each rank's backward runs on its local masked sum (per micro-batch
     under accum_steps, weighted by `token_count`); the token count N is
-    all-reduced over the data ranks and every gradient scaled so that it
-    is d(sum)/N over the whole batch, whatever each rank's mask holds. FSDP2 averages over
-    its data mesh (dp x fsdp), hence the factor of that mesh's size; ep
-    ranks hold their own rows, so the other parameters' gradients are
-    summed over ep and the experts' (outside FSDP2) over dp and fsdp.
-    Metrics (loss, ntokens, ppl and grad_norm) are the global values on
-    every rank."""
-    from ..parallel.collectives import all_reduce_axes_, axis_size
-    from ..parallel.sharding import batch_sharding, data_mesh, shard_module
+    all-reduced over the data ranks and sp, and every gradient scaled
+    so that it is d(sum)/N over the whole batch, whatever each rank's
+    mask holds. FSDP2 averages over its data mesh (dp x fsdp), hence the
+    factor of that mesh's size; ep and sp ranks hold their own tokens
+    with the parameters replicated over those axes, so the FSDP2
+    parameters' gradients are summed over ep and sp, and those outside
+    FSDP2 (the experts) over dp, fsdp and sp. Metrics (loss, ntokens, ppl
+    and grad_norm) are the global values on every rank."""
+    from ..parallel.collectives import all_reduce_axes_
+    from ..parallel.sharding import (activation_mesh, batch_sharding,
+                                     data_mesh, shard_module)
     shard_module(model, mesh, rules)
     bsh = batch_sharding(mesh)
     fsdp_ranks = data_mesh(mesh).size()
-    ep = axis_size(mesh, "ep")
 
     def step(state: TrainState, batch: Batch):
         params = list(state.params.values())
@@ -255,29 +264,30 @@ def _mesh_train_step(model, tx, mesh, loss_fn, rules, accum_steps):
         micro = (_micro_batches(local, accum_steps) if accum_steps > 1
                  else [local])
         totals, keys = None, None
-        for mb in micro:
-            loss, m = loss_fn(model, mb)
-            nt = token_count(mb, m, loss.device)
-            (loss * nt).backward()
-            keys = keys or [k for k in m if k not in ("ntokens", "ppl")]
-            row = torch.stack([nt] + [torch.as_tensor(
-                m[k], dtype=torch.float32, device=loss.device) * nt
-                for k in keys])
-            totals = row if totals is None else totals + row
-        all_reduce_axes_([totals], mesh, ("dp", "fsdp", "ep"))
+        with activation_mesh(mesh):
+            for mb in micro:
+                loss, m = loss_fn(model, mb)
+                nt = token_count(mb, m, loss.device)
+                (loss * nt).backward()
+                keys = keys or [k for k in m if k not in ("ntokens", "ppl")]
+                row = torch.stack([nt] + [torch.as_tensor(
+                    m[k], dtype=torch.float32, device=loss.device) * nt
+                    for k in keys])
+                totals = row if totals is None else totals + row
+        all_reduce_axes_([totals], mesh, ("dp", "fsdp", "ep", "sp"))
         n_tok = torch.clamp(totals[0], min=1.0)
-        experts = [p for p in params if _is_expert(p) and p.grad is not None]
+        outside = [p for p in params
+                   if _outside_fsdp(p) and p.grad is not None]
         others = [p.grad.to_local() if isinstance(p.grad, DTensor)
                   else p.grad for p in params
-                  if p.grad is not None and not _is_expert(p)]
-        if ep > 1:
-            all_reduce_axes_(others, mesh, ("ep",))
-            all_reduce_axes_([p.grad.to_local() for p in experts], mesh,
-                             ("dp", "fsdp"))
+                  if p.grad is not None and not _outside_fsdp(p)]
+        all_reduce_axes_(others, mesh, ("ep", "sp"))
+        all_reduce_axes_([p.grad.to_local() for p in outside], mesh,
+                         ("dp", "fsdp", "sp"))
         with torch.no_grad():
             for g in others:
                 g.mul_(fsdp_ranks / n_tok)
-            for p in experts:
+            for p in outside:
                 p.grad.to_local().div_(n_tok)
         metrics = {k: totals[i + 1] / n_tok for i, k in enumerate(keys)}
         metrics["ntokens"] = totals[0]

@@ -487,7 +487,8 @@ def test_port_imports_no_jax_and_no_ray_tpu():
     """Importing every module of ray_tpu_torch, and chip_smoke.py, leaves
     jax, ray_tpu / ray_tpu.*, optax, flax, orbax and transformers out of
     sys.modules (ray_tpu_torch itself shares the prefix, hence the exact
-    match)."""
+    match); so does running, in a gloo world of 2 spawned ranks, an sp
+    train step and PPO over a mesh learner group."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import ray_tpu_torch\n"
@@ -587,6 +588,10 @@ def test_port_imports_no_jax_and_no_ray_tpu():
                  "ray_tpu_torch.workflow", "ray_tpu_torch.cross_language",
                  "ray_tpu_torch.serve.grpc_proxy"):
         assert name in mods.split()
+    from ray_tpu_torch.parallel import _testing
+    from ray_tpu_torch.train.backend import launch
+    assert launch(_testing.sp_and_ppo_modules, 2, "cpu",
+                  timeout_s=120) == [[], []]
 
 
 def test_cpp_task_and_grpc_proxy_workers_import_no_jax_and_no_ray_tpu(

@@ -282,17 +282,65 @@ def test_ppo_with_remote_env_runners_samples_as_local_runners():
         "runners_left": 0}
 
 
-# ---------- what the port does not have raises ----------
+# ---------- the learner group over a mesh ----------
 
 
 def test_learner_group_over_several_devices_raises():
+    """A mesh is a DeviceMesh over a process world; a list of devices
+    (the reference's jax devices) raises TypeError naming build_mesh.
+    Outside a process group `use_mesh=True` is a world of one: a plain
+    learner."""
     algo = _ppo_config().build()
     learner = algo.learner_group.learner
-    with pytest.raises(NotImplementedError,
-                       match="LearnerGroup over a mesh"):
+    with pytest.raises(TypeError, match="build_mesh"):
         tr.LearnerGroup(learner, mesh=["cpu", "cpu"])
-    one = tr.LearnerGroup(learner, mesh=["cpu"])     # plain on one device
-    assert one.params is learner.params
+    with pytest.raises(TypeError, match="build_mesh"):
+        tr.LearnerGroup(learner, mesh=["cpu"])
+    one = _ppo_config().training(use_mesh=True).build()
+    assert one.learner_group.mesh is None
+    assert one.learner_group.params is one.learner_group.learner.params
+    assert tr.LearnerGroup(learner).params is learner.params
+
+
+def test_ppo_use_mesh_over_dp4_matches_jax():
+    """PPO with use_mesh=True on 4 gloo ranks (MeshSpec(dp=4) in each)
+    against the reference's PPO on MeshSpec(dp=4) over 4 virtual
+    devices: one training_step of 2 epochs of minibatches of 10 rows (4
+    does not divide 10: both pad to 12 by cycling rows) on the same
+    rollout from the same params; its stats (the last minibatch's, the
+    mean kl and the new kl coefficient) and the params after, at the
+    tolerances of test_ppo_update_matches_jax. A group on a mesh that
+    also splits rows over fsdp raises ValueError."""
+    from ray_tpu.parallel import MeshSpec as JMeshSpec
+    from ray_tpu.parallel import build_mesh as j_build_mesh
+    from ray_tpu_torch.parallel import _testing
+    from ray_tpu_torch.train.backend import launch
+    training = dict(lr=1e-3, entropy_coeff=0.01, grad_clip=0.5,
+                    num_epochs=2, minibatch_size=10)
+    ja = (jr.PPOConfig().environment("CartPole")
+          .env_runners(num_envs_per_env_runner=2,
+                       rollout_fragment_length=16)
+          .training(**training)).build()
+    # the reference's use_mesh=True calls MeshSpec.build, which its
+    # MeshSpec does not have: its group is built here on the mesh that
+    # call means, MeshSpec(dp=4) over 4 devices
+    ja.learner_group = jr.LearnerGroup(
+        ja.learner_group.learner,
+        mesh=j_build_mesh(JMeshSpec(dp=4), devices=jax.devices()[:4]))
+    batch = ja.local_runner.sample(ja.params).as_numpy()
+    params = _rl_params(ja.params)
+    got = launch(_testing.ppo_mesh_case, 4, "cpu", dict(
+        env="CartPole", training=training, batch=batch, params=params),
+        timeout_s=120)[0]
+    want = ja.training_step(jr.SampleBatch(batch))
+    assert got["mesh"]["dp"] == 4
+    assert got["other_data_axis_raises"]
+    assert set(got["stats"]) == set(want)
+    for k in want:
+        np.testing.assert_allclose(got["stats"][k], want[k], rtol=1e-4,
+                                   atol=1e-6, err_msg=k)
+    _close_tree({k: torch.from_numpy(v) for k, v in got["params"].items()},
+                _rl_params(ja.params), 1e-3)
 
 
 def test_algorithm_defaults_to_cuda():
