@@ -5,8 +5,8 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
-It builds every CUDA kernel from `ray_tpu_torch/csrc/`, then runs twenty
-phases and fails (non-zero exit, no result line) if any of them fails:
+It builds every CUDA kernel from `ray_tpu_torch/csrc/`, then runs
+twenty-one phases and fails (non-zero exit, no result line) if any of them fails:
 
 1. kernels: each kernel against its plain PyTorch version at
    Llama-3-8B attention shapes (Hq 32, Hkv 8, D 128, bf16; K1 and
@@ -316,10 +316,7 @@ phases and fails (non-zero exit, no result line) if any of them fails:
    MeshSpec(sp=n) equal to one device's (loss, grad_norm, params; rtol
    1e-4), K1/K2a/K2b launched on every rank; PPO on CartPole with
    use_mesh=True (MeshSpec(dp=n)), 2 iterations, its learner stats
-   within 1e-5 of use_mesh=False's; Mixtral on MeshSpec(fsdp=2, tp=2)
-   in 4 gloo CPU ranks (its tp-split experts in FSDP2 under this
-   machine's torch) equal to one device's, a quarter of each expert a
-   rank. At n == 1 both meshes are of one
+   within 1e-5 of use_mesh=False's. At n == 1 both meshes are of one
    rank, so the step and the learner take their plain paths: the
    launches are keyed `mesh-of-one`, not `sp-mesh`, and sp's own come
    only from runs on several cards. (d) only where n >= 4: the train
@@ -330,13 +327,31 @@ phases and fails (non-zero exit, no result line) if any of them fails:
    widths at 2 fp32 layers on MeshSpec(ep=2, tp=2) (loss and each
    layer's aux loss within 1e-5 of one device's, peak memory); at n < 4
    it prints "four-card part not run".
+21. the experts in FSDP2: (a) this machine's torch in one world of 4
+   gloo CPU ranks, a small Mixtral (E 4, d 64, ff 128) on MeshSpec(fsdp=
+   2, ep=2), (ep=2, tp=2) and (fsdp=2, tp=2), 3 fp32 sgd steps each
+   equal to one device's (rtol 1e-4): every expert a DTensor in FSDP2 on
+   fsdp and the axes that split it, each rank's shard the table's
+   (`partition_spec_for`), whole over d when its layer's forward
+   starts, the ep exchange on the ep group of the experts' mesh; (b)
+   K1 and K2a/K2b against their plain versions at the Mixtral step's
+   attention shape (2 x 256 tokens, Hq 32, Hkv 8, D 128, fp32, causal),
+   then Mixtral-8x7B widths at 2 fp32 layers (TF32 off) in a world of
+   n ranks on MeshSpec(ep=n) (at n == 1 every axis is 1: the degenerate
+   mesh, the experts on (fsdp, ep) and whole) or, where n >= 4,
+   MeshSpec(fsdp=2, ep=n // 2): 2 sgd steps equal to one device's
+   (loss, grad_norm, params; rtol 1e-4), every rank's expert shards the
+   table's, their bytes a rank beside the whole and beside the layout
+   before this one (whole over d), peak memory, and K1/K2a/K2b launched
+   4 times each on every rank.
 
 The last three lines are a JSON object listing each kernel (with its
 launches on each path, the zoo's bursts and ViT's forward among them,
 the front doors' `cli-serve`, `job` and `client`, phase 19's
 `pinned-pallas`, `pinned-xla`, `pinned-dpa`, `workflow` and
-`fractional`, and phase 20's `sp-chunks`, `sp-mesh` (`mesh-of-one`
-on one card) and `moe-dispatch`), the card's name
+`fractional`, phase 20's `sp-chunks`, `sp-mesh` (`mesh-of-one`
+on one card) and `moe-dispatch`, and phase 21's `experts-fsdp`), the
+card's name
 and power limit as nvidia-smi
 gives them, and {"ok": true, "device": {...}}. Imports nothing of JAX
 or ray_tpu.
@@ -562,6 +577,39 @@ def phase_kernels(torch):
     return rows
 
 
+def k1_check(torch, gen, b, s, causal, hq, hkv, d, dt_name):
+    """K1 once against flash_attention_plain on seeded inputs; returns
+    the inputs, the label and the output's largest error."""
+    from ray_tpu_torch.ops.kernels import flash_attention as fa
+    dt = getattr(torch, dt_name)
+    q = torch.randn(b, s, hq, d, device="cuda", generator=gen).to(dt)
+    k = torch.randn(b, s, hkv, d, device="cuda", generator=gen).to(dt)
+    v = torch.randn(b, s, hkv, d, device="cuda", generator=gen).to(dt)
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    ref, ref_lse = fa.flash_attention_plain(q, k, v, causal=causal)
+    diff = (out.float() - ref.float()).abs()
+    err = diff.max().item()
+    lse_err = (lse - ref_lse).abs().max().item()
+    if dt == torch.float32:
+        tol = f"atol {K1_ATOL_FP32}"
+        ok = err <= K1_ATOL_FP32 and lse_err <= K1_ATOL_FP32
+    else:
+        tol = (f"out atol {K1_ATOL_OUT} + rtol {K1_RTOL_OUT}, lse atol "
+               f"{K1_ATOL_LSE}")
+        ok = bool((diff <= K1_ATOL_OUT
+                   + K1_RTOL_OUT * ref.float().abs()).all()) \
+            and lse_err <= K1_ATOL_LSE
+    route = ("fp32 scalar" if dt == torch.float32 else
+             "wgmma" if d >= 64 else "mma.sync")
+    label = (f"B={b} S={s} Hq={hq} Hkv={hkv} D={d} {dt_name} "
+             f"{'causal' if causal else 'non-causal'}")
+    print(f"kernels: K1 flash_fwd {label} ({route}) max_abs_err out="
+          f"{err:.3g} lse={lse_err:.3g} ({tol}: {ok})", flush=True)
+    check(ok, f"K1 disagrees with its plain version at {label}")
+    return (q, k, v), label, err
+
+
 def k1_row(torch, gen):
     """K1 against flash_attention_plain at K1_SHAPES; two launches of the
     wgmma kernel compared bit for bit; times at K1_TIMED."""
@@ -570,31 +618,8 @@ def k1_row(torch, gen):
     k1_err, rec = 0.0, None
     for b, s, causal, hq, hkv, d, dt_name in K1_SHAPES:
         dt = getattr(torch, dt_name)
-        q = torch.randn(b, s, hq, d, device="cuda", generator=gen).to(dt)
-        k = torch.randn(b, s, hkv, d, device="cuda", generator=gen).to(dt)
-        v = torch.randn(b, s, hkv, d, device="cuda", generator=gen).to(dt)
-        out, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
-        torch.cuda.synchronize()
-        ref, ref_lse = fa.flash_attention_plain(q, k, v, causal=causal)
-        diff = (out.float() - ref.float()).abs()
-        err = diff.max().item()
-        lse_err = (lse - ref_lse).abs().max().item()
-        if dt == torch.float32:
-            tol = f"atol {K1_ATOL_FP32}"
-            ok = err <= K1_ATOL_FP32 and lse_err <= K1_ATOL_FP32
-        else:
-            tol = (f"out atol {K1_ATOL_OUT} + rtol {K1_RTOL_OUT}, lse atol "
-                   f"{K1_ATOL_LSE}")
-            ok = bool((diff <= K1_ATOL_OUT
-                       + K1_RTOL_OUT * ref.float().abs()).all()) \
-                and lse_err <= K1_ATOL_LSE
-        route = ("fp32 scalar" if dt == torch.float32 else
-                 "wgmma" if d >= 64 else "mma.sync")
-        label = (f"B={b} S={s} Hq={hq} Hkv={hkv} D={d} {dt_name} "
-                 f"{'causal' if causal else 'non-causal'}")
-        print(f"kernels: K1 flash_fwd {label} ({route}) max_abs_err out="
-              f"{err:.3g} lse={lse_err:.3g} ({tol}: {ok})", flush=True)
-        check(ok, f"K1 disagrees with its plain version at {label}")
+        (q, k, v), label, err = k1_check(torch, gen, b, s, causal, hq, hkv,
+                                         d, dt_name)
         k1_err = max(k1_err, err)
         if not (causal and d == 128 and hq == 32 and dt == torch.bfloat16
                 and (b, s) in K1_TIMED):
@@ -5963,12 +5988,6 @@ SP_MESH_LAYERS, SP_MESH_STEPS = 2, 2  # (c): flagship layers, fp32 sgd steps
 SP_MESH_ROWS, SP_MESH_SEQ = 2, 256
 PPO_MESH_ITERS = 2                   # (c): PPO iterations each way
 PPO_MESH_RTOL = 1e-5
-# (c): FSDP2 of this machine's torch on the tp-split experts (ep 1): a
-# small Mixtral in a world of 4 gloo CPU ranks, as the CPU tests run it
-EXPERTS_CFG = dict(vocab_size=256, d_model=64, n_layers=2, n_heads=4,
-                   n_kv_heads=2, d_ff=128, n_experts=4, experts_per_token=2,
-                   max_seq_len=64, capacity_factor=1.0)
-EXPERTS_STEPS = 3
 FOUR_STEPS = 4                       # (d): the 8-layer sp step's steps,
 FOUR_ROWS, FOUR_SEQ = 2, 8192        # ... at 2 x 8192 tokens
 FOUR_GPT2_STEPS = 2                  # (d): GPT-2 small, fp32, tp 4
@@ -6349,57 +6368,6 @@ def sp_mesh_check(res, n, gpu_line):
     return r0["launches"]
 
 
-def experts_fsdp_check(gpu_line):
-    """(c): Mixtral (EXPERTS_CFG) on MeshSpec(fsdp=2, tp=2) in a world of
-    4 gloo CPU ranks, its experts split over tp alone and so handed to
-    FSDP2 under this machine's torch, against EXPERTS_STEPS fp32 sgd
-    steps on one device: metrics and params within PARITY_RTOL (beside
-    PARALLEL_ATOL), a quarter of each expert a rank."""
-    import numpy as np
-    import torch
-    from ray_tpu_torch.models import Mixtral, MixtralConfig
-    from ray_tpu_torch.parallel import _testing
-    from ray_tpu_torch.train import make_optimizer, make_train_step
-    from ray_tpu_torch.train.backend import launch
-    cfg = MixtralConfig(**EXPERTS_CFG, dtype=torch.float32,
-                        param_dtype=torch.float32)
-    model = Mixtral(cfg, device="cpu", seed=24)
-    params = {k: v.numpy().copy() for k, v in model.state_dict().items()}
-    rng = np.random.RandomState(24)
-    batches = [{"tokens": rng.randint(0, cfg.vocab_size, (8, 17))}
-               for _ in range(EXPERTS_STEPS)]
-    case = dict(model="mixtral", cfg=EXPERTS_CFG, spec=dict(fsdp=2, tp=2),
-                opt="sgd", lr=0.1, batches=batches, params=params)
-    got = launch(_testing.run_jobs, 4, "cpu", [("train_cases", [case])],
-                 timeout_s=300)[0][0][0]
-    tb = [{k: torch.from_numpy(v) for k, v in b.items()} for b in batches]
-    state, step = make_train_step(model, make_optimizer(
-        "sgd", learning_rate=0.1))(tb[0])
-    want = []
-    for b in tb:
-        state, m = step(state, b)
-        want.append((float(m["loss"]), float(m["grad_norm"])))
-    have = [(r["loss"], r["grad_norm"]) for r in got["metrics"]]
-    ok = all(abs(a - b) <= PARITY_RTOL * abs(b)
-             for g, w in zip(have, want) for a, b in zip(g, w))
-    worst = max(float(((np.abs(got["params"][k] - v.numpy())
-                        - PARALLEL_ATOL) / np.abs(v.numpy()).clip(1e-12))
-                       .max()) for k, v in model.state_dict().items())
-    shares = sorted({got["local_numel"][k] / got["params"][k].size
-                     for k in got["params"] if ".experts_" in k})
-    print(f"phase 20: (c) FSDP2 of torch {torch.__version__} on the "
-          f"tp-split experts: Mixtral (E 4, d 64) on MeshSpec(fsdp=2, tp=2) "
-          f"in 4 gloo CPU ranks, {EXPERTS_STEPS} fp32 sgd steps: (loss, "
-          f"grad_norm) mesh {have} one device {want}, within rtol "
-          f"{PARITY_RTOL}: {ok}; params worst (|err| - {PARALLEL_ATOL}) / "
-          f"|single| {worst:.3g}; share of each expert a rank {shares} "
-          f"[{gpu_line}]", flush=True)
-    check(ok and worst <= PARITY_RTOL, "phase 20 (c): Mixtral on fsdp 2 x "
-                                       "tp 2 differs from one device")
-    check(shares == [0.25], f"phase 20 (c): a rank holds {shares} of each "
-                            f"expert, want a quarter")
-
-
 def four_train_rank(n_layers, steps, gpu_line):
     """(d) on this rank: the train phase's model at n_layers under
     MeshSpec(fsdp=2, sp=2), FOUR_ROWS x FOUR_SEQ tokens: losses, the
@@ -6548,8 +6516,12 @@ def four_cards(torch, gpu_line, run, parallel_ms):
           f"{g['bitwise']}", flush=True)
     check(ok and g["bitwise"], "phase 20 (d): GPT-2 under tp 4 differs from "
                                "one device")
-    mres = run(four_mixtral_rank)
-    m = mres[0]
+    four_mixtral_check(run, gpu_line)
+
+
+def four_mixtral_check(run, gpu_line):
+    """(d): Mixtral-8x7B widths on ep 2 x tp 2 against one device."""
+    m = run(four_mixtral_rank)[0]
     (ml, ma), (sl, sa) = m["mesh"], m["single"]
     worst = max(abs(a - b) / abs(b) for a, b in zip([ml] + ma, [sl] + sa))
     print(f"phase 20: (d) Mixtral-8x7B widths, {MOE_AUX_LAYERS} fp32 layers, "
@@ -6580,7 +6552,6 @@ def phase_parallel_rest(torch, gpu_line, parallel_ms):
     key = "sp-mesh" if n > 1 else "mesh-of-one"
     launches[key] = sp_mesh_check(run(sp_mesh_rank), n, gpu_line)
     release(torch)
-    experts_fsdp_check(gpu_line)
     if n >= 4 and n % 2 == 0:
         four_cards(torch, gpu_line, run, parallel_ms)
     else:
@@ -6588,6 +6559,247 @@ def phase_parallel_rest(torch, gpu_line, parallel_ms):
     print(f"phase 20: parallelism, the rest: phase wall "
           f"{time.time() - t_phase:.1f} s [{gpu_line}]", flush=True)
     return launches
+
+
+# phase 21: the experts in FSDP2 (an (fsdp, ep) mesh of their own). (a)
+# this machine's torch in a world of 4 gloo CPU ranks, as the CPU tests
+# run it: a small Mixtral on each EXPERTS_SPECS mesh against one device;
+# (b) the card: Mixtral-8x7B widths at EXPERTS_MESH_LAYERS fp32 layers
+# (TF32 off, the published capacity factor) in a world of n ranks, on
+# MeshSpec(fsdp=2, ep=n // 2) where n >= 4 cards, else on MeshSpec(ep=n)
+# (at n == 1 every axis is 1: the degenerate mesh)
+EXPERTS_CFG = dict(vocab_size=256, d_model=64, n_layers=2, n_heads=4,
+                   n_kv_heads=2, d_ff=128, n_experts=4, experts_per_token=2,
+                   max_seq_len=64, capacity_factor=1.0)
+EXPERTS_STEPS = 3
+EXPERTS_SPECS = (dict(fsdp=2, ep=2), dict(ep=2, tp=2), dict(fsdp=2, tp=2))
+EXPERTS_MESH_LAYERS, EXPERTS_MESH_STEPS = 2, 2
+EXPERTS_MESH_ROWS, EXPERTS_MESH_SEQ = 2, 256   # rows a data rank
+
+
+def table_shard(name, shape, sizes):
+    """The shard of one rank under the port's copy of the reference's
+    table (`partition_spec_for`) on a mesh of these axis sizes."""
+    from ray_tpu_torch.parallel.sharding import partition_spec_for
+    spec = partition_spec_for(name, tuple(shape), sizes)
+    out = list(shape)
+    for i, entry in enumerate(spec):
+        for axis in (entry if isinstance(entry, tuple) else (entry,)):
+            if axis is not None:
+                out[i] //= sizes.get(axis, 1)
+    return out
+
+
+def experts_fsdp_check(gpu_line):
+    """(a): Mixtral (EXPERTS_CFG) on each of EXPERTS_SPECS in one world of
+    4 gloo CPU ranks, under this machine's torch, against EXPERTS_STEPS
+    fp32 sgd steps on one device: metrics and params within PARITY_RTOL
+    (beside PARALLEL_ATOL); each expert a DTensor in FSDP2 on fsdp and
+    the axes that split it, its shard the table's, gathered whole over
+    d when its layer's forward starts."""
+    import numpy as np
+    import torch
+    from ray_tpu_torch.models import Mixtral, MixtralConfig
+    from ray_tpu_torch.parallel import _testing
+    from ray_tpu_torch.train import make_optimizer, make_train_step
+    from ray_tpu_torch.train.backend import launch
+    cfg = MixtralConfig(**EXPERTS_CFG, dtype=torch.float32,
+                        param_dtype=torch.float32)
+    model = Mixtral(cfg, device="cpu", seed=24)
+    params = {k: v.numpy().copy() for k, v in model.state_dict().items()}
+    rng = np.random.RandomState(24)
+    batches = [{"tokens": rng.randint(0, cfg.vocab_size, (8, 17))}
+               for _ in range(EXPERTS_STEPS)]
+    cases = [dict(model="mixtral", cfg=EXPERTS_CFG, spec=spec, opt="sgd",
+                  lr=0.1, batches=batches, params=params)
+             for spec in EXPERTS_SPECS]
+    got_all = launch(_testing.run_jobs, 4, "cpu", [("train_cases", cases)],
+                     timeout_s=300)[0][0]
+    tb = [{k: torch.from_numpy(v) for k, v in b.items()} for b in batches]
+    state, step = make_train_step(model, make_optimizer(
+        "sgd", learning_rate=0.1))(tb[0])
+    want = []
+    for b in tb:
+        state, m = step(state, b)
+        want.append((float(m["loss"]), float(m["grad_norm"])))
+    for spec, got in zip(EXPERTS_SPECS, got_all):
+        sizes = {a: spec.get(a, 1) for a in ("dp", "fsdp", "ep", "sp",
+                                             "tp", "pp")}
+        have = [(r["loss"], r["grad_norm"]) for r in got["metrics"]]
+        ok = all(abs(a - b) <= PARITY_RTOL * abs(b)
+                 for g, w in zip(have, want) for a, b in zip(g, w))
+        worst = max(float(((np.abs(got["params"][k] - v.numpy())
+                            - PARALLEL_ATOL) / np.abs(v.numpy()).clip(1e-12))
+                           .max()) for k, v in model.state_dict().items())
+        experts = [k for k in got["params"] if ".experts_" in k]
+        dims = ["fsdp"] + [a for a in ("ep", "tp") if sizes[a] > 1]
+        table = all(got["local_shape"][k] == table_shard(
+            k, got["params"][k].shape, sizes) for k in experts)
+        placed = all(got["mesh_dims"][k] == dims for k in experts)
+        gathered = all(got["at_forward"][k] == table_shard(
+            k, got["params"][k].shape, {**sizes, "fsdp": 1})
+            for k in experts)
+        shares = sorted({got["local_numel"][k] / got["params"][k].size
+                         for k in experts})
+        print(f"phase 21: (a) FSDP2 of torch {torch.__version__}: Mixtral "
+              f"(E 4, d 64, ff 128) on MeshSpec({spec}) in 4 gloo CPU "
+              f"ranks, {EXPERTS_STEPS} fp32 sgd steps: (loss, grad_norm) "
+              f"mesh {have} one device {want}, within rtol {PARITY_RTOL}: "
+              f"{ok}; params worst (|err| - {PARALLEL_ATOL}) / |single| "
+              f"{worst:.3g}; the experts on {dims} ({placed}), "
+              f"{got['placements'][experts[0]]} for {experts[0]}, each "
+              f"rank's shard the table's {table}, a share {shares} of "
+              f"each; whole over d at the layer's forward {gathered}; the "
+              f"exchange on the experts' ep group "
+              f"{got['ep_group_is_experts']} [{gpu_line}]", flush=True)
+        check(ok and worst <= PARITY_RTOL, f"phase 21 (a): Mixtral on "
+                                           f"{spec} differs from one device")
+        check(placed and table and gathered,
+              f"phase 21 (a): the experts' layout on {spec}")
+        check(got["ep_group_is_experts"] in (None, True),
+              f"phase 21 (a): the ep exchange's group on {spec}")
+
+
+def experts_mesh_rank(spec):
+    """(b) on this rank: Mixtral-8x7B widths (fp32, TF32 off) on
+    MeshSpec(**spec) in a world of cards: the experts' placement (mesh
+    dims, placements, local shapes against the table's shard, bytes a
+    rank), EXPERTS_MESH_STEPS sgd steps with K1/K2a/K2b counted, peak
+    memory; on rank 0 the same steps on one device and the params'
+    worst error."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from ray_tpu_torch.models import Mixtral, MixtralConfig
+    from ray_tpu_torch.ops.kernels import flash_attention as fa
+    from ray_tpu_torch.parallel import MeshSpec, build_mesh
+    from ray_tpu_torch.parallel.collectives import data_size
+    from ray_tpu_torch.parallel.sharding import axis_sizes, full_tensor
+    from ray_tpu_torch.train import make_optimizer, make_train_step
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = build_mesh(MeshSpec(**spec), device="cuda")
+    sizes = axis_sizes(mesh)
+    cfg = MixtralConfig.mixtral_8x7b(n_layers=EXPERTS_MESH_LAYERS,
+                                     dtype=torch.float32,
+                                     param_dtype=torch.float32, remat=False)
+    tokens = np.random.RandomState(26).randint(0, cfg.vocab_size, (
+        EXPERTS_MESH_ROWS * data_size(mesh), EXPERTS_MESH_SEQ + 1))
+    batch = {"tokens": torch.from_numpy(tokens).to("cuda")}
+    torch.cuda.reset_peak_memory_stats()
+    model = Mixtral(cfg, device="cuda", seed=26)
+    whole = sum(p.numel() * p.element_size()
+                for n, p in model.named_parameters() if ".experts_" in n)
+    state, step = make_train_step(model, make_optimizer(
+        "sgd", learning_rate=0.1), mesh)(batch)
+    layout, held = {}, 0
+    for name, p in model.named_parameters():
+        if ".experts_" not in name:
+            continue
+        local = p.to_local() if isinstance(p, DTensor) else p
+        held += local.numel() * local.element_size()
+        layout[name] = {
+            "dims": list(p.device_mesh.mesh_dim_names)
+            if isinstance(p, DTensor) else None,
+            "placements": repr(tuple(p.placements))
+            if isinstance(p, DTensor) else None,
+            "local": list(local.shape),
+            "table": table_shard(name, p.shape, sizes)}
+    zero_counters(fa)
+    rows = []
+    for _ in range(EXPERTS_MESH_STEPS):
+        state, m = step(state, batch)
+        rows.append((float(m["loss"]), float(m["grad_norm"])))
+    torch.cuda.synchronize()
+    launches = read_counters(fa)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    trained = {k: full_tensor(v).detach()
+               for k, v in model.state_dict().items()}
+    del state, step, model
+    out = {"mesh": rows, "launches": launches, "layout": layout,
+           "held": held, "whole": whole, "peak_gib": peak_gib}
+    if dist.get_rank() != 0:
+        del trained
+        release(torch)
+        return out
+    release(torch)
+    single = Mixtral(cfg, device="cuda", seed=26)
+    sstate, sstep = make_train_step(single, make_optimizer(
+        "sgd", learning_rate=0.1))(batch)
+    rows_single = []
+    for _ in range(EXPERTS_MESH_STEPS):
+        sstate, m = sstep(sstate, batch)
+        rows_single.append((float(m["loss"]), float(m["grad_norm"])))
+    worst = 0.0
+    for k, v in single.state_dict().items():
+        err = (trained[k] - v).abs() - PARALLEL_ATOL
+        worst = max(worst, float((err / v.abs().clamp(min=1e-30)).max()))
+    del sstate, sstep, single, trained
+    release(torch)
+    out.update(single=rows_single, worst_rel=worst)
+    return out
+
+
+def phase_experts_fsdp(torch, gpu_line):
+    """21. the experts in FSDP2: (a) the layouts in 4 gloo CPU ranks, (b)
+    the Mixtral step on the cards through K1/K2a/K2b, after K1 and K2 are
+    held against their plain versions at its attention's shape. Returns
+    (b)'s launches (rank 0's; every rank's are checked)."""
+    from ray_tpu_torch.train.backend import launch
+    t_phase = time.time()
+    experts_fsdp_check(gpu_line)
+    t_a = time.time() - t_phase
+    n = torch.cuda.device_count()
+    spec = dict(fsdp=2, ep=n // 2) if n >= 4 and n % 2 == 0 else dict(ep=n)
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    shape = (EXPERTS_MESH_ROWS, EXPERTS_MESH_SEQ, True, 32, 8, 128)
+    k1_check(torch, gen, *shape, "float32")
+    k2_check(torch, gen, *shape, torch.float32)
+    release(torch)
+    res = launch(experts_mesh_rank, n, "cuda", spec, timeout_s=900,
+                 spawn=n > 1)
+    r0 = res[0]
+    ok = all(abs(a - b) <= PARITY_RTOL * abs(b)
+             for g, c in zip(r0["mesh"], r0["single"]) for a, b in zip(g, c))
+    dims = ["fsdp"] + [a for a in ("ep", "tp") if spec.get(a, 1) > 1]
+    if dims == ["fsdp"]:
+        dims.append("ep")                 # the degenerate mesh keeps ep
+    name = next(iter(r0["layout"]))
+    gib = 2.0**30
+    split = spec.get("ep", 1) * spec.get("tp", 1)
+    print(f"phase 21: (b) Mixtral-8x7B widths, {EXPERTS_MESH_LAYERS} fp32 "
+          f"layers (TF32 off), MeshSpec({spec}) on {n} card(s), "
+          f"{EXPERTS_MESH_ROWS} x {EXPERTS_MESH_SEQ + 1} tokens a data "
+          f"rank, {EXPERTS_MESH_STEPS} sgd steps: (loss, grad_norm) mesh "
+          f"{r0['mesh']} one device {r0['single']}, within rtol "
+          f"{PARITY_RTOL}: {ok}; params worst (|err| - {PARALLEL_ATOL}) / "
+          f"|single| {r0['worst_rel']:.3g}; {name} on "
+          f"{r0['layout'][name]['dims']} {r0['layout'][name]['placements']}"
+          f", local {r0['layout'][name]['local']} (the table's "
+          f"{r0['layout'][name]['table']}); experts a rank "
+          f"{[round(r['held'] / gib, 3) for r in res]} GiB of "
+          f"{r0['whole'] / gib:.3f} (whole over d, as before this layout: "
+          f"{r0['whole'] / split / gib:.3f}); peak memory a rank "
+          f"{[round(r['peak_gib'], 2) for r in res]} GiB; launches per rank "
+          f"{[r['launches'] for r in res]} [{gpu_line}]", flush=True)
+    check(ok, "phase 21 (b): the Mixtral mesh step's metrics differ from "
+              "one device's")
+    check(r0["worst_rel"] <= PARITY_RTOL,
+          "phase 21 (b): the Mixtral mesh step's params differ from one "
+          "device's")
+    want = EXPERTS_MESH_LAYERS * EXPERTS_MESH_STEPS
+    for rank, r in enumerate(res):
+        check(all(v["dims"] == dims and v["local"] == v["table"]
+                  for v in r["layout"].values()),
+              f"phase 21 (b): rank {rank}'s experts {r['layout']}")
+        check(r["launches"] == {"flash_fwd (K1)": want,
+                                "flash_bwd_dq (K2a)": want,
+                                "flash_bwd_dkv (K2b)": want},
+              f"phase 21 (b): rank {rank} launched {r['launches']}")
+    print(f"phase 21: the experts in FSDP2: phase wall "
+          f"{time.time() - t_phase:.1f} s ((a) {t_a:.1f} s) [{gpu_line}]",
+          flush=True)
+    return r0["launches"]
 
 
 def check_spills(build) -> None:
@@ -6686,12 +6898,14 @@ def main() -> None:
                                       tune_want[FRONT_JOB_LR]))
     launches.update(phase_pinned_and_rest(torch, gpu_line, parity))
     launches.update(phase_parallel_rest(torch, gpu_line, parallel_ms))
+    launches["experts-fsdp"] = phase_experts_fsdp(torch, gpu_line)
 
     # each kernel's launches on the main paths (the serve bursts, train,
     # GRPO full, LoRA, the north star's and the mesh train step, the
-    # pinned routes, the workflow and the fractional actors, and the sp
-    # chunks, the sp mesh step and the MoE dispatch); K4 is on none: no
-    # model calls it, as in the reference
+    # pinned routes, the workflow and the fractional actors, the sp
+    # chunks, the sp mesh step, the MoE dispatch and the Mixtral step
+    # with its experts in FSDP2); K4 is on none: no model calls it, as
+    # in the reference
     for r in rows:
         by_path = {p: n[r["name"]] for p, n in launches.items()
                    if r["name"] in n}

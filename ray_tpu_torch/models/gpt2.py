@@ -22,7 +22,9 @@ permutation would show in `named_parameters()`, and so in the train
 step's state, the optimizer's moments and every checkpoint written from
 them; the strided DTensor is the unpermuted (3 d, d) weight everywhere
 (`parallel.sharding.full_tensor`, FSDP2 over its columns,
-`restore_pytree(shardings=)`).
+`restore_pytree(shardings=)`). Under fsdp the bias stays out of FSDP2,
+whole over fsdp as the reference's table (P()) has it: FSDP2 would
+split again the one dim that tp splits three ways.
 Under a published sp mesh the input is this rank's sequence chunk:
 `wpe` at its global positions, attention over the K/V gathered over sp.
 """

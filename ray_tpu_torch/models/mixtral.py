@@ -6,8 +6,10 @@ dispatch of the reference: capacity comes from the call's B * S tokens
 (on a mesh, the global batch's, its sequence over sp under a published
 sp mesh), so the tokens an expert drops depend on the shape the caller
 runs (the engine's bucket padding and idle decode slots included). On
-a mesh the experts are sharded over ep and their ff dim over tp
-(parallel/sharding.py): each tp rank runs the same dispatch and its ff
+a mesh the experts are sharded over ep, their ff dim over tp and, by
+FSDP2, their d dim over fsdp (parallel/sharding.py): FSDP2 gathers the
+d dim in the block's pre-forward, so `MoEMLP.forward` reads this rank's
+experts whole over d; each tp rank runs the same dispatch and its ff
 slice of every expert, and the down product's partial sums are
 all-reduced over tp. The stacked
 expert weights keep flax's layout, `experts_{gate,up}_kernel` (E, d,
@@ -112,8 +114,8 @@ class MoEMLP(nn.Module):
                                                             dtype=pd))
         self.router_loss: Optional[torch.Tensor] = None
         # the DeviceMesh of parallel.sharding.shard_module: the capacity
-        # and queue positions of the global batch, experts over ep and
-        # their ff dim over tp
+        # and queue positions of the global batch, and the ep group of
+        # the exchange (that of the experts' own (fsdp, ep[, tp]) mesh)
         self.moe_mesh = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -20,8 +20,11 @@ bit for bit up to that sum's order. On one rank the expert batches are
 the reference's (E, C, d). On a mesh a rank holds only its own kept
 rows, E batches of the longest of its experts' queues; under ep it
 sends each expert rank only the rows for that rank's experts
-(`all_to_all_v`, the split sizes exchanged first), and the outputs come
-back the same way. The aux losses are fp32.
+(`all_to_all_v` on the mesh's ep group, the split sizes exchanged
+first), and the outputs come back the same way. That group is the ep
+dim of the experts' own (fsdp, ep) mesh (parallel/sharding.py), and
+FSDP2 has gathered each rank's experts whole over d before `expert_fn`
+runs. The aux losses are fp32.
 """
 from __future__ import annotations
 

@@ -68,10 +68,34 @@ def _model(case, dev):
     return model
 
 
+def _expert_shapes_at_forward(model) -> Dict[str, list]:
+    """Forward pre-hooks on the MoE layers that record, the first time
+    each runs, the local shape of each stacked expert weight as the
+    grouped expert product will read it (after FSDP2's all-gather)."""
+    seen: Dict[str, list] = {}
+    for name, m in model.named_modules():
+        if not hasattr(m, "moe_mesh"):
+            continue
+
+        def hook(mod, args, name=name):
+            for p, w in mod.named_parameters(recurse=False):
+                if p.startswith("experts_") and f"{name}.{p}" not in seen:
+                    local = w.to_local() if isinstance(w, DTensor) else w
+                    seen[f"{name}.{p}"] = list(local.shape)
+
+        m.register_forward_pre_hook(hook)
+    return seen
+
+
 def train_cases(cases: List[Dict[str, Any]]):
     """For each case: `make_train_step` on MeshSpec(**case["spec"]) for
     its batches; per step loss, grad_norm and ntokens, then the whole
-    params and the element count of rank 0's shard of each."""
+    params and, of rank 0's shard of each, the element count, the local
+    shape, the DTensor's mesh dims and placements. For a MoE model,
+    each stacked expert weight's local shape when its layer's forward
+    starts (`at_forward`), and whether the ep exchange's group
+    (`moe_mesh`'s ep) holds the ranks of the ep dim of the experts'
+    own mesh."""
     from ..train import make_optimizer, make_train_step
     out = []
     for case in cases:
@@ -82,16 +106,34 @@ def train_cases(cases: List[Dict[str, Any]]):
         batches = [_batch(b, dev) for b in case["batches"]]
         state, step = make_train_step(
             model, tx, mesh, accum_steps=case.get("accum", 1))(batches[0])
+        at_forward = _expert_shapes_at_forward(model)
         rows = []
         for b in batches:
             state, m = step(state, b)
             rows.append({k: float(m[k]) for k in ("loss", "grad_norm",
                                                   "ntokens")})
-        params = {k: _np(v) for k, v in model.state_dict().items()}
-        local = {k: (v.to_local() if isinstance(v, DTensor) else v).numel()
-                 for k, v in model.state_dict().items()}
-        out.append(_rank0({"metrics": rows, "params": params,
-                           "local_numel": local}))
+        sd = model.state_dict()
+        params = {k: _np(v) for k, v in sd.items()}
+
+        def local(v):
+            return v.to_local() if isinstance(v, DTensor) else v
+
+        dtensors = {k: v for k, v in sd.items() if isinstance(v, DTensor)}
+        ep_ranks = {k: dist.get_process_group_ranks(
+            v.device_mesh.get_group("ep")) for k, v in dtensors.items()
+            if "ep" in v.device_mesh.mesh_dim_names}
+        out.append(_rank0({
+            "metrics": rows, "params": params,
+            "local_numel": {k: local(v).numel() for k, v in sd.items()},
+            "local_shape": {k: list(local(v).shape) for k, v in sd.items()},
+            "mesh_dims": {k: list(v.device_mesh.mesh_dim_names)
+                          for k, v in dtensors.items()},
+            "placements": {k: repr(tuple(v.placements))
+                           for k, v in dtensors.items()},
+            "at_forward": at_forward,
+            "ep_group_is_experts": all(
+                r == dist.get_process_group_ranks(mesh.get_group("ep"))
+                for r in ep_ranks.values()) if ep_ranks else None}))
     return out
 
 

@@ -26,18 +26,26 @@ replication where an axis does not divide a dim.
   (3 d, d) shape and its row order in `state_dict()`, the optimizer's
   moments and checkpoints (`full_tensor` below gives the unsharded
   weight), so nothing outside the block knows; the block computes on
-  the local rows (models/gpt2.py). FSDP2 shards the weight's columns
-  and leaves the bias out: sharding the rows that tp splits three ways
-  again would nest two strided layouts.
+  the local rows (models/gpt2.py). FSDP2 shards the weight's columns,
+  which makes its shard the table's. The bias stays out of FSDP2, whole
+  over fsdp as the table's P() has it: its one dim is the one tp splits
+  three ways, and FSDP2 would split it again, nesting two strided
+  layouts; over tp it holds its third of each of q, k and v, which the
+  block's local rows need.
 - ep and tp on the experts: the stacked expert weights are sharded over
   ep on dim 0 (each ep rank holds E / ep experts) and over tp on their
   ff dim ((E, d, ff) on dim 2, (E, ff, d) on dim 1), one DTensor on the
-  (ep, tp) mesh. Under ep they are left out of FSDP2 (ep is a data
-  axis: the train step sums their gradients), so the table's fsdp on
-  their d dim is not applied there (each data rank holds its experts
-  whole over d); at ep 1 the tp-split experts go into FSDP2, their d
-  dim over fsdp, as the tp-planned projections do.
-  ops/moe.py moves the tokens to them with all-to-all, and each tp rank
+  mesh of those axes (ep alone when both are 1), and FSDP2 takes that
+  DTensor with the block's other parameters and shards its d dim over
+  fsdp: each rank holds the table's shard, P("ep", "fsdp", "tp") of
+  gate/up and P("ep", "tp", "fsdp") of down, on an (fsdp, ep[, tp])
+  mesh ((dp, fsdp, ep[, tp]) under HSDP). FSDP2 gathers them over fsdp
+  in the block's pre-forward, before the grouped expert product, and
+  reduce-scatters their gradients over fsdp; ep is a data axis whose
+  exchange already summed them over ep, so the train step adds only sp
+  (train/spmd.py `_summed_over`). ops/moe.py moves the tokens to them
+  with all-to-all on the ep group of that mesh (the mesh's own ep
+  group: a sub-mesh shares its parent's groups), and each tp rank
   computes its ff slice, the down product's partial sums all-reduced
   over tp (models/mixtral.py).
 - fsdp: `fully_shard` per block, then the root, on the dim the table
@@ -379,31 +387,35 @@ def _apply_tp(model: nn.Module, mesh, rules: ShardingRules) -> set:
 
 
 def _apply_experts(model: nn.Module, mesh, rules: ShardingRules) -> set:
-    """The stacked experts (the table's ep entries) over ep on dim 0 and
-    tp on their ff dim, where those axes divide; returns the parameters
-    FSDP leaves out: those sharded over ep (ep is a data axis, so their
-    gradients are summed by the train step). Experts split over tp alone
-    go into FSDP2 with their d dim over fsdp, as the tp-planned
-    projections do."""
-    from torch.distributed.tensor import Shard, distribute_tensor
-    ignored = set()
+    """The stacked experts (the table's ep entries) as DTensors over ep
+    on dim 0 and tp on their ff dim, on the mesh of those two axes that
+    are larger than one (ep alone when neither is: the degenerate mesh
+    still takes this path). An axis the table gives a dim that it does
+    not divide replicates; on an axis of size one the table's dim is
+    kept (a shard of one is the whole). Returns them: shard_module hands
+    them to FSDP2 with the other parameters, which adds fsdp on their d
+    dim (the table's, at fsdp 1 too): the parameter FSDP2 holds is a
+    DTensor on (fsdp, ep[, tp]), and with dp > 1 on (dp, fsdp, ep[,
+    tp])."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    sizes = axis_sizes(mesh)
+    axes = tuple(a for a in ("ep", "tp") if sizes[a] > 1) or ("ep",)
+    sub = mesh[axes[0]] if len(axes) == 1 else mesh[axes]
+    experts = set()
     for mod_name, m in model.named_modules():
         for pname, p in list(m.named_parameters(recurse=False)):
             full = f"{mod_name}.{pname}" if mod_name else pname
-            if dim_of(rules._match(full), "ep") is None:
+            table = rules._match(full)
+            if dim_of(table, "ep") is None:
                 continue
             spec = rules.spec_for(full, tuple(p.shape), mesh)
-            axes = tuple(a for a in ("ep", "tp")
-                         if dim_of(spec, a) is not None)
-            if not axes:
-                continue
-            sub = mesh[axes[0]] if len(axes) == 1 else mesh[axes]
+            dims = [dim_of(spec if sizes[a] > 1 else table, a) for a in axes]
             q = nn.Parameter(distribute_tensor(
-                p.data, sub, [Shard(dim_of(spec, a)) for a in axes]))
+                p.data, sub, [Replicate() if d is None else Shard(d)
+                              for d in dims]))
             setattr(m, pname, q)
-            if "ep" in axes:
-                ignored.add(q)
-    return ignored
+            experts.add(q)
+    return experts
 
 
 def data_mesh(mesh):
@@ -432,8 +444,7 @@ def shard_module(model: nn.Module, mesh,
             f"is taken by parallel.pipeline_train.PipelinedLM")
     strided = _apply_tp(model, mesh, rules) if sizes["tp"] > 1 else set()
     ignored = {p for p in strided if p.ndim == 1}
-    if sizes["ep"] > 1 or sizes["tp"] > 1:
-        ignored |= _apply_experts(model, mesh, rules)
+    experts = _apply_experts(model, mesh, rules)
     for m in model.modules():
         if hasattr(m, "moe_mesh"):
             m.moe_mesh = mesh
@@ -443,6 +454,8 @@ def shard_module(model: nn.Module, mesh,
         if p in strided:      # tp holds the rows: fsdp takes the columns
             return Shard(1)
         spec = rules.spec_for(names[p], tuple(p.shape), mesh)
+        if p in experts and sizes["fsdp"] == 1:
+            spec = rules._match(names[p])     # their d dim, as on ep and tp
         dim = dim_of(spec, "fsdp")
         return Shard(dim if dim is not None else 0)
 

@@ -218,13 +218,17 @@ def state_layout(state: TrainState) -> Dict[str, Any]:
             "opt_state": {"state": {i: like(p) for i, p in enumerate(order)}}}
 
 
-def _outside_fsdp(p) -> bool:
-    """A parameter shard_module leaves out of FSDP2, replicated over the
-    data axes (the stacked experts under ep, GPT-2's tp-strided
-    qkv bias): a DTensor on a mesh of those axes only (FSDP2's
-    parameters live on meshes with a data axis)."""
-    return (isinstance(p, DTensor)
-            and set(p.device_mesh.mesh_dim_names) <= {"ep", "tp"})
+def _summed_over(p) -> Tuple[str, ...]:
+    """The mesh axes a parameter's gradient is already summed (or, by
+    FSDP2, averaged) over when the backward ends: those of its DTensor's
+    mesh. FSDP2's parameters live on meshes with its data axes (fsdp,
+    and dp under HSDP), which it reduces; the stacked experts also on
+    ep, whose exchange brought every ep rank's tokens to the rank that
+    holds them; tp splits the work of one batch and is no data axis. A
+    parameter outside FSDP2 (GPT-2's tp-strided qkv bias) lives on the
+    tp mesh alone and is reduced over every data axis by the step."""
+    return (tuple(p.device_mesh.mesh_dim_names) if isinstance(p, DTensor)
+            else ())
 
 
 def _mesh_train_step(model, tx, mesh, loss_fn, rules, accum_steps):
@@ -244,11 +248,12 @@ def _mesh_train_step(model, tx, mesh, loss_fn, rules, accum_steps):
     all-reduced over the data ranks and sp, and every gradient scaled
     so that it is d(sum)/N over the whole batch, whatever each rank's
     mask holds. FSDP2 averages over its data mesh (dp x fsdp), hence the
-    factor of that mesh's size; ep and sp ranks hold their own tokens
-    with the parameters replicated over those axes, so the FSDP2
-    parameters' gradients are summed over ep and sp, and those outside
-    FSDP2 (the experts) over dp, fsdp and sp. Metrics (loss, ntokens, ppl
-    and grad_norm) are the global values on every rank."""
+    factor of that mesh's size; ep and sp ranks hold their own tokens,
+    so each gradient is then summed over the data axes and sp that it
+    is not summed over yet (`_summed_over`): a dense parameter's over ep
+    and sp, an expert's over sp (ep was its exchange's), and one outside
+    FSDP2 over dp, fsdp, ep and sp. Metrics (loss, ntokens, ppl and
+    grad_norm) are the global values on every rank."""
     from ..parallel.collectives import all_reduce_axes_
     from ..parallel.sharding import (activation_mesh, batch_sharding,
                                      data_mesh, shard_module)
@@ -276,19 +281,22 @@ def _mesh_train_step(model, tx, mesh, loss_fn, rules, accum_steps):
                 totals = row if totals is None else totals + row
         all_reduce_axes_([totals], mesh, ("dp", "fsdp", "ep", "sp"))
         n_tok = torch.clamp(totals[0], min=1.0)
-        outside = [p for p in params
-                   if _outside_fsdp(p) and p.grad is not None]
-        others = [p.grad.to_local() if isinstance(p.grad, DTensor)
-                  else p.grad for p in params
-                  if p.grad is not None and not _outside_fsdp(p)]
-        all_reduce_axes_(others, mesh, ("ep", "sp"))
-        all_reduce_axes_([p.grad.to_local() for p in outside], mesh,
-                         ("dp", "fsdp", "sp"))
+        # each gradient summed over the axes it is not summed over yet,
+        # then scaled to d(sum)/N (FSDP2's means back to sums)
+        by_axes: Dict[Tuple[str, ...], list] = {}
+        for p in params:
+            if p.grad is not None:
+                done = _summed_over(p)
+                g = p.grad
+                by_axes.setdefault(tuple(
+                    a for a in ("dp", "fsdp", "ep", "sp") if a not in done),
+                    []).append((g.to_local() if isinstance(g, DTensor)
+                                else g, fsdp_ranks if "fsdp" in done else 1))
         with torch.no_grad():
-            for g in others:
-                g.mul_(fsdp_ranks / n_tok)
-            for p in outside:
-                p.grad.to_local().div_(n_tok)
+            for axes, grads in by_axes.items():
+                all_reduce_axes_([g for g, _ in grads], mesh, axes)
+                for g, scale in grads:
+                    g.mul_(scale / n_tok)
         metrics = {k: totals[i + 1] / n_tok for i, k in enumerate(keys)}
         metrics["ntokens"] = totals[0]
         if "loss" in metrics:

@@ -446,7 +446,10 @@ def test_build_log_belongs_to_its_library():
 
 
 def _run_python(code, env=None):
-    return subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+    # -X faulthandler: a process that dies of a signal leaves its stack
+    # in stderr, which each guard prints when the return code is not 0
+    return subprocess.run([sys.executable, "-X", "faulthandler", "-c", code],
+                          cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
 
 
@@ -638,7 +641,8 @@ def test_cpp_task_and_grpc_proxy_workers_import_no_jax_and_no_ray_tpu(
         "print(out, repr(visible), port > 0)\n"
         "print(' '.join(cpp_mods))\n"
         "print(' '.join(proxy_mods))\n")
-    res = subprocess.run([sys.executable, "-c", code, str(lib)],
+    res = subprocess.run([sys.executable, "-X", "faulthandler", "-c", code,
+                          str(lib)],
                          capture_output=True, text=True, timeout=300,
                          cwd=REPO, env=dict(os.environ, RAY_TPU_GPUS="1"))
     assert res.returncode == 0, res.stderr

@@ -1,5 +1,6 @@
-"""GPT-2's fused qkv under tp, the experts under tp and the MoE dispatch
-sized to a rank, on the port against the JAX package, on the CPU.
+"""GPT-2's fused qkv under tp, the experts under ep, tp and fsdp, and
+the MoE dispatch sized to a rank, on the port against the JAX package,
+on the CPU.
 
 One world of 4 gloo ranks (`train.backend.launch`) runs every mesh
 case; the JAX step runs on the same MeshSpec over 4 of the 8 virtual
@@ -7,9 +8,16 @@ CPU devices from the same params (the JAX init, converted) and batches
 made from a seed. Loss and grad_norm agree to rtol 1e-4 each step,
 ntokens exactly, and the params after 3 sgd steps to rtol 1e-4 (atol
 1e-6), as tests/test_torch_parallel.py holds its cases. Cases: GPT-2 at
-tp 4 and at fsdp 2 x tp 2; Mixtral at ep 2 x tp 2 and at fsdp 2 x tp 2
-at capacity factor 1.0 (tokens drop), with its experts split over
-both fsdp and tp in the latter, and its aux losses at ep 2 x tp 2 (each layer's router loss,
+tp 4 and at fsdp 2 x tp 2; Mixtral at fsdp 2 x ep 2, ep 2 x tp 2 and
+fsdp 2 x tp 2 at capacity factor 1.0 (tokens drop). On every Mixtral
+mesh the experts are in FSDP2: each rank's shard is the one the
+reference's table gives its jax array (the JAX state's shard shapes,
+through the converter), on an (fsdp, ep[, tp]) mesh, gathered whole
+over d when its layer's forward starts, and the ep exchange runs on
+the ep group of that mesh. GPT-2's qkv at fsdp 2 x tp 2 against the
+table: the weight's shard is the table's, the bias is whole over fsdp
+as the table's P() has it (split over tp, the deliberate difference).
+Mixtral's aux losses at ep 2 x tp 2 (each layer's router loss,
 the global batch's on every rank, against the JAX Mixtral's sown
 `aux_loss` to rtol 1e-5, and the router kernels' gradients from one
 mesh step of the loss plus the aux loss to rtol 1e-4, atol 1e-7).
@@ -59,7 +67,10 @@ CASES = {
                             spec=dict(ep=2, tp=2), seed=302),
     "mixtral_fsdp2_tp2": dict(model="mixtral", cfg=MIXTRAL,
                               spec=dict(fsdp=2, tp=2), seed=303),
+    "mixtral_fsdp2_ep2": dict(model="mixtral", cfg=MIXTRAL,
+                              spec=dict(fsdp=2, ep=2), seed=304),
 }
+MIXTRAL_CASES = ["mixtral_fsdp2_ep2", "mixtral_ep2_tp2", "mixtral_fsdp2_tp2"]
 
 
 def _np(tree):
@@ -82,6 +93,15 @@ def _jax_init(c, batches):
                             {"tokens": jnp.asarray(batches[0]["tokens"])})
     params = {k: v.numpy() for k, v in convert(_np(state.params)).items()}
     return params, state, step
+
+
+def _reference_shards(model, state):
+    """Each leaf's shard shape on one device under the reference's
+    table, under the port's name and in its layout (a tree of zeros of
+    those shapes through the family's converter)."""
+    zeros = jax.tree.map(lambda a: np.zeros(
+        a.sharding.shard_shape(a.shape), np.float32), state.params)
+    return {k: list(v.shape) for k, v in FAMILIES[model][2](zeros).items()}
 
 
 def _jax_steps(model, state, step, batches):
@@ -122,13 +142,14 @@ def _aux_want(jparams, tokens):
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    cases, jax_side = {}, {}
+    cases, jax_side, ref_shards = {}, {}, {}
     for name, c in CASES.items():
         batches = _tokens(c["seed"], c["cfg"]["vocab_size"])
         params, state, step = _jax_init(c, batches)
         cases[name] = dict(model=c["model"], cfg=c["cfg"], spec=c["spec"],
                            opt="sgd", lr=0.1, batches=batches, params=params)
         jax_side[name] = (state, step)
+        ref_shards[name] = _reference_shards(c["model"], state)
     mix = cases["mixtral_ep2_tp2"]
     aux = dict(mix, tokens=mix["batches"][0]["tokens"])
     root = tmp_path_factory.mktemp("tp_ckpt")
@@ -157,7 +178,8 @@ def runs(tmp_path_factory):
     assert "out" in port, "the 4-rank world did not return"
     trained, aux_out, ckpt, layout = port["out"]
     return {"want": want, "got": dict(zip(CASES, trained)),
-            "aux": (want_aux, aux_out), "ckpt": ckpt, "layout": layout}
+            "aux": (want_aux, aux_out), "ckpt": ckpt, "layout": layout,
+            "ref_shards": ref_shards}
 
 
 @pytest.mark.parametrize("name", list(CASES))
@@ -183,6 +205,80 @@ def test_mixtral_experts_shard_over_fsdp_and_tp(runs):
     assert experts
     for k in experts:
         assert got["local_numel"][k] * 4 == got["params"][k].size, k
+
+
+def _experts(got):
+    names = [k for k in got["params"] if ".experts_" in k]
+    assert len(names) == 3 * MIXTRAL["n_layers"]
+    return names
+
+
+@pytest.mark.parametrize("name", MIXTRAL_CASES)
+def test_mixtral_expert_shards_match_reference_table(runs, name):
+    """The experts are in FSDP2 on every mesh: a DTensor on fsdp and on
+    the model axes that split them (ep, and tp where it is > 1), fsdp on
+    their d dim and ep on the expert dim, and each rank's shard has the
+    shape the reference's table gives it (P("ep", "fsdp", "tp") for
+    gate/up, P("ep", "tp", "fsdp") for down)."""
+    got, ref = runs["got"][name], runs["ref_shards"][name]
+    spec = CASES[name]["spec"]
+    dims = ["fsdp"] + [a for a in ("ep", "tp") if spec.get(a, 1) > 1]
+    e, d, ff = (MIXTRAL[k] for k in ("n_experts", "d_model", "d_ff"))
+    for k in _experts(got):
+        assert got["local_shape"][k] == ref[k], k
+        assert got["mesh_dims"][k] == dims, k
+        whole = [e, d, ff] if ".experts_down" not in k else [e, ff, d]
+        fsdp_dim = 1 if ".experts_down" not in k else 2
+        want = list(whole)
+        want[0] //= spec.get("ep", 1)
+        want[fsdp_dim] //= spec.get("fsdp", 1)
+        want[3 - fsdp_dim] //= spec.get("tp", 1)
+        assert got["local_shape"][k] == want, k
+    ranks = 1
+    for v in spec.values():
+        ranks *= v
+    held = sum(got["local_numel"][k] for k in _experts(got))
+    assert held * ranks == sum(got["params"][k].size for k in _experts(got))
+
+
+@pytest.mark.parametrize("name", MIXTRAL_CASES)
+def test_mixtral_experts_gathered_before_the_expert_product(runs, name):
+    """When each MoE layer's forward starts, FSDP2 has gathered its
+    experts over fsdp: the grouped product reads each rank's experts
+    (E / ep) whole over d, their ff dim split over tp."""
+    got = runs["got"][name]
+    spec = CASES[name]["spec"]
+    e, d, ff = (MIXTRAL[k] for k in ("n_experts", "d_model", "d_ff"))
+    e, ff = e // spec.get("ep", 1), ff // spec.get("tp", 1)
+    assert sorted(got["at_forward"]) == sorted(_experts(got))
+    for k, shape in got["at_forward"].items():
+        assert shape == ([e, ff, d] if ".experts_down" in k else [e, d, ff])
+
+
+@pytest.mark.parametrize("name", ["mixtral_fsdp2_ep2", "mixtral_ep2_tp2"])
+def test_mixtral_ep_exchange_runs_on_the_experts_ep_group(runs, name):
+    assert runs["got"][name]["ep_group_is_experts"] is True
+
+
+def test_gpt2_qkv_bias_layout_against_the_reference_table(runs):
+    """GPT-2 at fsdp 2 x tp 2: the reference's table replicates the qkv
+    bias (`.*bias$`: P()). The port keeps it whole over fsdp, as the
+    table does, outside FSDP2: its one dim is the one tp splits three
+    ways (`_StridedShard(0, 3)`, which the block's local rows need), and
+    FSDP2 would split that dim again. Over tp it holds a half, the
+    deliberate difference. The qkv weight is in FSDP2 over its columns,
+    and its shard is the table's (P("fsdp", "tp") on (d, 3 d))."""
+    got, ref = runs["got"]["gpt2_fsdp2_tp2"], runs["ref_shards"]["gpt2_fsdp2_tp2"]
+    d = GPT2["d_model"]
+    for i in range(GPT2["n_layers"]):
+        bias, weight = f"h_{i}.qkv.bias", f"h_{i}.qkv.weight"
+        assert ref[bias] == [3 * d]
+        assert got["mesh_dims"][bias] == ["tp"]
+        assert got["placements"][bias] == "(_StridedShard(dim=0, sf=3),)"
+        assert got["local_shape"][bias] == [3 * d // 2]
+        assert got["mesh_dims"][weight] == ["fsdp", "tp"]
+        assert got["local_shape"][weight] == ref[weight] == [3 * d // 2,
+                                                             d // 2]
 
 
 def test_mixtral_aux_losses_over_ep_tp_are_global(runs):
