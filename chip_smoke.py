@@ -1110,7 +1110,7 @@ def timed_burst(torch, engine, warm, run, plens, label, gpu_line, vocab):
     fa.flash_attention_fwd.launches = 0
     pa.paged_decode_attention.launches = 0
     check(len(warm()) == 2, f"{label}: warm-up request failed")
-    engine._ttft_samples.clear()
+    engine._timings.clear()
     engine._tpot_samples.clear()
     before = engine.get_stats()
     t_start = time.time()
@@ -1320,8 +1320,7 @@ def phase_serve(torch, gpu_line):
                    "tpot_p50_ms": tpot_block1,
                    "decode_tok_s": stats["decode_tok_s"]}
     print(f"serve: main-path launches K1 {k1}, K3 {k3} (K1: one per layer "
-          f"per prefill group; K3: one per layer per decode step); prefill "
-          f"groups first dispatch ms {stats['prefill_first_dispatch_ms']}",
+          f"per prefill group; K3: one per layer per decode step)",
           flush=True)
     gpu_profile(torch, lambda: burst(server, bodies), "serve-profile",
                 gpu_line)
@@ -3911,7 +3910,7 @@ def serve_deploy_server_cls():
             return out
 
         def clear_samples(self, _body=None):
-            self.engine._ttft_samples.clear()
+            self.engine._timings.clear()
             self.engine._tpot_samples.clear()
             return True
 

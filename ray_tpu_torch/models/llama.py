@@ -26,6 +26,7 @@ from torch.nn.utils.stateless import _reparametrize_module
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from ..observability.profiler import annotate
 from ..ops import (apply_rotary, cached_attention, multi_head_attention,
                    rms_norm, rope_frequencies, sequence_parallel_attention,
                    swiglu)
@@ -135,6 +136,10 @@ class LlamaAttention(nn.Module):
         self.kv_group = None
 
     def forward(self, x, cos, sin, cache=None, positions=None):
+        with annotate("attn"):
+            return self._forward(x, cos, sin, cache, positions)
+
+    def _forward(self, x, cos, sin, cache, positions):
         from ..parallel.collectives import all_gather_seq
         from ..parallel.sharding import sequence_shard
         hd = self.cfg.head_dim

@@ -34,6 +34,7 @@ import torch
 from torch import nn
 from torch.distributed.tensor import DTensor
 
+from ..observability.profiler import annotate
 from ..ops import rms_norm, rope_frequencies, swiglu
 from ..ops.linear import Dense
 from ..ops.attention import check_attn_impl
@@ -125,7 +126,8 @@ class MoEMLP(nn.Module):
         dt = cfg.dtype
         b, s, d = x.shape
         tokens = x.reshape(b * s, d)
-        router_logits = tokens.float() @ self.router_kernel.float()
+        with annotate("moe.route"):
+            router_logits = tokens.float() @ self.router_kernel.float()
 
         def local(w):   # this rank's experts (and ff slice) when sharded
             return (w.to_local() if isinstance(w, DTensor) else w).to(dt)

@@ -5,23 +5,91 @@ The device side of a perf investigation: CUDA kernel-level traces
 through `torch.profiler` (CUPTI), written as Chrome traces that open in
 Perfetto or chrome://tracing, plus the memory and timing helpers a
 benchmark reads.
+
+The program's spans and counters live here too. `annotate(name)` is a
+span: a `record_function` range while a capture runs on the calling
+thread, and nothing beyond one check otherwise. A span lands in the
+Chrome trace on the clock of the CUPTI kernels, so an idle gap of the
+device can be named by the span open at that moment, whoever started
+the capture. `count(name, n)` adds to a counter under the same gate, so
+a count is kept only while a capture runs on the counting thread; the
+program counts a launch after the call that issues its kernels
+returns, so a launch is counted if and only if its kernels fall inside
+the capture. `counters()` reads them.
+
+torch.profiler records host operations only on the thread that started
+it. The engine's dispatches run on its own loop thread (`llm-engine`),
+so `start_trace(log_dir, engine=engine)` and `trace(..., engine=)`
+start and stop the capture there, through the engine's command queue:
+the trace then holds the engine's spans and the host side of every
+launch it makes. Without `engine=` the capture is the caller's thread's.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import os
 import pickle
 import sys
+import threading
 import time
 from typing import Any, Dict, Optional
 
-# the one capture in flight: (profiler, log_dir)
+# the one capture in flight: (profiler, log_dir, engine or None)
 _active: list = []
+_NO_SPAN = contextlib.nullcontext()
+_counts: Dict[str, int] = collections.Counter()
+_counts_lock = threading.Lock()
 
 
-def start_trace(log_dir: str) -> str:
+def capturing() -> bool:
+    """Whether a torch.profiler capture runs on the calling thread:
+    torch keeps the profiler's state per thread, and a process that
+    never imported torch runs none."""
+    torch = sys.modules.get("torch")
+    return torch is not None and torch.autograd._profiler_enabled()
+
+
+def annotate(name: str):
+    """The program's span: `with annotate("llm.decode"): ...` is a
+    `record_function` range while a capture runs on this thread, and a
+    shared no-op context otherwise."""
+    if not capturing():
+        return _NO_SPAN
+    from torch.profiler import record_function
+    return record_function(name)
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add n to counter `name` while a capture runs on this thread."""
+    if capturing():
+        with _counts_lock:
+            _counts[name] += n
+
+
+def counters(reset: bool = False) -> Dict[str, int]:
+    """The counters kept so far (a copy); `reset` clears them."""
+    with _counts_lock:
+        out = dict(_counts)
+        if reset:
+            _counts.clear()
+    return out
+
+
+def _on_thread_of(engine, fn):
+    """fn() on the engine's loop thread (its command queue) when an
+    engine is given, else here."""
+    if engine is None:
+        return fn()
+    box = []
+    engine._run_on_loop(lambda: box.append(fn()))
+    return box[0]
+
+
+def start_trace(log_dir: str, engine=None) -> str:
     """Begin capturing a CPU + CUDA trace into log_dir (one capture at a
-    time; mirrors jax.profiler.start_trace)."""
+    time; mirrors jax.profiler.start_trace): on the calling thread, or
+    with `engine` (an `LLMEngine`) on its loop thread."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     if _active:
@@ -31,40 +99,41 @@ def start_trace(log_dir: str) -> str:
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     prof = profile(activities=activities)
-    prof.start()
-    _active.append((prof, log_dir))
+    _on_thread_of(engine, prof.start)
+    _active.append((prof, log_dir, engine))
     return log_dir
 
 
 def stop_trace() -> Optional[str]:
-    """End the capture and write it into its log_dir as
+    """End the capture (on the thread that started it, after the device
+    finished what was issued) and write it into its log_dir as
     trace-<pid>-<ns>.json; returns the log_dir (None when no capture
     was running)."""
     if not _active:
         return None
-    prof, log_dir = _active.pop()
-    prof.stop()
+    prof, log_dir, engine = _active.pop()
+
+    def stop():
+        import torch
+        if torch.cuda.is_initialized():
+            torch.cuda.synchronize()
+        prof.stop()
+
+    _on_thread_of(engine, stop)
     prof.export_chrome_trace(os.path.join(
         log_dir, f"trace-{os.getpid()}-{time.time_ns()}.json"))
     return log_dir
 
 
 @contextlib.contextmanager
-def trace(log_dir: str):
-    """with profiler.trace("/tmp/prof"): step(...)"""
-    start_trace(log_dir)
+def trace(log_dir: str, engine=None):
+    """with profiler.trace("/tmp/prof"): step(...); with `engine` the
+    capture runs on its loop thread (start_trace)."""
+    start_trace(log_dir, engine=engine)
     try:
         yield log_dir
     finally:
         stop_trace()
-
-
-@contextlib.contextmanager
-def annotate(name: str):
-    """Named region inside a capture (torch.profiler.record_function)."""
-    from torch.profiler import record_function
-    with record_function(name):
-        yield
 
 
 def device_memory_profile(path: Optional[str] = None) -> bytes:
@@ -129,6 +198,6 @@ def timed_steps(step_fn, state, batch, *, warmup: int = 2,
             "state": state}
 
 
-__all__ = ["start_trace", "stop_trace", "trace", "annotate",
-           "device_memory_profile", "hbm_usage", "host_rss_bytes",
-           "timed_steps"]
+__all__ = ["start_trace", "stop_trace", "trace", "annotate", "count",
+           "counters", "capturing", "device_memory_profile", "hbm_usage",
+           "host_rss_bytes", "timed_steps"]

@@ -47,7 +47,10 @@ logsumexp to merge by and raises.
     path below.
 Each kernel wrapper takes its plain PyTorch version for a CPU tensor
 and launches its CUDA kernel for a CUDA tensor; nothing falls back from
-a kernel to a plain version.
+a kernel to a plain version. While a profiler capture runs on the
+calling thread (observability/profiler.py), the "pallas" route counts
+each call by shape, `k1.launch:B,S,Hq,Hkv,D,causal` (S the query
+length), after it returns.
 
 JAX's functional caches become in-place updates here: the KV pools and
 contiguous caches are written with `index_copy_` / indexed assignment
@@ -61,6 +64,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from ..observability.profiler import capturing, count
 from ..util import knobs
 from .kernels import flash_attention as _fa
 from .kernels.flash_attention import HEAD_DIMS as FLASH_HEAD_DIMS
@@ -155,8 +159,12 @@ def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if segment_ids is not None:
             raise ValueError("impl='pallas' takes no segment_ids (the "
                              "kernel has no segment mask); use impl='xla'")
-        return flash_attention(q.contiguous(), k.contiguous(),
-                               v.contiguous(), causal=causal, scale=scale)
+        out = flash_attention(q.contiguous(), k.contiguous(),
+                              v.contiguous(), causal=causal, scale=scale)
+        if capturing():
+            b, s, hq, d = q.shape
+            count(f"k1.launch:{b},{s},{hq},{k.shape[2]},{d},{int(causal)}")
+        return out
     if impl == "dpa":
         if segment_ids is not None or q.shape[1] != k.shape[1]:
             raise ValueError(

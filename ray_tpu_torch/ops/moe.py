@@ -25,12 +25,21 @@ first), and the outputs come back the same way. That group is the ep
 dim of the experts' own (fsdp, ep) mesh (parallel/sharding.py), and
 FSDP2 has gathered each rank's experts whole over d before `expert_fn`
 runs. The aux losses are fp32.
+
+While a profiler capture runs on the calling thread
+(observability/profiler.py), a call's parts are spans: `moe.route`
+(top-k and queue positions), `moe.dispatch`, `moe.experts` (expert_fn),
+`moe.combine` and `moe.aux` (the aux losses' sums); and the counter
+`moe.rows_computed` adds the rows the experts ran, E x n_slots a call
+(zeros and dropped slots' rows included).
 """
 from __future__ import annotations
 
 from typing import Callable, NamedTuple, Optional
 
 import torch
+
+from ..observability.profiler import annotate, count
 
 
 class MoEAux(NamedTuple):
@@ -151,7 +160,9 @@ def _exchange(x, top_idx, keep, expert_fn, e, ep, group):
     flat = expert * n_slots + row
     batch = rows_in.new_zeros((e_local * n_slots, x.shape[-1]))
     batch[flat] = rows_in
-    out = expert_fn(batch.view(e_local, n_slots, x.shape[-1]))  # (E/ep, n, do)
+    with annotate("moe.experts"):                          # (E/ep, n, do)
+        out = expert_fn(batch.view(e_local, n_slots, x.shape[-1]))
+    count("moe.rows_computed", e_local * n_slots)
     rows_out = out.reshape(e_local * n_slots, out.shape[-1])[flat]
     back = col.all_to_all_v(rows_out, send_splits, recv_splits, group)
     gathered = back.new_zeros((g * k, back.shape[-1]))
@@ -226,50 +237,60 @@ def moe_dispatch_combine(x: torch.Tensor, router_logits: torch.Tensor,
         n_ranks *= col.axis_size(mesh, a)
     c = capacity if capacity is not None else expert_capacity(
         g * n_ranks, e, k, capacity_factor)
-    weights, top_idx, slot, keep, assign = route(
-        router_logits, k, c, mesh=mesh, rows=rows, seq_sharded=seq_sharded)
-    w_kept = torch.where(keep, weights, torch.zeros_like(weights))
+    with annotate("moe.route"):
+        weights, top_idx, slot, keep, assign = route(
+            router_logits, k, c, mesh=mesh, rows=rows,
+            seq_sharded=seq_sharded)
+        w_kept = torch.where(keep, weights, torch.zeros_like(weights))
 
     ep = 1 if mesh is None else col.axis_size(mesh, "ep")
     if ep > 1:
         gathered = _exchange(x, top_idx, keep, expert_fn, e, ep,
                              col.axis_group(mesh, "ep"))
     else:
-        if n_ranks == 1:
-            # one rank holds every token: the reference's (E, C) batches
-            n_slots = c
-        else:
-            # this rank's kept rows only: each expert's batch is as long
-            # as its longest queue here, each row at its place among
-            # this rank's kept rows
-            kept = assign * keep[..., None]
-            slot = _queue_positions(kept, 1, None, []).gather(
-                2, top_idx[..., None])[..., 0]
-            n_slots = int(kept.sum(dim=(0, 1)).max())
-        trash = e * n_slots
-        flat_idx = torch.where(keep, top_idx * n_slots + slot,
-                               torch.full_like(top_idx, trash))
-        batch = _dispatch(x, flat_idx, trash + 1)[:trash]
-        out = expert_fn(batch.view(e, n_slots, x.shape[-1]))
-        out = out.reshape(trash, out.shape[-1])
-        # a dropped slot reads some row with weight 0
-        gathered = (out[flat_idx.clamp(max=trash - 1)] if trash
-                    else out.new_zeros((g, k, out.shape[-1])))
-    out = _combine(gathered, w_kept)
+        with annotate("moe.dispatch"):
+            if n_ranks == 1:
+                # one rank holds every token: the reference's (E, C)
+                # batches
+                n_slots = c
+            else:
+                # this rank's kept rows only: each expert's batch is as
+                # long as its longest queue here, each row at its place
+                # among this rank's kept rows
+                kept = assign * keep[..., None]
+                slot = _queue_positions(kept, 1, None, []).gather(
+                    2, top_idx[..., None])[..., 0]
+                n_slots = int(kept.sum(dim=(0, 1)).max())
+            trash = e * n_slots
+            flat_idx = torch.where(keep, top_idx * n_slots + slot,
+                                   torch.full_like(top_idx, trash))
+            batch = _dispatch(x, flat_idx, trash + 1)[:trash]
+        with annotate("moe.experts"):
+            out = expert_fn(batch.view(e, n_slots, x.shape[-1]))
+        count("moe.rows_computed", trash)
+        with annotate("moe.combine"):
+            out = out.reshape(trash, out.shape[-1])
+            # a dropped slot reads some row with weight 0
+            gathered = (out[flat_idx.clamp(max=trash - 1)] if trash
+                        else out.new_zeros((g, k, out.shape[-1])))
+    with annotate("moe.combine"):
+        out = _combine(gathered, w_kept)
 
     # aux losses (fp32): Switch load balance E * sum(frac_tokens *
     # frac_prob) / k, and the router z-loss, over the global batch: on a
     # mesh the sums and the token count are summed over the data ranks
     # (and sp) before the means (all_reduce_sum carries the gradient)
-    logits32 = router_logits.float()
-    sums = torch.cat([torch.softmax(logits32, dim=-1).sum(0),     # (E,)
-                      assign.sum(dim=(0, 1)).float(),             # (E,)
-                      (torch.logsumexp(logits32, dim=-1) ** 2).sum()[None],
-                      logits32.new_full((1,), float(g))])
-    if n_ranks > 1:
-        sums = col.all_reduce_sum(sums, mesh, axes)
-    n = sums[-1]
-    frac_prob, frac_tokens = sums[:e] / n, sums[e:2 * e] / n
-    lb = e * torch.sum(frac_prob * frac_tokens) / k
-    z = sums[2 * e] / n
+    with annotate("moe.aux"):
+        logits32 = router_logits.float()
+        sums = torch.cat([torch.softmax(logits32, dim=-1).sum(0),   # (E,)
+                          assign.sum(dim=(0, 1)).float(),           # (E,)
+                          (torch.logsumexp(logits32, dim=-1) ** 2)
+                          .sum()[None],
+                          logits32.new_full((1,), float(g))])
+        if n_ranks > 1:
+            sums = col.all_reduce_sum(sums, mesh, axes)
+        n = sums[-1]
+        frac_prob, frac_tokens = sums[:e] / n, sums[e:2 * e] / n
+        lb = e * torch.sum(frac_prob * frac_tokens) / k
+        z = sums[2 * e] / n
     return out, MoEAux(lb, z, frac_tokens)

@@ -83,6 +83,19 @@ cluster events (request admit / preempt / finish / abort, `wedged`,
 counter, consumer-stall hangs) through `util/metrics.py` and
 `util/events.py`; inside an actor the worker's telemetry flush ships
 them to the driver.
+
+Beyond the reference: every request's way to its first token on the
+monotonic clock (`request_timings()`: submit, admit, the prefill
+dispatch's return, the first token; `ttft_breakdown_p50_ms` is read
+from them), always on; and while a torch.profiler capture runs on the
+loop thread (`observability/profiler.py`, `start_trace(engine=)`) the
+loop's spans, `llm.step` around each iteration with `llm.admit`,
+`llm.prefill`, `llm.chunk`, `llm.decode`, `llm.publish` and `llm.drain`
+(holding `llm.fetch_wait` and `llm.emit`) inside it, and its counters
+of the work dispatched: `llm.prefill_tokens` and `llm.prefill_pairs`
+(the true prompts' tokens and causal (query, key) pairs),
+`llm.decode_tokens` (active rows) and `llm.decode_keys` (the keys K3
+reads per layer).
 """
 from __future__ import annotations
 
@@ -101,6 +114,7 @@ import numpy as np
 import torch
 
 from ...exceptions import DeadlineExceededError, EngineWedgedError
+from ...observability.profiler import annotate, capturing, count
 from ...ops.attention import PagedKV
 from ...util.device import DeviceLike, resolve_device
 from ...util import events as events_mod
@@ -176,10 +190,6 @@ class _Request:
     preempt_emitted: bool = False   # the pool-exhausted event, once
     prefix_id: int = -1             # registered prefix whose KV it adopts
     prefill_pos: int = 0            # next prompt index (chunked prefill)
-    submit_ts: float = field(default_factory=time.time)
-    admit_ts: Optional[float] = None       # slot assigned
-    prefill_dispatch_ms: float = 0.0       # host time issuing the prefill
-    first_token_ts: Optional[float] = None
     # guided decoding: host-side token FSM and its state (advanced at
     # emit)
     fsm: Optional[object] = None
@@ -195,9 +205,22 @@ class _Request:
     # absolute deadline (epoch seconds); a request still queued past it
     # is shed at admission
     deadline_ts: Optional[float] = None
+    # time.perf_counter() stamps of its way to the first token
+    # (request_timings)
+    t_submit: float = field(default_factory=time.perf_counter)
+    t_admit: Optional[float] = None        # slot assigned
+    t_prefill_end: Optional[float] = None  # its prefill dispatch returned
+    t_first: Optional[float] = None        # first token emitted
 
 
 _END = ("__end__", None)
+
+# get_stats()["ttft_breakdown_p50_ms"]: each part's (start, end) stamps
+# in request_timings()
+_TTFT_PARTS = {"queue_ms": ("submit", "admit"),
+               "prefill_dispatch_ms": ("admit", "prefill_end"),
+               "emit_ms": ("prefill_end", "first_token"),
+               "total_ms": ("submit", "first_token")}
 
 
 _engine_ids = itertools.count()
@@ -283,8 +306,9 @@ class _Fetch:
             self.event = None
 
     def result(self) -> List[np.ndarray]:
-        if self.event is not None:
-            self.event.synchronize()
+        with annotate("llm.fetch_wait"):
+            if self.event is not None:
+                self.event.synchronize()
         host = self.host.numpy()
         out, off = [], 0
         for shape, dtype in self._meta:
@@ -408,14 +432,14 @@ class LLMEngine:
         self.stats = {"prefills": 0, "decode_steps": 0,
                       "tokens_generated": 0, "prefix_tokens_saved": 0,
                       "spec_steps": 0, "spec_accepted": 0}
-        self._ttft_samples: collections.deque = collections.deque(maxlen=512)
+        # request_timings: one entry per request that got a first token
+        self._timings: collections.deque = collections.deque(maxlen=4096)
         self._tpot_samples: collections.deque = collections.deque(maxlen=512)
         # registry metrics, one labeled series per engine; the dict is
         # refreshed once per loop step, not per token
         self._mtags = {"engine": f"llm-{next(_engine_ids)}"}
         self._tokens_unpublished = 0
         self._m = _engine_metrics()
-        self._prefill_first_ms: Dict[int, float] = {}  # bucket -> ms
         # watchdog: _progress_ts advances on every admission, chunk and
         # emitted token; a thread of its own reads it, since the loop
         # thread may be the one that is stuck
@@ -1059,19 +1083,26 @@ class LLMEngine:
                     "pinned_prefix": sum(
                         len(p) for p in self._prefix_pages.values()),
                     "peak_in_use": self._page_hwm}
-            samples = list(self._ttft_samples)
+            timings = list(self._timings)
             tpots = sorted(self._tpot_samples)
         if tpots:
             out["tpot_p50_ms"] = round(tpots[len(tpots) // 2] * 1000, 2)
-        if samples:
-            def p50(key):
-                vals = sorted(s[key] for s in samples)
-                return round(vals[len(vals) // 2], 1)
+        if timings:
+            def p50(start, end):
+                vals = sorted(t[end] - t[start] for t in timings)
+                return round(vals[len(vals) // 2] * 1000, 1)
             out["ttft_breakdown_p50_ms"] = {
-                k: p50(k) for k in ("queue_ms", "prefill_dispatch_ms",
-                                    "emit_ms", "total_ms")}
-        out["prefill_first_dispatch_ms"] = dict(self._prefill_first_ms)
+                k: p50(*span) for k, span in _TTFT_PARTS.items()}
         return out
+
+    def request_timings(self) -> List[Dict[str, Any]]:
+        """The way to the first token of the last 4096 requests that got
+        one, oldest first: {"request_id", "submit", "admit",
+        "prefill_end", "first_token"}, time.perf_counter() seconds
+        (admission took a slot; the prefill dispatch returned; the first
+        token was emitted to the request's stream). A copy."""
+        with self._lock:
+            return [dict(t) for t in self._timings]
 
     def shutdown(self, timeout: float = 30.0) -> None:
         """Stop the engine loop and the watchdog and wait for their
@@ -1199,7 +1230,7 @@ class LLMEngine:
         errored)."""
         slot = self._free_slots.pop()
         req.slot = slot
-        req.admit_ts = time.time()
+        req.t_admit = time.perf_counter()
         plen = 0
         if req.prefix_id >= 0:
             plen = int(self._prefixes[req.prefix_id].size)
@@ -1242,7 +1273,7 @@ class LLMEngine:
             return "nopages"
         slot = self._free_slots.pop()
         req.slot = slot
-        req.admit_ts = time.time()
+        req.t_admit = time.perf_counter()
         plen = 0
         pages = excl
         if req.prefix_id >= 0:
@@ -1279,6 +1310,19 @@ class LLMEngine:
         its pages). Requests sharing a length bucket prefill together;
         long prompts and prefix requests join the chunked-prefill queue.
         First tokens drain through the same pipeline as decode."""
+        with annotate("llm.admit"):
+            groups = self._admit_waiting()
+        cap = max(1, self.cfg.max_prefill_batch)
+        for pad_len, members in groups.items():
+            for i in range(0, len(members), cap):
+                with annotate("llm.prefill"):
+                    self._dispatch_prefill(inflight, pad_len,
+                                           members[i:i + cap])
+
+    def _admit_waiting(self) -> Dict[int, List[tuple]]:
+        """Take a slot (and pages) for each waiting request while slots
+        last; returns the bucketed ones grouped by bucket, {pad_len:
+        [(req, slot), ...]}, and queues the chunked ones."""
         taken: List[tuple] = []
         while self._free_slots:
             if self._pending_head is not None:
@@ -1325,11 +1369,7 @@ class LLMEngine:
         groups: Dict[int, List[tuple]] = {}
         for pad_len, req, slot in taken:
             groups.setdefault(pad_len, []).append((req, slot))
-        cap = max(1, self.cfg.max_prefill_batch)
-        for pad_len, members in groups.items():
-            for i in range(0, len(members), cap):
-                self._dispatch_prefill(inflight, pad_len,
-                                       members[i:i + cap])
+        return groups
 
     def _dispatch_prefill(self, inflight, pad_len: int, members) -> None:
         """One prefill call for members = [(req, slot), ...] of a shared
@@ -1337,7 +1377,6 @@ class LLMEngine:
         slot (a contiguous cache without batching prefills one prompt in
         place)."""
         g_real = len(members)
-        t_dispatch = time.time()
         g = _next_pow2(g_real)
         tokens = np.zeros((g, pad_len), np.int32)
         slots = np.full((g,), self._scratch_slot, np.int32)
@@ -1373,11 +1412,14 @@ class LLMEngine:
                 req.out_queue.put(("error", e))
                 req.out_queue.put(_END)
             return
-        dispatch_ms = (time.time() - t_dispatch) * 1000
-        self._prefill_first_ms.setdefault(pad_len, round(dispatch_ms, 1))
+        t_end = time.perf_counter()
+        if capturing():
+            n = [int(r.prompt.size) for r in reqs]
+            count("llm.prefill_tokens", sum(n))
+            count("llm.prefill_pairs", sum(x * (x + 1) // 2 for x in n))
         self.stats["prefills"] += g_real
         for req, slot in members:
-            req.prefill_dispatch_ms = dispatch_ms
+            req.t_prefill_end = t_end
             self._disp_len[slot] = req.prompt.size
             self._active[slot] = req
         self._mask_dirty = True
@@ -1399,7 +1441,6 @@ class LLMEngine:
         n = min(self._chunk_for(req.prompt.size - start),
                 req.prompt.size - start)
         is_last = start + n >= req.prompt.size
-        t_dispatch = time.time()
         try:
             kw = {}
             if is_last and req.fsm is not None:
@@ -1419,9 +1460,13 @@ class LLMEngine:
             return
         req.prefill_pos = start + n
         self._disp_len[req.slot] = req.prefill_pos
-        req.prefill_dispatch_ms += (time.time() - t_dispatch) * 1000
+        # a chunk's queries attend to the prefix before it and causally
+        # among themselves
+        count("llm.prefill_tokens", n)
+        count("llm.prefill_pairs", n * start + n * (n + 1) // 2)
         self._note_progress()   # watchdog: a chunk advanced
         if is_last:
+            req.t_prefill_end = time.perf_counter()
             tok, lp = sampled
             self._prefilling.popleft()
             self.stats["prefills"] += 1
@@ -1438,17 +1483,14 @@ class LLMEngine:
         self.stats["tokens_generated"] += 1
         self._note_progress()   # watchdog: forward progress
         self._tokens_unpublished += 1
-        if req.first_token_ts is None:
-            now = time.time()
-            req.first_token_ts = now
-            admit = req.admit_ts or req.submit_ts
-            self._ttft_samples.append({
-                "queue_ms": (admit - req.submit_ts) * 1000,
-                "prefill_dispatch_ms": req.prefill_dispatch_ms,
-                "emit_ms": max(0.0, (now - admit) * 1000
-                               - req.prefill_dispatch_ms),
-                "total_ms": (now - req.submit_ts) * 1000})
-            self._m["ttft"].observe(now - req.submit_ts, tags=self._mtags)
+        if req.t_first is None:
+            req.t_first = now = time.perf_counter()
+            with self._lock:
+                self._timings.append({
+                    "request_id": req.request_id, "submit": req.t_submit,
+                    "admit": req.t_admit, "prefill_end": req.t_prefill_end,
+                    "first_token": now})
+            self._m["ttft"].observe(now - req.t_submit, tags=self._mtags)
         if req.hist is not None:
             req.hist.append(tok)
         # Bounded-wait put: a full out_queue means the consumer is slow
@@ -1548,8 +1590,8 @@ class LLMEngine:
                 self._mask_dirty = True
                 self._pen_coef_dirty = True
                 req.slot = -1
-            if req.first_token_ts is not None and req.generated > 1:
-                tpot = ((time.time() - req.first_token_ts)
+            if req.t_first is not None and req.generated > 1:
+                tpot = ((time.perf_counter() - req.t_first)
                         / (req.generated - 1))
                 self._tpot_samples.append(tpot)
                 try:
@@ -1799,6 +1841,12 @@ class LLMEngine:
                     req.out_queue.put(("error", e))
                     self._release(req)
             return
+        with annotate("llm.emit"):
+            self._emit_result(kind, payload, parts)
+
+    def _emit_result(self, kind: str, payload, parts) -> None:
+        """Emit one in-flight result's tokens in step order and release
+        the requests that finished."""
         if kind == "verify":
             self._drain_verify(payload, *parts)
             return
@@ -1867,7 +1915,11 @@ class LLMEngine:
             inflight: collections.deque = collections.deque()
             while not self._shutdown.is_set():
                 try:
-                    self._step(inflight)
+                    # commands run between steps, so a capture that one
+                    # starts or stops holds whole steps
+                    self._run_commands()
+                    with annotate("llm.step"):
+                        self._step(inflight)
                 except Exception as e:  # noqa: BLE001  loop must survive
                     traceback.print_exc()
                     self._in_dispatch = False
@@ -1896,32 +1948,27 @@ class LLMEngine:
                 self._in_dispatch = False
 
     def _step(self, inflight) -> None:
-        self._run_commands()
         self._in_dispatch = True   # watchdog: first-use grace
         self._admit_all(inflight)
         if self._prefilling:
-            self._dispatch_chunk(inflight)
-        allow = self._guided_decode_allow() if self._active else None
-        pen = self._pen_args() if self._active else None
-        # the verify step threads no penalties: speculation (and its
-        # synchronous stepping) is off while a penalised request is
-        # active
-        spec_sync = bool(self._active) and pen is None \
-            and self._spec_sync_active()
+            with annotate("llm.chunk"):
+                self._dispatch_chunk(inflight)
         # guided masks and n-gram proposals depend on the tokens of the
         # step before: such traffic waits for the drain below
-        need_sync = allow is not None or spec_sync
-        if self._active and (not need_sync or not inflight):
-            self._dispatch_decode(inflight, allow, pen, spec_sync)
-        m = self._m = _engine_metrics()
-        self._publish_tokens()
-        m["active"].set(float(len(self._active)), tags=self._mtags)
-        m["waiting"].set(float(self._waiting.qsize()), tags=self._mtags)
-        m["occupancy"].set(len(self._active) / max(1, self.cfg.max_slots),
-                           tags=self._mtags)
-        if self._paged:
-            m["kv_util"].set((self._n_pages - len(self._free_pages))
-                             / max(1, self._n_pages), tags=self._mtags)
+        need_sync = False
+        if self._active:
+            with annotate("llm.decode"):
+                allow = self._guided_decode_allow()
+                pen = self._pen_args()
+                # the verify step threads no penalties: speculation (and
+                # its synchronous stepping) is off while a penalised
+                # request is active
+                spec_sync = pen is None and self._spec_sync_active()
+                need_sync = allow is not None or spec_sync
+                if not need_sync or not inflight:
+                    self._dispatch_decode(inflight, allow, pen, spec_sync)
+        with annotate("llm.publish"):
+            self._publish_gauges()
         if not inflight:
             self._in_dispatch = False
             time.sleep(0.002)
@@ -1933,8 +1980,21 @@ class LLMEngine:
         if need_sync:
             target = 0
         while len(inflight) > target:
-            self._drain_one(inflight)
+            with annotate("llm.drain"):
+                self._drain_one(inflight)
         self._in_dispatch = False
+
+    def _publish_gauges(self) -> None:
+        """The token counter and the loop's gauges, once a step."""
+        m = self._m = _engine_metrics()
+        self._publish_tokens()
+        m["active"].set(float(len(self._active)), tags=self._mtags)
+        m["waiting"].set(float(self._waiting.qsize()), tags=self._mtags)
+        m["occupancy"].set(len(self._active) / max(1, self.cfg.max_slots),
+                           tags=self._mtags)
+        if self._paged:
+            m["kv_util"].set((self._n_pages - len(self._free_pages))
+                             / max(1, self._n_pages), tags=self._mtags)
 
     def _dispatch_decode(self, inflight, allow, pen, spec_sync: bool) -> None:
         """Dispatch the next step for every active slot: a verify step when
@@ -1968,6 +2028,13 @@ class LLMEngine:
             step_lps.append(lps)
         for slot in self._active:
             self._disp_len[slot] += block
+        if capturing():
+            # K3 reads, per layer, each active slot's keys up to its
+            # length after each of the block's steps
+            count("llm.decode_tokens", block * len(self._active))
+            count("llm.decode_keys", sum(
+                block * self._disp_len[slot] - block * (block - 1) // 2
+                for slot in self._active))
         out = steps[0] if block == 1 else torch.stack(steps)
         parts = [out]
         if self.cfg.logprobs:

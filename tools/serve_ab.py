@@ -49,7 +49,7 @@ server = LLMServer(lambda: (model, None), engine_config=dict(
     max_prefill_batch=4, kv_page_size=16), device="cuda")
 cs.burst(server, bodies)
 for _ in range(int(sys.argv[1])):
-    server.engine._ttft_samples.clear()
+    server.engine._timings.clear()
     server.engine._tpot_samples.clear()
     t0 = time.time()
     res = cs.burst(server, bodies)
