@@ -345,6 +345,14 @@ twenty-one phases and fails (non-zero exit, no result line) if any of them fails
    before this one (whole over d), peak memory, and K1/K2a/K2b launched
    4 times each on every rank.
 
+Each engine of the serving phases (the bursts, the parity and route
+engines, the pinned routes, GRPO's samplers and the replicas of
+serve-deploy and the front doors) prints its `get_stats()
+["decode_graphs"]` and its decode-graph replays ("decode graphs: ..."
+lines). After the last phase a paged engine that did not capture its
+graphs or never replayed them, or a contiguous one that did, fails the
+run; engines in a rank's or a worker's own process print only.
+
 The last three lines are a JSON object listing each kernel (with its
 launches on each path, the zoo's bursts and ViT's forward among them,
 the front doors' `cli-serve`, `job` and `client`, phase 19's
@@ -526,6 +534,36 @@ def fail(msg: str) -> None:
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(msg)
+
+
+# (label, get_stats()["decode_graphs"], replays, paged) of each engine a
+# phase ran in this process or in its replica; main() checks them at
+# the end, so one run names every engine whose decode was not graphed
+GRAPHS: list = []
+
+
+def graph_replays() -> int:
+    """Decode-graph replays made in this process so far."""
+    from ray_tpu_torch.models.decode_graph import DecodeGraphs
+    return DecodeGraphs.replay.launches
+
+
+def note_graphs(label: str, state: str, replays: int,
+                paged: bool = True) -> None:
+    GRAPHS.append((label, state, replays, paged))
+    print(f"decode graphs: {label}: {state}, {replays} replays", flush=True)
+
+
+def check_graphs() -> None:
+    """Every paged engine on the card captured its decode graphs and
+    replayed them; every contiguous one stayed eager."""
+    bad = [g for g in GRAPHS if (g[1], g[2] > 0)
+           != (("captured", True) if g[3] else ("off", False))]
+    print(f"decode graphs: {len(GRAPHS) - len(bad)} of {len(GRAPHS)} "
+          f"engines as expected: " + json.dumps(
+              {label: [state, n] for label, state, n, _ in GRAPHS}),
+          flush=True)
+    check(not bad, f"decode graphs: not as expected: {bad}")
 
 
 def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
@@ -1107,8 +1145,10 @@ def timed_burst(torch, engine, warm, run, plens, label, gpu_line, vocab):
     burst's decode tokens/s, verify steps and accepted proposals."""
     from ray_tpu_torch.ops.kernels import flash_attention as fa
     from ray_tpu_torch.ops.kernels import paged_attention as pa
+    from ray_tpu_torch.models.decode_graph import DecodeGraphs
     fa.flash_attention_fwd.launches = 0
     pa.paged_decode_attention.launches = 0
+    DecodeGraphs.replay.launches = 0
     check(len(warm()) == 2, f"{label}: warm-up request failed")
     engine._timings.clear()
     engine._tpot_samples.clear()
@@ -1119,6 +1159,8 @@ def timed_burst(torch, engine, warm, run, plens, label, gpu_line, vocab):
     launches = {"flash_fwd (K1)": fa.flash_attention_fwd.launches,
                 "paged_decode (K3)": pa.paged_decode_attention.launches}
     stats = engine.get_stats()
+    note_graphs(label, stats["decode_graphs"], graph_replays(),
+                paged=bool(engine.cfg.kv_page_size))
     for i, toks in enumerate(results):
         check(toks is not None and len(toks) == SERVE_NEW,
               f"{label}: request {i} returned "
@@ -1796,12 +1838,15 @@ def phase_routes(torch):
             prefill_buckets=(32, 64, 128, 256, 512)), device="cuda")
         zero_counters(fa)
         pa.paged_decode_attention.launches = 0
+        replays = graph_replays()
         try:
             rids = [engine.submit(p, max_new_tokens=PARITY_NEW)
                     for p in prompts]
             got = [list(engine.stream(r)) for r in rids]
+            state = engine.get_stats()["decode_graphs"]
         finally:
             engine.shutdown()
+        note_graphs(f"routes: {label}", state, graph_replays() - replays)
         k1 = fa.flash_attention_fwd.launches
         k3 = pa.paged_decode_attention.launches
         print(f"routes: {label}: D {cfg.head_dim}, Hq {cfg.n_heads}, Hkv "
@@ -1917,6 +1962,7 @@ def engine_parity(torch, model, prompts, want, label, configs, base,
                            device="cuda")
         zero_counters(fa)
         pa.paged_decode_attention.launches = 0
+        replays = graph_replays()
         try:
             if "max_prefixes" in kw:
                 full = prompts[-1]
@@ -1931,9 +1977,13 @@ def engine_parity(torch, model, prompts, want, label, configs, base,
                         for p in prompts]
                 expect = want
             got = [list(engine.stream(r)) for r in rids]
-            saved = engine.get_stats()["prefix_tokens_saved"]
+            stats = engine.get_stats()
+            saved = stats["prefix_tokens_saved"]
         finally:
             engine.shutdown()
+        note_graphs(f"{label}: {name}", stats["decode_graphs"],
+                    graph_replays() - replays,
+                    paged=bool(kw.get("kv_page_size")))
         k1 = fa.flash_attention_fwd.launches
         k3 = pa.paged_decode_attention.launches
         for i, (g, w) in enumerate(zip(got, expect)):
@@ -2742,22 +2792,25 @@ def grpo_engine_cfg(gcfg):
 
 
 class CountingSampler:
-    """A sampler that counts the K1 and K3 launches made while it samples
-    and keeps every completion it returned."""
+    """A sampler that counts the K1 and K3 launches and the decode-graph
+    replays made while it samples and keeps every completion it
+    returned."""
 
     def __init__(self, sampler):
         from ray_tpu_torch.ops.kernels import flash_attention as fa
         from ray_tpu_torch.ops.kernels import paged_attention as pa
         self.sampler, self.fa, self.pa = sampler, fa, pa
-        self.k1 = self.k3 = 0
+        self.k1 = self.k3 = self.replays = 0
         self.tokens = []
 
     def __call__(self, prompt_ids, group):
         k1 = self.fa.flash_attention_fwd.launches
         k3 = self.pa.paged_decode_attention.launches
+        replays = graph_replays()
         toks = self.sampler(prompt_ids, group)
         self.k1 += self.fa.flash_attention_fwd.launches - k1
         self.k3 += self.pa.paged_decode_attention.launches - k3
+        self.replays += graph_replays() - replays
         self.tokens.append(toks)
         return toks
 
@@ -2813,6 +2866,8 @@ def grpo_run(torch, trainer, label, n_layers, vocab, gpu_line,
           f"(expected (2 + 2 x {epochs}) x {n_layers} x {steps} = "
           f"{want_k1}), K2a/K2b expected {epochs} x {n_layers} x {steps} = "
           f"{want_k2}", flush=True)
+    note_graphs(label, counting.sampler.engine.get_stats()["decode_graphs"],
+                counting.replays)
     toks = np.concatenate([t.reshape(-1) for t in counting.tokens])
     check(((toks >= 0) & (toks < vocab)).all(),
           f"{label}: a sampled token is out of vocab")
@@ -3899,14 +3954,21 @@ def serve_deploy_server_cls():
                     "init_span": self.init_span}
 
         def launches(self, body=None):
-            """The K1/K3 counts; with {"zero": True} set to 0 after."""
+            """The K1/K3 counts and the decode-graph replays, with the
+            engine's "decode_graphs"; with {"zero": True} set to 0
+            after."""
+            from ray_tpu_torch.models.decode_graph import DecodeGraphs
             from ray_tpu_torch.ops.kernels import flash_attention as fa
             from ray_tpu_torch.ops.kernels import paged_attention as pa
             out = {"flash_fwd (K1)": fa.flash_attention_fwd.launches,
-                   "paged_decode (K3)": pa.paged_decode_attention.launches}
+                   "paged_decode (K3)": pa.paged_decode_attention.launches,
+                   "decode graph replays": DecodeGraphs.replay.launches,
+                   "decode graphs":
+                       self.engine.get_stats()["decode_graphs"]}
             if body and body.get("zero"):
                 fa.flash_attention_fwd.launches = 0
                 pa.paged_decode_attention.launches = 0
+                DecodeGraphs.replay.launches = 0
             return out
 
         def clear_samples(self, _body=None):
@@ -4070,6 +4132,8 @@ def serve_deploy_bursts(handle, port, vocab, gpu_line, serve_stats):
           f"{serve_stats['tpot_p50_ms']} ms, decode tokens/s "
           f"{serve_stats['decode_tok_s']:.1f}; replica launches "
           f"{json.dumps(launches)} [{gpu_line}]", flush=True)
+    note_graphs("serve-deploy (b)", launches.pop("decode graphs"),
+                launches["decode graph replays"])
     check(launches["flash_fwd (K1)"] > 0 and launches["paged_decode (K3)"] > 0,
           f"serve-deploy (b): the replica's kernels did not run: {launches}")
     free_slots = st["free_slots"] == SERVE_DEPLOY_ENGINE["max_slots"]
@@ -4150,6 +4214,8 @@ def serve_deploy_parity(serve, build, cls, port, parity):
         results, _ = http_burst(port, bodies)
         got[mode] = [ids for ids, _n, _t in results]
     launches = handle.launches.remote().result(timeout_s=60)
+    note_graphs("serve-deploy (c)", launches.pop("decode graphs"),
+                launches["decode graph replays"])
     for mode, toks in got.items():
         for i, (g, w) in enumerate(zip(toks, want)):
             if g != w:
@@ -4744,7 +4810,7 @@ FRONT_APP_SOURCE = '''"""The app `python -m ray_tpu_torch serve run {app}:app`
 serves: the parity phase's fp32 model (4 layers of Llama-3-8B widths,
 seed 1, TF32 off in the replica) behind build_openai_deployment, with a
 server that answers {{"launches": ...}} bodies with the replica's K1/K3
-counts."""
+counts and decode-graph replays."""
 import os
 import time
 
@@ -4772,16 +4838,21 @@ class CountingServer(OpenAIServer):
         if isinstance(body, dict) and "launches" in body:
             import psutil
             from ray_tpu_torch import get_gpu_ids
+            from ray_tpu_torch.models.decode_graph import DecodeGraphs
             from ray_tpu_torch.ops.kernels import flash_attention as fa
             from ray_tpu_torch.ops.kernels import paged_attention as pa
             out = {{"flash_fwd (K1)": fa.flash_attention_fwd.launches,
                    "paged_decode (K3)": pa.paged_decode_attention.launches,
+                   "decode graph replays": DecodeGraphs.replay.launches,
+                   "decode graphs":
+                       self.engine.get_stats()["decode_graphs"],
                    "gpu_ids": get_gpu_ids(), "pid": os.getpid(),
                    "started": psutil.Process().create_time(),
                    "init_span": self.init_span}}
             if body["launches"] == "zero":
                 fa.flash_attention_fwd.launches = 0
                 pa.paged_decode_attention.launches = 0
+                DecodeGraphs.replay.launches = 0
             return out
         return super().__call__(body)
 
@@ -5261,6 +5332,8 @@ class FrontServeRun:
         counts = self.post({"launches": "read"})
         launches = {k: counts[k] for k in ("flash_fwd (K1)",
                                            "paged_decode (K3)")}
+        note_graphs("front doors (b)", counts["decode graphs"],
+                    counts["decode graph replays"])
         init0, init1 = counts["init_span"]
         status = json.loads(front_cli("--address", self.dash, "serve",
                                       "status"))
@@ -5547,12 +5620,16 @@ def pinned_greedy(torch, model, prompts, paged):
             prefill_buckets=(32, 64, 128, 256, 512)), device="cuda")
         zero_counters(fa)
         pa.paged_decode_attention.launches = 0
+        replays = graph_replays()
         try:
             rids = [engine.submit(p, max_new_tokens=PARITY_NEW)
                     for p in prompts]
             got = [list(engine.stream(r)) for r in rids]
+            state = engine.get_stats()["decode_graphs"]
         finally:
             engine.shutdown()
+        note_graphs(f"pinned: {model.cfg.attn_impl}, paged {paged}", state,
+                    graph_replays() - replays)
     finally:
         os.environ.pop("RAY_TPU_PAGED_ATTN_IMPL", None)
     return got, {"flash_fwd (K1)": fa.flash_attention_fwd.launches,
@@ -6898,6 +6975,7 @@ def main() -> None:
     launches.update(phase_pinned_and_rest(torch, gpu_line, parity))
     launches.update(phase_parallel_rest(torch, gpu_line, parallel_ms))
     launches["experts-fsdp"] = phase_experts_fsdp(torch, gpu_line)
+    check_graphs()
 
     # each kernel's launches on the main paths (the serve bursts, train,
     # GRPO full, LoRA, the north star's and the mesh train step, the

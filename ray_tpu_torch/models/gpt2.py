@@ -192,11 +192,16 @@ class GPT2(nn.Module):
         return [getattr(self, f"h_{i}") for i in range(self.cfg.n_layers)]
 
     def forward(self, tokens: torch.Tensor, cache=None,
-                positions: Optional[torch.Tensor] = None):
+                positions: Optional[torch.Tensor] = None, graphs=None):
         """tokens (B, S) -> logits (B, S, V) fp32 with no cache, else
         (logits, new_cache) with the per-layer cache entries of Llama;
-        `positions` also select the positional embeddings."""
+        `positions` also select the positional embeddings. `graphs`: as
+        `Llama.forward`'s."""
         from ..parallel.sharding import sequence_shard
+        if graphs is not None:
+            out = graphs.replay(self, tokens, cache, positions)
+            if out is not None:
+                return out
         cfg = self.cfg
         b, s = tokens.shape
         if positions is None:

@@ -284,11 +284,14 @@ def _normal_(w: torch.Tensor, std: float, gen: torch.Generator) -> None:
 
 
 class Llama(nn.Module):
-    """forward(tokens, cache=None, positions=None) -> (logits, new_cache).
+    """forward(tokens, cache=None, positions=None, graphs=None) ->
+    (logits, new_cache).
 
     tokens: (B, S) integer ids. cache: None (plain causal forward) or a
     list of per-layer entries, (k, v, lengths) or PagedKV. Logits are
-    (B, S, vocab) fp32."""
+    (B, S, vocab) fp32. graphs: a `decode_graph.DecodeGraphs` (the
+    serving engine's), whose captured forward a one-token paged decode
+    step replays where it has one; every other call runs eagerly."""
 
     def __init__(self, cfg: LlamaConfig, *, device: DeviceLike = "cuda",
                  seed: int = 0):
@@ -330,7 +333,11 @@ class Llama(nn.Module):
                 for i in range(self.cfg.n_layers)]
 
     def forward(self, tokens: torch.Tensor, cache=None,
-                positions: Optional[torch.Tensor] = None):
+                positions: Optional[torch.Tensor] = None, graphs=None):
+        if graphs is not None:
+            out = graphs.replay(self, tokens, cache, positions)
+            if out is not None:
+                return out
         cfg = self.cfg
         # remat trades recompute for memory on the train path only; the
         # cached (serving) path never checkpoints

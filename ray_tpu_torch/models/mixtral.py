@@ -175,9 +175,10 @@ class MixtralBlock(nn.Module):
 
 
 class Mixtral(nn.Module):
-    """forward(tokens, cache=None, positions=None) -> (logits, new_cache),
-    the calling convention of `Llama`, so the engine and the train step
-    take either. Logits are (B, S, vocab) fp32."""
+    """forward(tokens, cache=None, positions=None, graphs=None) ->
+    (logits, new_cache), the calling convention of `Llama` (graphs
+    included), so the engine and the train step take either. Logits are
+    (B, S, vocab) fp32."""
 
     def __init__(self, cfg: MixtralConfig, *, device: DeviceLike = "cuda",
                  seed: int = 0):
@@ -223,7 +224,11 @@ class Mixtral(nn.Module):
                 for i in range(self.cfg.n_layers)]
 
     def forward(self, tokens: torch.Tensor, cache=None,
-                positions: Optional[torch.Tensor] = None):
+                positions: Optional[torch.Tensor] = None, graphs=None):
+        if graphs is not None:
+            out = graphs.replay(self, tokens, cache, positions)
+            if out is not None:
+                return out
         cfg = self.cfg
         remat = cfg.remat and cache is None and torch.is_grad_enabled()
         x = self.token_embed(tokens.long()).to(cfg.dtype)

@@ -15,7 +15,10 @@ the capture. `count(name, n)` adds to a counter under the same gate, so
 a count is kept only while a capture runs on the counting thread; the
 program counts a launch after the call that issues its kernels
 returns, so a launch is counted if and only if its kernels fall inside
-the capture. `counters()` reads them.
+the capture. `counters()` reads them. Inside `recording_counts()` the
+counts a thread makes are collected instead, capture or not: a CUDA
+graph's capture (models/decode_graph.py) records what its forward
+counts, and each replay counts that again.
 
 torch.profiler records host operations only on the thread that started
 it. The engine's dispatches run on its own loop thread (`llm-engine`),
@@ -40,6 +43,8 @@ _active: list = []
 _NO_SPAN = contextlib.nullcontext()
 _counts: Dict[str, int] = collections.Counter()
 _counts_lock = threading.Lock()
+# per thread: the Counter of an open recording_counts(), else unset
+_recording = threading.local()
 
 
 def capturing() -> bool:
@@ -61,10 +66,27 @@ def annotate(name: str):
 
 
 def count(name: str, n: int = 1) -> None:
-    """Add n to counter `name` while a capture runs on this thread."""
-    if capturing():
+    """Add n to counter `name` while a capture runs on this thread; inside
+    `recording_counts()`, to that recording instead."""
+    rec = getattr(_recording, "counts", None)
+    if rec is not None:
+        rec[name] += n
+    elif capturing():
         with _counts_lock:
             _counts[name] += n
+
+
+@contextlib.contextmanager
+def recording_counts():
+    """`with recording_counts() as rec:` collects into the Counter `rec`
+    the counts this thread makes inside the block, whether a capture
+    runs or not, and keeps none of them in `counters()`."""
+    prev = getattr(_recording, "counts", None)
+    _recording.counts = rec = collections.Counter()
+    try:
+        yield rec
+    finally:
+        _recording.counts = prev
 
 
 def counters(reset: bool = False) -> Dict[str, int]:
@@ -199,5 +221,6 @@ def timed_steps(step_fn, state, batch, *, warmup: int = 2,
 
 
 __all__ = ["start_trace", "stop_trace", "trace", "annotate", "count",
-           "counters", "capturing", "device_memory_profile", "hbm_usage",
+           "counters", "recording_counts", "capturing",
+           "device_memory_profile", "hbm_usage",
            "host_rss_bytes", "timed_steps"]

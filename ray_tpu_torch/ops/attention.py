@@ -94,6 +94,12 @@ def _knob_impl(name: str, valid) -> str:
     return value
 
 
+def paged_attn_impl() -> str:
+    """The paged cache's route, read from RAY_TPU_PAGED_ATTN_IMPL on
+    every call (module docstring)."""
+    return _knob_impl("RAY_TPU_PAGED_ATTN_IMPL", PAGED_ATTN_IMPLS)
+
+
 def causal_attention_mask(seq_len: int, dtype: torch.dtype = torch.bool,
                           device=None) -> torch.Tensor:
     """(seq_len, seq_len) lower-triangular mask: 1 (True) where query i
@@ -397,7 +403,7 @@ def paged_cached_attention(q: torch.Tensor, k: torch.Tensor,
     new_lengths = torch.maximum(
         lengths, (positions[:, -1] + 1).to(lengths.dtype))
     new_cache = PagedKV(k_flat, v_flat, page_table, new_lengths, ps)
-    paged = _knob_impl("RAY_TPU_PAGED_ATTN_IMPL", PAGED_ATTN_IMPLS)
+    paged = paged_attn_impl()
 
     if cache.fresh and paged != "gather":
         # pure prefill: no prior context, attend over the new tokens

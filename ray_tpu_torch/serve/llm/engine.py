@@ -30,6 +30,21 @@ ray_tpu/serve/llm/engine.py).
   per-row top-p sampling on the device. `decode_block > 1` runs that
   many one-token steps back to back on the loop thread (the reference's
   `lax.scan`) and fetches their (block, S) tokens with one copy.
+* Decode graphs (the paged cache on CUDA, a model whose forward takes
+  `graphs=`: Llama, Mixtral, GPT-2, unsharded): the one-token decode
+  forward is captured as a CUDA graph per page-table width the window
+  can take (`_graph_widths`: the powers of two below the table's width
+  and the full table), all at the first plain decode step, and the
+  model's forward replays it (models/decode_graph.py): one launch where
+  the eager forward issues thousands from Python. The engine still
+  calls the model once a step, so its forward hooks run. Sampling stays
+  eager: it reads the graph's logits on the stream before the next
+  replay overwrites them, into tokens of its own that the fetch copies.
+  Guided and penalised steps, verify steps, prefills and chunks
+  run the same forward eagerly, as does every step on the CPU or the
+  contiguous cache. `get_stats()["decode_graphs"]` says whether the
+  graphs are captured, and why a capture that raised left the engine
+  eager.
 * Prefix caching (`max_prefixes > 0`): `register_prefix` prefills a
   shared prefix once, on the engine loop thread. Paged: into pinned
   pages through the scratch slot's row (a fresh prefill, K1); adopters
@@ -90,12 +105,17 @@ dispatch's return, the first token; `ttft_breakdown_p50_ms` is read
 from them), always on; and while a torch.profiler capture runs on the
 loop thread (`observability/profiler.py`, `start_trace(engine=)`) the
 loop's spans, `llm.step` around each iteration with `llm.admit`,
-`llm.prefill`, `llm.chunk`, `llm.decode`, `llm.publish` and `llm.drain`
-(holding `llm.fetch_wait` and `llm.emit`) inside it, and its counters
-of the work dispatched: `llm.prefill_tokens` and `llm.prefill_pairs`
-(the true prompts' tokens and causal (query, key) pairs),
-`llm.decode_tokens` (active rows) and `llm.decode_keys` (the keys K3
-reads per layer).
+`llm.prefill`, `llm.chunk`, `llm.decode` (holding `llm.decode_graph`
+round a replay), `llm.publish` and `llm.drain` (holding
+`llm.fetch_wait` and `llm.emit`) inside it, and its counters of the
+work dispatched: `llm.prefill_tokens` and `llm.prefill_pairs` (the true
+prompts' tokens and causal (query, key) pairs), `llm.decode_tokens`
+(active rows), `llm.decode_keys` (the keys K3 reads per layer), and
+`llm.decode_graph_steps` and `llm.decode_eager_steps` (the one-token
+steps that replayed a graph and those that ran the forward eagerly,
+verify steps among the latter). A replay counts what its forward
+counted at capture (`moe.rows_computed`); the kernels it launches fall
+under `llm.decode_graph`, not under the model's spans.
 """
 from __future__ import annotations
 
@@ -114,6 +134,7 @@ import numpy as np
 import torch
 
 from ...exceptions import DeadlineExceededError, EngineWedgedError
+from ...models import decode_graph
 from ...observability.profiler import annotate, capturing, count
 from ...ops.attention import PagedKV
 from ...util.device import DeviceLike, resolve_device
@@ -131,9 +152,11 @@ class LLMEngineConfig:
     top_k: int = 0                  # 0 = full softmax sampling
     # Decode steps issued ahead of the host reading their tokens: it
     # trades termination lag (at most this many discarded dispatches per
-    # finished request) against hiding the device->host fetch. The
-    # default mirrors the JAX engine; the right depth for the GPU has
-    # not been measured.
+    # finished request) against hiding the device->host fetch. A token
+    # is read this many dispatches after its own; with decode graphs a
+    # dispatch costs about a step of device time, eager ones cost the
+    # host's issue of the forward's ops. The default mirrors the JAX
+    # engine; the right depth for the GPU has not been measured.
     pipeline_depth: int = 10
     # One-token decode steps per dispatch, their tokens fetched together.
     # 1 = the classic one-token step.
@@ -385,6 +408,13 @@ class LLMEngine:
                                     device=dev)
         self._last_tokens = torch.zeros((self._n_slots,), dtype=torch.int32,
                                         device=dev)
+        # the paged one-token decode forward as CUDA graphs, captured at
+        # the first plain decode step (`_step_graphs`)
+        self._graphs = (decode_graph.DecodeGraphs() if self._paged
+                        and decode_graph.available(dev)
+                        and decode_graph.supported(model) else None)
+        # why the first capture failed ("Type: message"), else None
+        self._graph_error: Optional[str] = None
         self._pending_head: Optional[_Request] = None
         # host mirror of each slot's length (prefilled and chunking
         # slots too): sizes the paged decode step's page window
@@ -639,19 +669,25 @@ class LLMEngine:
                 for (k, v) in self._pools]
 
     def _decode(self, mask, temps, top_ps, window_pages: int,
-                any_temp: bool, any_top_p: bool, allow=None, pen=None):
+                any_temp: bool, any_top_p: bool, allow=None, pen=None,
+                graphs=None):
         """One decode step for every slot. Inactive slots keep their
         lengths; released paged slots' rows point at the trash page, so
         their writes are inert. `allow` (S, V) is the guided mask and
-        `pen` the penalty state (`_pen_args`). Returns (next tokens,
-        logprobs or None, new lengths)."""
+        `pen` the penalty state (`_pen_args`); `graphs` the decode
+        graphs the model's forward replays (`_step_graphs`), sampling
+        stays eager. Returns (next tokens, logprobs or None, new
+        lengths)."""
         # a lagged step of a request that filled max_seq_len writes at
         # the last position instead of past it; its token is discarded
         positions = self._lengths.clamp(max=self.cfg.max_seq_len - 1)[:, None]
-        logits, new_entries = self.model(self._last_tokens[:, None],
-                                         cache=self._cache_entries(
-                                             window_pages),
-                                         positions=positions)
+        replays = 0 if graphs is None else graphs.replays
+        logits, new_entries = self.model(
+            self._last_tokens[:, None],
+            cache=self._cache_entries(window_pages), positions=positions,
+            **({} if graphs is None else {"graphs": graphs}))
+        count("llm.decode_graph_steps" if graphs is not None
+              and graphs.replays > replays else "llm.decode_eager_steps")
         new = new_entries[0]
         new_len = new.lengths if self._paged else new[2]
         new_lengths = torch.where(mask, new_len, self._lengths)
@@ -680,6 +716,7 @@ class LLMEngine:
         logits, _ = self.model(toks_in,
                                cache=self._cache_entries(window_pages),
                                positions=positions)       # (S, K+1, V)
+        count("llm.decode_eager_steps")
         out, n_emit, logps, last = self._verify_accept(
             logits, proposals, mask, temps, top_ps, any_temp, any_top_p)
         self._lengths = self._lengths + n_emit
@@ -1073,7 +1110,8 @@ class LLMEngine:
             out = {**self.stats, "active": len(self._active),
                    "waiting": self._waiting.qsize(),
                    "prefilling": len(self._prefilling),
-                   "free_slots": len(self._free_slots)}
+                   "free_slots": len(self._free_slots),
+                   "decode_graphs": self._graph_state()}
             if self._paged:
                 out["kv_pages"] = {
                     "page_size": self.cfg.kv_page_size,
@@ -1094,6 +1132,18 @@ class LLMEngine:
             out["ttft_breakdown_p50_ms"] = {
                 k: p50(*span) for k, span in _TTFT_PARTS.items()}
         return out
+
+    def _graph_state(self) -> str:
+        """get_stats()["decode_graphs"]: "off" (this engine runs every
+        step eagerly: not CUDA, not the paged cache, or a model that
+        takes no graphs), "pending" (none captured yet, or dropped with a
+        rebound weight until the next plain step), "captured", or
+        "failed: <error>" (the capture raised; decode runs eagerly)."""
+        if self._graph_error is not None:
+            return f"failed: {self._graph_error}"
+        if self._graphs is None:
+            return "off"
+        return "captured" if self._graphs.captured else "pending"
 
     def request_timings(self) -> List[Dict[str, Any]]:
         """The way to the first token of the last 4096 requests that got
@@ -1637,6 +1687,40 @@ class LLMEngine:
         w = _next_pow2(-(-need // ps))
         return 0 if w >= self._pages_per_slot else w
 
+    def _graph_widths(self) -> List[int]:
+        """Every page-table width a one-token decode step can take: each
+        window `_decode_window_pages` gives (the powers of two below the
+        table's width) and the full table."""
+        widths, w = [], 1
+        while w < self._pages_per_slot:
+            widths.append(w)
+            w *= 2
+        return widths + [self._pages_per_slot]
+
+    def _step_graphs(self, allow, pen):
+        """The decode graphs a plain decode step's forward replays, or
+        None: guided and penalised steps (and verify steps, which never
+        ask) run eagerly, as does every step of an engine without graphs
+        (`self._graphs`: the paged cache on CUDA, a model that takes
+        them). The first call captures every width (`_graph_widths`) at
+        once, so no capture waits for traffic to reach a new window; a
+        capture that fails leaves the engine eager, and
+        `get_stats()["decode_graphs"]` says why."""
+        if self._graphs is None or allow is not None or pen is not None:
+            return None
+        if not self._graphs.captured:
+            try:
+                self._graphs.capture(
+                    self.model, self._pools, self.cfg.kv_page_size,
+                    self._n_slots, self._graph_widths(), self._trash_page)
+            except Exception as e:  # noqa: BLE001  serving goes on eagerly
+                traceback.print_exc()
+                self._graph_error = f"{type(e).__name__}: {e}"
+                self._graphs.clear()
+                self._graphs = None
+                return None
+        return self._graphs
+
     # ---- n-gram speculation (host side) -----------------------------------
     def _propose_ngram(self, req: _Request) -> Optional[List[int]]:
         """Prompt lookup: the K tokens that followed the latest earlier
@@ -2018,11 +2102,12 @@ class LLMEngine:
                  if allow is None and pen is None else 1)
         window = (self._decode_window_pages(max(1, self.cfg.decode_block))
                   if self._paged else 0)
+        graphs = self._step_graphs(allow, pen)
         steps, step_lps = [], []
         for _ in range(block):
             toks, lps, self._lengths = self._decode(
                 mask, temps, top_ps, window, any_temp, any_top_p,
-                allow=allow, pen=pen)
+                allow=allow, pen=pen, graphs=graphs)
             self._last_tokens = toks
             steps.append(toks)
             step_lps.append(lps)
